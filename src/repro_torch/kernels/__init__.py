@@ -1,0 +1,12 @@
+"""Hand-written Hopper (sm_90a) kernels for the port's compute layers.
+
+  flash_attention — online-softmax GQA attention, full mask menu (causal /
+                    sliding-window / prefix-LM / logit softcap / q offset /
+                    cache fill level), CUDA C++ in ``csrc/``
+
+Each kernel has a ctypes wrapper that checks its inputs and counts its
+launches, a plain PyTorch version in ``ref.py``, and dispatch by device in
+``ops.py``.  Kernels are built with ``nvcc`` at first use (``build.py``).
+"""
+
+from . import ops, ref  # noqa: F401

@@ -1,0 +1,136 @@
+"""Where a serving step's time goes on the card: one prefill and one decode
+step of the port's engine, timed on the host clock and traced with
+``torch.profiler``.
+
+  PYTHONPATH=src python -m repro_torch.launch.profile_serve \\
+      --arch smollm-360m --batch 4 --prompt-len 512 --context-len 1024
+
+For each phase it prints the step's host-clock time (median of five
+untraced steps, each ending in a synchronize), the device's busy time (the
+sum of kernel times in one traced step), the idle share of the step, the
+kernel launches, and the kernels taking the most device time; then one JSON
+line with the same numbers and the card's name and power limit.  Needs a
+CUDA device: a traced CPU run says nothing about the card.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import statistics
+import subprocess
+import time
+
+import numpy as np
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+from repro_torch.models import get_config, init_caches, init_model
+from repro_torch.serving.engine import make_decode_fn, make_prefill_fn
+
+REPS, TOP = 5, 6
+LAUNCH_EVENTS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+                 "cuLaunchKernelEx")
+
+
+def _device_us(e) -> float:
+    return getattr(e, "self_device_time_total", None) or \
+        getattr(e, "self_cuda_time_total", 0.0)
+
+
+def trace(step) -> dict:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        step()
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    kernels = sorted((e for e in events if _device_us(e) > 0
+                      and e.self_cpu_time_total == 0),
+                     key=_device_us, reverse=True)
+    busy_us = sum(_device_us(e) for e in kernels)
+    return {
+        "device_busy_ms": busy_us / 1e3,
+        "launches": sum(e.count for e in events if e.key in LAUNCH_EVENTS),
+        "top_kernels": [{"name": e.key[:90], "calls": e.count,
+                         "ms": _device_us(e) / 1e3,
+                         "share": _device_us(e) / busy_us if busy_us else 0.0}
+                        for e in kernels[:TOP]],
+    }
+
+
+def main(argv: list[str] | None = None) -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="smollm-360m")
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=512)
+    ap.add_argument("--context-len", type=int, default=1024)
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_serve needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    cfg = get_config(args.arch)
+    params = init_model(cfg, seed=0, device="cuda")
+    prefill, decode = make_prefill_fn(cfg), make_decode_fn(cfg)
+    rng = np.random.default_rng(0)
+    toks = torch.as_tensor(
+        rng.integers(0, cfg.vocab_size, (args.batch, args.prompt_len)), device="cuda")
+
+    def fresh():
+        return init_caches(cfg, args.batch, args.context_len,
+                           dtype=torch.float32, device="cuda")
+
+    state = {}
+
+    def do_prefill():
+        state["tok"], state["caches"] = prefill(params, {"tokens": toks}, state["caches"])
+
+    def do_decode():
+        state["tok"], state["caches"] = decode(params, state["tok"], state["caches"])
+
+    def wall_ms(step, before=None) -> float:
+        times = []
+        for _ in range(REPS):
+            if before:
+                before()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(times)
+
+    def reset():
+        state["caches"] = fresh()
+
+    reset()
+    do_prefill()                                  # warm-up: handles, kernel load
+    do_decode()
+    out = {}
+    for phase, step, before in (("prefill", do_prefill, reset),
+                                ("decode", do_decode, None)):
+        if phase == "decode":
+            reset()
+            do_prefill()
+        wall = wall_ms(step, before)
+        if before:
+            before()
+        traced = trace(step)
+        traced["wall_ms"] = wall
+        traced["idle_share"] = max(0.0, 1.0 - traced["device_busy_ms"] / wall)
+        out[phase] = traced
+        print(f"{phase}: {wall:.3f} ms on the host clock, device busy "
+              f"{traced['device_busy_ms']:.3f} ms (idle {traced['idle_share']:.1%}), "
+              f"{traced['launches']} kernel launches")
+        for k in traced["top_kernels"]:
+            print(f"  {k['ms']:9.3f} ms {k['share']:6.1%} x{k['calls']:<5d} {k['name']}")
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60).stdout.strip()
+    print(json.dumps({"arch": args.arch, "batch": args.batch,
+                      "prompt_len": args.prompt_len,
+                      "context_len": args.context_len, "card": card, **out}))
+
+
+if __name__ == "__main__":
+    main()

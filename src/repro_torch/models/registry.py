@@ -1,0 +1,49 @@
+"""Architecture registry: ``--arch <id>`` resolution for the port's entry points."""
+
+from __future__ import annotations
+
+import importlib
+
+from repro_torch.configs.base import ModelConfig
+
+ARCHITECTURES: dict[str, str] = {
+    "smollm-360m": "repro_torch.configs.smollm_360m",
+    "glm4-9b": "repro_torch.configs.glm4_9b",
+    # the paper's own simulated training model (Fig. 8)
+    "paper-7b": "repro_torch.configs.paper_7b",
+}
+
+#: Architectures of the JAX package that the port does not run yet, with what
+#: each still needs.
+NOT_PORTED: dict[str, str] = {
+    "recurrentgemma-9b": "rglru blocks and the lru_scan kernel",
+    "rwkv6-1.6b": "rwkv6 blocks and the wkv_scan kernel",
+    "dbrx-132b": "the MoE feed-forward",
+    "deepseek-v3-671b": "MoE, MLA attention and the MTP head",
+    "gemma2-27b": "the local/global attention pattern",
+    "paligemma-3b": "the vision_text frontend",
+    "hubert-xlarge": "the audio_frames frontend and encoder-only mode",
+    "deepseek-67b": "its config copy (dense; runs on the ported path)",
+}
+
+
+def _module(arch: str):
+    if arch in NOT_PORTED:
+        raise NotImplementedError(
+            f"arch {arch!r} is not ported to PyTorch yet: it needs "
+            f"{NOT_PORTED[arch]} (ROADMAP.md, queue 1)")
+    if arch not in ARCHITECTURES:
+        raise KeyError(f"unknown arch {arch!r}; available: {sorted(ARCHITECTURES)}")
+    return importlib.import_module(ARCHITECTURES[arch])
+
+
+def get_config(arch: str) -> ModelConfig:
+    return _module(arch).CONFIG
+
+
+def get_smoke_config(arch: str) -> ModelConfig:
+    return _module(arch).smoke_config()
+
+
+def list_architectures() -> list[str]:
+    return sorted(ARCHITECTURES)

@@ -1,0 +1,77 @@
+"""Shared parity check for the port's dense model against the JAX package's
+``apply_model`` (see ``test_torch_model.py`` for the tolerance's reason).
+Split over two test files so that each stays short under ``--dist
+loadfile``: the op-by-op JAX reference compiles every op anew per shape."""
+
+import functools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import torch
+
+from repro.models import apply_model as jax_apply
+from repro.models import get_smoke_config as jax_smoke
+from repro.models import init_caches as jax_init_caches
+from repro.models import init_model as jax_init_model
+from repro_torch.models import apply_model, get_smoke_config, init_caches
+from repro_torch.models.convert import params_from_jax
+
+ATOL = 3e-2
+
+
+def _np(x):
+    if isinstance(x, torch.Tensor):
+        return x.float().numpy()
+    return np.asarray(x, np.float32)
+
+
+@functools.lru_cache(maxsize=None)
+def converted_params(arch):
+    """(jax cfg, jax params, port params) from JAX ``init_model``, once per
+    arch and process."""
+    cfg = jax_smoke(arch)
+    jp = jax.jit(lambda key: jax_init_model(key, cfg)[0])(jax.random.PRNGKey(0))
+    tp = params_from_jax(jax.tree_util.tree_map(np.asarray, jp), device="cpu")
+    return cfg, jp, tp
+
+
+def assert_tokens_match(tlogits, jlogits):
+    """Greedy tokens agree wherever the reference's top-1 / top-2 margin
+    exceeds the logit tolerance (a closer tie may flip either way)."""
+    jl = _np(jlogits)
+    top2 = np.sort(jl, axis=-1)[..., -2:]
+    decided = (top2[..., 1] - top2[..., 0]) > 2 * ATOL
+    same = _np(tlogits).argmax(-1) == jl.argmax(-1)
+    assert np.all(same[decided])
+
+
+def check_prefill_and_decode(arch):
+    cfg, jp, tp = converted_params(arch)
+    tcfg = get_smoke_config(arch)
+    B, T, ctx = 2, 10, 24
+    tokens = np.random.default_rng(0).integers(0, cfg.vocab_size, (B, T))
+
+    jc = jax_init_caches(cfg, B, ctx, dtype=jnp.float32)
+    tc = init_caches(tcfg, B, ctx, dtype=torch.float32, device="cpu")
+    with jax.disable_jit():
+        jl, jc, _ = jax_apply(jp, cfg, {"tokens": jnp.asarray(tokens)},
+                              mode="prefill", caches=jc)
+    tl, tc, _ = apply_model(tp, tcfg, {"tokens": torch.from_numpy(tokens)},
+                            mode="prefill", caches=tc)
+    assert tl.shape == jl.shape == (B, 1, cfg.vocab_size)
+    np.testing.assert_allclose(_np(tl), _np(jl), atol=ATOL)
+    assert_tokens_match(tl[:, -1], jl[:, -1])
+
+    # 4 decode steps fed the reference's greedy tokens, so a tie cannot make
+    # the two runs diverge
+    for _ in range(4):
+        nxt = np.asarray(jnp.argmax(jl[:, -1], axis=-1))
+        with jax.disable_jit():
+            jl, jc, _ = jax_apply(jp, cfg, {"tokens": jnp.asarray(nxt)[:, None]},
+                                  mode="decode", caches=jc)
+        tl, tc, _ = apply_model(tp, tcfg, {"tokens": torch.tensor(nxt)[:, None]},
+                                mode="decode", caches=tc)
+        np.testing.assert_allclose(_np(tl), _np(jl), atol=ATOL)
+        assert_tokens_match(tl[:, -1], jl[:, -1])
+    assert tc["blocks"][0].index == int(jc["blocks"][0].index[0]) == T + 4

@@ -1,0 +1,47 @@
+"""The port's Hopper kernels against their plain versions on the card.
+
+Marked ``requires_cuda``: without a CUDA device they skip (a CUDA kernel
+has no CPU mode).  This file imports no JAX, so it also runs on a machine
+with the card and without JAX:
+
+    PYTHONPATH=src python -m pytest -m requires_cuda tests/test_torch_cuda.py
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels import ops, ref
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the Hopper kernel has no CPU mode)")
+    return torch.device("cuda")
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("shape,dtype,kw", [
+    ((4, 512, 512, 5, 3, 64), torch.float32, {}),
+    ((2, 256, 256, 32, 1, 128), torch.bfloat16, {}),
+    ((1, 96, 160, 2, 2, 20), torch.float32, dict(causal=False)),
+    ((1, 128, 128, 2, 1, 16), torch.float32, dict(window=32, logit_cap=50.0)),
+    ((1, 128, 128, 2, 1, 16), torch.float32, dict(prefix_len=8)),
+    ((2, 16, 200, 2, 4, 32), torch.float32, dict(q_offset=100, k_valid_len=150)),
+])
+def test_flash_attention_kernel_matches_plain(cuda_device, shape, dtype, kw):
+    """Tolerance: fp32 atol 1e-4 (summation order), bf16 atol 2e-2."""
+    B, tq, tk, KVH, G, D = shape
+    rng = np.random.default_rng(7)
+    q = torch.from_numpy(rng.standard_normal((B, tq, KVH, G, D), np.float32))
+    k = torch.from_numpy(rng.standard_normal((B, tk, KVH, D), np.float32))
+    v = torch.from_numpy(rng.standard_normal((B, tk, KVH, D), np.float32))
+    q, k, v = (t.to(cuda_device, dtype) for t in (q, k, v))
+    before = ops.launch_counts()["flash_attention"]
+    out = ops.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["flash_attention"] == before + 1
+    want = ref.reference_attention(q, k, v, **kw)
+    atol = 2e-2 if dtype == torch.bfloat16 else 1e-4
+    torch.testing.assert_close(out.float(), want.float(), rtol=0, atol=atol)

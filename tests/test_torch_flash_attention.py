@@ -1,0 +1,140 @@
+"""The port's flash attention (plain version on the CPU, Hopper kernel on the
+card) held against the JAX package's oracle and its Pallas kernel in
+interpret mode, on the same numpy inputs.
+
+Tolerances are the JAX package's own (``tests/test_kernels.py``): fp32
+atol 2e-5, bf16 atol 2e-2.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ops as jops
+from repro.kernels import ref as jref
+from repro.models.layers import blockwise_attention as jax_blockwise
+from repro_torch.kernels import ops, ref
+from repro_torch.kernels.flash_attention import flash_attention_cuda
+from repro_torch.models.layers import blockwise_attention
+
+
+def _inputs(seed, B, tq, tk, KVH, G, D):
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((B, tq, KVH, G, D)).astype(np.float32)
+    k = rng.standard_normal((B, tk, KVH, D)).astype(np.float32)
+    v = rng.standard_normal((B, tk, KVH, D)).astype(np.float32)
+    return q, k, v
+
+
+def _pair(arrays, dtype):
+    jdt = jnp.bfloat16 if dtype == "bf16" else jnp.float32
+    tdt = torch.bfloat16 if dtype == "bf16" else torch.float32
+    return ([jnp.asarray(a, jdt) for a in arrays],
+            [torch.from_numpy(a).to(tdt) for a in arrays])
+
+
+def _np(x):
+    if isinstance(x, torch.Tensor):
+        return x.float().numpy()
+    return np.asarray(x, np.float32)
+
+
+@pytest.mark.parametrize("tq,tk", [(64, 64), (128, 256), (96, 160)])
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_plain_matches_jax_shapes_dtypes(tq, tk, dtype):
+    (jq, jk, jv), (tq_, tk_, tv) = _pair(_inputs(0, 2, tq, tk, 2, 2, 32), dtype)
+    out = ops.flash_attention(tq_, tk_, tv)
+    assert out.dtype == tq_.dtype and out.shape == tq_.shape
+    atol = 2e-2 if dtype == "bf16" else 2e-5
+    np.testing.assert_allclose(_np(out), _np(jref.reference_attention(jq, jk, jv)),
+                               atol=atol)
+    if dtype == "f32":      # the Pallas body in interpret mode, as its tests run it
+        interp = jops.flash_attention(jq, jk, jv, q_block=32, kv_block=64,
+                                      impl="interpret")
+        np.testing.assert_allclose(_np(out), _np(interp), atol=atol)
+
+
+@pytest.mark.parametrize("kw", [
+    dict(window=16), dict(prefix_len=8), dict(logit_cap=20.0),
+    dict(causal=False), dict(window=32, logit_cap=50.0),
+])
+def test_plain_matches_jax_mask_variants(kw):
+    (jq, jk, jv), (q, k, v) = _pair(_inputs(1, 1, 128, 128, 2, 1, 16), "f32")
+    out = ops.flash_attention(q, k, v, **kw)
+    np.testing.assert_allclose(
+        _np(out), _np(jref.reference_attention(jq, jk, jv, **kw)), atol=2e-5)
+    interp = jops.flash_attention(jq, jk, jv, q_block=32, kv_block=32,
+                                  impl="interpret", **kw)
+    np.testing.assert_allclose(_np(out), _np(interp), atol=2e-5)
+
+
+@pytest.mark.parametrize("kw", [
+    dict(q_offset=40, k_valid_len=56),
+    dict(q_offset=40, k_valid_len=56, window=24),
+    dict(q_offset=0, k_valid_len=20, prefix_len=6),
+    dict(q_offset=48, k_valid_len=64, causal=False, logit_cap=30.0),
+])
+def test_blockwise_offset_and_valid_len_match_jax(kw):
+    """q_offset / k_valid_len (decode-style queries against a partly filled
+    cache) are not in the Pallas kernel; the port's kernel takes them, and
+    the model-level function agrees with the JAX blockwise attention."""
+    (jq, jk, jv), (q, k, v) = _pair(_inputs(2, 2, 16, 64, 2, 2, 16), "f32")
+    want = jax_blockwise(jq, jk, jv, q_block=8, kv_block=16, **kw)
+    np.testing.assert_allclose(_np(blockwise_attention(q, k, v, **kw)),
+                               _np(want), atol=2e-5)
+
+
+def test_ragged_noncausal_keys_masked_by_true_length():
+    """Non-causal attention over a key length that is not a block multiple.
+    The JAX wrapper pads keys and passes the padded length as ``kv_len``
+    (``repro/kernels/ops.py:54-60`` with ``flash_attention.py:120``), so the
+    zero keys enter its softmax; the port masks by the true length and
+    agrees with the oracle.  The JAX-side error is asserted too: it is the
+    reference fault logged in ROADMAP.md queue 3."""
+    (jq, jk, jv), (q, k, v) = _pair(_inputs(3, 1, 96, 160, 2, 2, 16), "f32")
+    want = _np(jref.reference_attention(jq, jk, jv, causal=False))
+    port_err = np.abs(_np(ops.flash_attention(q, k, v, causal=False)) - want).max()
+    assert port_err <= 2e-5
+    jax_err = np.abs(_np(jops.flash_attention(jq, jk, jv, causal=False,
+                                              kv_block=64, impl="interpret"))
+                     - want).max()
+    assert jax_err > 1e-2                      # 0.061 on these inputs
+    causal_err = np.abs(_np(jops.flash_attention(jq, jk, jv, kv_block=64,
+                                                 impl="interpret"))
+                        - _np(jref.reference_attention(jq, jk, jv))).max()
+    assert causal_err <= 2e-5                  # causal masking hides the pad
+
+
+def test_cpu_tensor_takes_plain_path_without_counting():
+    q, k, v = (torch.from_numpy(a) for a in _inputs(4, 1, 32, 32, 2, 2, 16))
+    ops.reset_launch_counts()
+    out = ops.flash_attention(q, k, v)
+    assert ops.launch_counts() == {"flash_attention": 0}
+    torch.testing.assert_close(out, ref.reference_attention(q, k, v),
+                               rtol=0, atol=0)
+    torch.testing.assert_close(ops.flash_attention(q, k, v, impl="reference"), out,
+                               rtol=0, atol=0)
+
+
+def test_kernel_wrapper_refuses_cpu_tensors_and_bad_impl():
+    q, k, v = (torch.from_numpy(a) for a in _inputs(5, 1, 8, 8, 1, 1, 16))
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_attention_cuda(q, k, v)
+    with pytest.raises(ValueError, match="impl"):
+        ops.flash_attention(q, k, v, impl="pallas")
+    with pytest.raises(TypeError):
+        flash_attention_cuda(q.double(), k.double(), v.double())
+    with pytest.raises(ValueError, match="head_dim"):
+        flash_attention_cuda(torch.zeros(1, 2, 1, 1, 300), torch.zeros(1, 2, 1, 300),
+                             torch.zeros(1, 2, 1, 300))
+
+
+def test_fully_masked_rows_give_zeros():
+    """A query that sees no key yields zeros (the kernel's 0 / max(l, 1e-30)
+    guard), as the JAX blockwise attention does."""
+    (jq, jk, jv), (q, k, v) = _pair(_inputs(6, 1, 4, 16, 1, 2, 16), "f32")
+    out = ops.flash_attention(q, k, v, q_offset=0, k_valid_len=0)
+    assert float(out.abs().max()) == 0.0
+    want = jax_blockwise(jq, jk, jv, k_valid_len=0, q_block=4, kv_block=16)
+    np.testing.assert_allclose(_np(out), _np(want), atol=2e-5)

@@ -1,0 +1,97 @@
+"""The port's dense model held against the JAX package's ``apply_model`` on
+three dense smoke configs, from the same (JAX-initialised) weights.  The
+prefill + decode check lives in ``_torch_model_parity.py``.
+
+Tolerance: logits atol 3e-2, because the residual stream is bfloat16 in
+both frameworks (``cfg.dtype``): a float32 sum taken in another order can
+round the residual to the neighbouring bf16 value (~4e-3 relative), and
+that propagates to the logits.
+
+The reference runs op by op (``jax.disable_jit``), which is the semantics
+of its code as written.  Compiled, XLA may keep excess precision across
+fused bf16 converts, so the JAX package's compiled logits can differ from
+its own op-by-op logits by more than this tolerance; the port follows the
+op-by-op rounding points.
+"""
+
+import dataclasses
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from _torch_model_parity import check_prefill_and_decode, converted_params
+from repro.models import get_config as jax_get_config
+from repro.models import get_smoke_config as jax_smoke
+from repro_torch.models import (apply_model, get_config, get_smoke_config,
+                                init_caches, init_model)
+
+ARCHS = ["smollm-360m", "paper-7b", "glm4-9b"]
+
+
+def test_prefill_and_decode_match_jax():
+    """paper-7b-smoke and glm4-smoke: ``test_torch_model_parity.py``."""
+    check_prefill_and_decode("smollm-360m")
+
+
+@pytest.fixture(scope="module", params=ARCHS)
+def pair(request):
+    return (request.param, *converted_params(request.param))
+
+
+def test_params_layout_matches_jax(pair):
+    """``params_from_jax`` keeps the pytree, and ``init_model`` builds the
+    same structure, shapes and dtypes from a torch.Generator."""
+    arch, cfg, jp, tp = pair
+    own = init_model(get_smoke_config(arch), seed=0, device="cpu")
+    jflat = jax.tree_util.tree_flatten_with_path(jp)[0]
+    for path, leaf in jflat:
+        node_t, node_o = tp, own
+        for key in path:
+            k = key.key if hasattr(key, "key") else key.idx
+            node_t, node_o = node_t[k], node_o[k]
+        assert tuple(node_t.shape) == tuple(node_o.shape) == leaf.shape
+        assert node_o.dtype == torch.float32
+        np.testing.assert_array_equal(node_t.numpy(), np.asarray(leaf))
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_configs_match_jax(arch):
+    def as_dict(c):
+        d = dataclasses.asdict(c)
+        d.pop("comm")          # CommConfig: compared field by field below
+        return d
+    for ours, theirs in ((get_config(arch), jax_get_config(arch)),
+                         (get_smoke_config(arch), jax_smoke(arch))):
+        assert as_dict(ours) == as_dict(theirs)
+        assert dataclasses.asdict(ours.comm) == dataclasses.asdict(theirs.comm)
+        assert ours.param_count() == theirs.param_count()
+
+
+def test_registry_and_device_rules():
+    with pytest.raises(NotImplementedError, match="rwkv6"):
+        get_config("rwkv6-1.6b")
+    with pytest.raises(NotImplementedError, match="MoE"):
+        get_smoke_config("dbrx-132b")
+    with pytest.raises(KeyError):
+        get_config("no-such-arch")
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA"):
+            init_model(get_smoke_config("smollm-360m"))
+    with pytest.raises(NotImplementedError, match="train"):
+        apply_model({}, get_smoke_config("smollm-360m"),
+                    {"tokens": torch.zeros(1, 2, dtype=torch.long)}, mode="train",
+                    caches={})
+
+
+def test_attn_impl_reference_equals_auto_on_cpu(pair):
+    arch, cfg, _, tp = pair
+    tcfg = get_smoke_config(arch)
+    tokens = torch.from_numpy(np.random.default_rng(1).integers(0, cfg.vocab_size, (1, 7)))
+    a, _, _ = apply_model(tp, tcfg, {"tokens": tokens}, mode="prefill",
+                          caches=init_caches(tcfg, 1, 8, device="cpu"))
+    b, _, _ = apply_model(tp, tcfg, {"tokens": tokens}, mode="prefill",
+                          caches=init_caches(tcfg, 1, 8, device="cpu"),
+                          attn_impl="reference")
+    torch.testing.assert_close(a, b, rtol=0, atol=0)

@@ -1,0 +1,127 @@
+"""The port's copy of the recovery control plane and of the collective rate
+model, held against the JAX package's: same failures in, exactly equal
+ledgers, decisions and rates out."""
+
+import dataclasses
+
+import pytest
+
+from repro.core import comm_sim as jcomm
+from repro.core import failures as jfail
+from repro.core import planner as jplanner
+from repro.core.topology import make_cluster as jmake_cluster
+from repro.runtime.control_plane import ControlPlane as JControlPlane
+from repro_torch.core import comm_sim, failures, planner
+from repro_torch.core.topology import make_cluster
+from repro_torch.runtime.control_plane import ControlPlane
+
+
+def _failure(mod, ftype, node, rail, **kw):
+    return mod.Failure(mod.FailureType[ftype], node, rail, **kw)
+
+
+# (ftype, node, rail, kwargs, handled at virtual time)
+CAMPAIGNS = {
+    "nic_down_both_nodes": [("NIC_HARDWARE", 0, 0, {}, 0.10),
+                            ("NIC_HARDWARE", 1, 0, {}, 0.25)],
+    "slow_nic": [("SLOW_NIC", 0, 3, dict(severity=0.5), 0.05)],
+    "flap": [("LINK_FLAPPING", 1, 2, dict(recovers_at=0.4), 0.10),
+             ("LINK_FLAPPING", 1, 2, dict(recovers_at=0.9), 0.60)],
+    "switch_outage": [("SWITCH_OUTAGE", 0, -1, {}, 0.20)],
+    "whole_rail_then_more": [("NIC_HARDWARE", 0, r, {}, 0.1 * (r + 1))
+                             for r in range(3)],
+}
+
+
+def _entry_fields(e):
+    d = {f.name: getattr(e, f.name) for f in dataclasses.fields(e)}
+    d["failure"] = None if e.failure is None else (
+        e.failure.ftype.value, e.failure.node, e.failure.rail,
+        e.failure.severity, e.failure.recovers_at)
+    d["state_after"] = e.state_after.value
+    d["total"] = e.total
+    d["hot_repair_latency"] = e.hot_repair_latency
+    return d
+
+
+@pytest.mark.parametrize("nodes", [2, 3])
+@pytest.mark.parametrize("campaign", sorted(CAMPAIGNS))
+@pytest.mark.parametrize("detected_by", ["cqe", "monitor"])
+def test_control_plane_ledgers_match_jax(campaign, nodes, detected_by):
+    jcp = JControlPlane(jmake_cluster(nodes, 8), replan=False)
+    tcp = ControlPlane(make_cluster(nodes, 8), replan=False)
+    for ftype, node, rail, kw, now in CAMPAIGNS[campaign]:
+        jo = jcp.handle_failure(_failure(jfail, ftype, node, rail, **kw), now,
+                                detected_by=detected_by)
+        to = tcp.handle_failure(_failure(failures, ftype, node, rail, **kw), now,
+                                detected_by=detected_by)
+        assert (to is None) == (jo is None)
+        if jo is not None:
+            assert _entry_fields(to.entry) == _entry_fields(jo.entry)
+            assert dataclasses.asdict(to.decision) == dataclasses.asdict(jo.decision)
+        if kw.get("recovers_at") is not None:
+            t = kw["recovers_at"]
+            fj = _failure(jfail, ftype, node, rail, **kw)
+            ft = _failure(failures, ftype, node, rail, **kw)
+            assert tcp.observe_physical_recovery(ft, t) == \
+                jcp.observe_physical_recovery(fj, t)
+            jcp.failure_state.recover(fj.nic_key)
+            tcp.failure_state.recover(ft.nic_key)
+            assert tcp.handle_recovery(ft, t) == jcp.handle_recovery(fj, t)
+    assert [_entry_fields(e) for e in tcp.ledger.entries] == \
+        [_entry_fields(e) for e in jcp.ledger.entries]
+    assert tcp.ledger.stage_totals() == jcp.ledger.stage_totals()
+    assert [(t, s.value) for t, s in tcp.transitions] == \
+        [(t, s.value) for t, s in jcp.transitions]
+    assert tcp.finalize(1.0) is None and jcp.finalize(1.0) is None
+    assert tcp.state.value == jcp.state.value
+    assert len(tcp.failure_state.unsupported) == len(jcp.failure_state.unsupported)
+
+
+def test_replan_is_not_ported():
+    """A node losing every NIC warrants a replan, which needs the schedule
+    IR: the port raises instead of guessing."""
+    cp = ControlPlane(make_cluster(2, 2), replan=True)
+    cp.handle_failure(failures.Failure(failures.FailureType.NIC_HARDWARE, 0, 0), 0.1)
+    with pytest.raises(NotImplementedError, match="schedule IR"):
+        cp.handle_failure(failures.Failure(failures.FailureType.NIC_HARDWARE, 0, 1), 0.2)
+
+
+@pytest.mark.parametrize("x", [0.0, 0.125, 0.5, 0.9])
+@pytest.mark.parametrize("n_nodes", [2, 4, 16])
+@pytest.mark.parametrize("overlapped", [True, False])
+def test_strategy_rate_matches_jax(x, n_nodes, overlapped):
+    spectrum = [1.0] * (n_nodes - 2) + [1.0 - x, 0.5]
+    for strat in ("ring", "hot_repair", "balance", "r2ccl", "recursive"):
+        kw = dict(n_nodes=n_nodes, g=8, overlapped=overlapped,
+                  bandwidth_spectrum=spectrum)
+        assert comm_sim.strategy_rate(strat, 1.0, x, **kw) == \
+            jcomm.strategy_rate(strat, 1.0, x, **kw)
+    if x > 0:
+        with pytest.raises(ValueError):
+            comm_sim.strategy_rate("bogus", 1.0, x, n_nodes=n_nodes, g=8)
+
+
+def test_constants_match_jax():
+    for name in ("VLLM_RESTART_DELAY", "DEJAVU_OVERHEAD_RANGE",
+                 "R2CCL_MIGRATION_LATENCY", "DETOUR_EFFICIENCY",
+                 "CHECKPOINT_RECOVERY_MEDIAN", "H100_BF16_FLOPS"):
+        assert getattr(comm_sim, name) == getattr(jcomm, name)
+
+
+@pytest.mark.parametrize("failed", [(), ((0, 0),), ((0, 0), (2, 1)),
+                                    ((1, r) for r in range(4))])
+@pytest.mark.parametrize("payload", [1 << 12, 1 << 26])
+def test_planner_matches_jax(failed, payload):
+    failed = tuple(failed)
+    jp = jplanner.Planner(jmake_cluster(4, 8))
+    tp = planner.Planner(make_cluster(4, 8))
+    js, ts = jfail.FailureState(set(failed)), failures.FailureState(set(failed))
+    for coll in planner.Collective:
+        a = tp.choose_strategy(coll, payload, ts)
+        b = jp.choose_strategy(jplanner.Collective(coll.value), payload, js)
+        da, db = dataclasses.asdict(a), dataclasses.asdict(b)
+        assert da.pop("strategy").value == db.pop("strategy").value
+        assert da == db
+    with pytest.raises(NotImplementedError, match="static"):
+        tp.choose_strategy(planner.Collective.ALL_REDUCE, payload, ts, score="static")
