@@ -3,21 +3,33 @@
 
     python3 chip_smoke.py
 
-Phases, each printing its own line and raising on failure (exit code != 0):
+Phases, each printing its own lines and seconds, and raising on failure
+(exit code != 0):
 
   1. device  — the card's name, and its name and power limit from nvidia-smi;
-  2. build   — every kernel of the serving path, from ``src/repro_torch/
-               kernels/csrc/`` (one nvcc per source, all started together);
+  2. build   — every kernel of the serving and training paths, from
+               ``src/repro_torch/kernels/csrc/`` (one nvcc per source, all
+               started together);
   3. kernels — each kernel against its plain PyTorch version on the card, at
-               the serving path's shapes and at shape / dtype / mask cases,
-               plus its time, the plain version's time, one PyTorch library
-               call's time as a yardstick, and the card's bound for the work;
+               the main paths' shapes and at shape / dtype / mask cases, plus
+               its time, the plain version's time, one PyTorch library call's
+               time as a yardstick where one exists, and the card's bound;
   4. serve   — full-width smollm-360m (random fp32 weights from a seed) in the
                port's ServingEngine(strategy="r2ccl"): 4 requests of 512-token
                prompts, 16 new tokens, healthy and with a NIC failure at decode
                step 4; tokens must be identical, launch counts are read around
                the two runs, and prefill logits through the kernel are held
-               against the plain attention on the card.
+               against the plain attention on the card;
+  5. train   — full-width smollm-360m trained data-parallel on 4 ranks, all on
+               this card (host-staged gloo wire): one rank's gradients through
+               the attention kernels against plain attention; ``sync="xla"``
+               against ``sync="r2ccl"`` (degraded rank 1, lost 0.5, g 2) for 4
+               steps from one seed; then ``python -m repro_torch.launch.train``
+               on a ring, switching at step 2 to the degraded R2CCL program
+               after a NIC failure on node 1.  Launch counts are read on rank
+               0 around each run and held to the counts the programs, the
+               leaves and the layers predict; the step time is split into
+               forward+backward, wire, merge and optimizer.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
@@ -28,6 +40,7 @@ cuDNN alike.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -44,18 +57,52 @@ SRC = REPO / "src"
 PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
 PEAK_BYTES = 3.35e12
 
-#: kernels of the serving path: wrapper count key -> where it lives / replaces
+#: kernels of the main paths: wrapper count key (and csrc/<key>.cu) ->
+#: where it lives / which TPU kernel it replaces
 KERNELS = {
     "flash_attention": dict(
         route="cuda",
         source="src/repro_torch/kernels/csrc/flash_attention.cu",
         replaces="src/repro/kernels/flash_attention.py:96"),
+    "flash_attention_bwd": dict(
+        route="cuda",
+        source="src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+        replaces="src/repro/models/layers.py:137",
+        note="no Pallas counterpart; replaces jax.grad through blockwise_attention"),
+    "chunk_combine": dict(
+        route="cuda",
+        source="src/repro_torch/kernels/csrc/chunk_combine.cu",
+        replaces="src/repro/kernels/chunk_combine.py:35"),
 }
 
 ARCH, BATCH, PROMPT, NEW_TOKENS, CONTEXT = "smollm-360m", 4, 512, 16, 1024
 FAIL_STEP = 4
 ATOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}   # kernel vs plain
 LOGIT_ATOL = 5e-2                                     # model through kernel vs plain
+# backward kernel vs autograd through the plain version, relative to
+# max(1, max |gradient|): a dK entry sums over up to Tq * G query rows
+BWD_RTOL = {torch.float32: 1e-3, torch.bfloat16: 3e-2}
+
+# training phase: 4 ranks x (2 sequences of 512 tokens) on this card
+WORLD, LOCAL_BATCH, SEQ, TRAIN_STEPS, FAIL_AT = 4, 2, 512, 4, 2
+PARITY_TOL = 5e-3          # xla vs r2ccl sync, loss and params (bf16 wire)
+# step 0's synced gradients, r2ccl (bf16 wire) vs xla (fp32), per leaf
+# ||g_r2ccl - g_xla|| / ||g_xla||: a bf16 rounding errs by at most 2^-8 = 3.9e-3
+# relative, a gradient takes a few of them (the cast, each partial sum), and
+# the partial sums of gradients that cancel across ranks are larger than the
+# mean; 2e-2 is about five roundings, where a lost or unsummed contribution
+# reads of the order of 1
+SYNC_GRAD_TOL = 2e-2
+# full-width loss and per-leaf ||g_kernel - g_plain|| / ||g_plain||, attention
+# kernels vs plain, by the dtype of the residual stream.  With float32 the
+# gap is the kernels' own error; with the config's bfloat16 it is dominated
+# by bf16 roundings of the residual stream that land differently once any
+# value moves by an ulp, compounded over 32 layers into the first layers'
+# gradients (the first chip run measured 2.35e-2 there)
+GRAD_TOL = {"float32": (1e-4, 1e-3), "bfloat16": (2e-3, 5e-2)}
+R2CCL_COMM = dict(mode="r2ccl", degraded_rank=1, lost_fraction=0.5,
+                  devices_per_node=2)
+CLI_NICS = 2               # NICs a node in the CLI failover run
 
 
 def log(phase: str, msg: str) -> None:
@@ -83,11 +130,13 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def attention_bound(q, k, ref, kw) -> tuple[float, str]:
-    """Least time for the work: each input read once and the output written
+def attention_bound(q, k, ref, kw, backward: bool = False) -> tuple[float, str]:
+    """Least time for the work: each input read once and each output written
     once at the memory rate, against the matmul operations that this mask
-    leaves (4 * D per visible (query, key) pair and query head) at the
-    dtype's peak."""
+    leaves at the dtype's peak.  Forward: q, k, v in and o out, 4 * D
+    operations per visible (query, key) pair and query head.  Backward: q,
+    k, v, o, dO and the fp32 row lse in, dq, dk, dv out, and five products
+    of 2 * D per visible pair instead of two (2.5x the forward's)."""
     B, Tq, KVH, G, D = q.shape
     Tk = k.shape[1]
     mask = ref.attention_mask(
@@ -97,6 +146,10 @@ def attention_bound(q, k, ref, kw) -> tuple[float, str]:
         k_len=Tk)
     flops = 4.0 * D * int(mask.sum()) * B * KVH * G
     nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size()
+    if backward:
+        flops *= 2.5
+        nbytes = (4 * q.numel() + 4 * k.numel()) * q.element_size() \
+            + B * Tq * KVH * G * 4
     t_ops, t_bytes = flops / PEAK_FLOPS[q.dtype], nbytes / PEAK_BYTES
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
@@ -166,6 +219,243 @@ def check_flash_attention(gen) -> dict:
                 launches=0, max_abs_err=smollm_err, ms=min(t_kernel, t_kernel2),
                 plain_ms=t_plain, bound_ms=bound, bound_by=bound_by,
                 library_ms=t_lib)
+
+
+def check_flash_attention_bwd(gen) -> dict:
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.flash_attention import (flash_attention_bwd_cuda,
+                                                     flash_attention_cuda)
+
+    def inputs(B, Tq, Tk, KVH, G, D, dtype):
+        q = torch.randn(B, Tq, KVH, G, D, device="cuda", generator=gen).to(dtype)
+        k = torch.randn(B, Tk, KVH, D, device="cuda", generator=gen).to(dtype)
+        v = torch.randn(B, Tk, KVH, D, device="cuda", generator=gen).to(dtype)
+        do = torch.randn(B, Tq, KVH, G, D, device="cuda", generator=gen).to(dtype)
+        return q, k, v, do
+
+    def kernel(q, k, v, do, kw):
+        B, Tq, KVH, G, _ = q.shape
+        lse = torch.empty(B, Tq, KVH, G, device="cuda")
+        out = flash_attention_cuda(q, k, v, lse=lse, **kw)
+        return out, lse, flash_attention_bwd_cuda(q, k, v, out, do, lse, **kw)
+
+    def plain(q, k, v, do, kw):
+        qr, kr, vr = (t.detach().requires_grad_() for t in (q, k, v))
+        return torch.autograd.grad(ref.reference_attention(qr, kr, vr, **kw),
+                                   (qr, kr, vr), do)
+
+    train_shape = (LOCAL_BATCH, SEQ, SEQ, 5, 3, 64)
+    cases = [  # (label, (B, Tq, Tk, KVH, G, D), dtype, kwargs)
+        ("smollm-train", train_shape, torch.float32, {}),
+        ("paper-7b-heads", (2, 256, 256, 32, 1, 128), torch.float32, {}),
+        ("paper-7b-heads", (2, 256, 256, 32, 1, 128), torch.bfloat16, {}),
+        ("ragged", (1, 96, 160, 2, 2, 20), torch.float32, {}),
+        ("ragged", (1, 96, 160, 2, 2, 20), torch.float32, dict(causal=False)),
+        ("window", (1, 128, 128, 2, 1, 16), torch.float32, dict(window=16)),
+        ("prefix", (1, 128, 128, 2, 1, 16), torch.float32, dict(prefix_len=8)),
+        ("softcap", (1, 128, 128, 2, 1, 16), torch.float32, dict(logit_cap=20.0)),
+        ("non-causal", (1, 128, 128, 2, 1, 16), torch.float32, dict(causal=False)),
+        ("window+softcap", (1, 128, 128, 2, 1, 16), torch.float32,
+         dict(window=32, logit_cap=50.0)),
+        ("glm4-heads", (1, 64, 64, 2, 16, 128), torch.bfloat16, {}),
+    ]
+    train_err = None             # (max_abs_err, max_rel_err) at the training shape
+    for label, shape, dtype, kw in cases:
+        q, k, v, do = inputs(*shape, dtype)
+        _, _, got = kernel(q, k, v, do, kw)
+        torch.cuda.synchronize()
+        want = plain(q, k, v, do, kw)
+        err = rel = 0.0
+        for name, a, b in zip(("dq", "dk", "dv"), got, want):
+            if not torch.isfinite(a).all():
+                raise RuntimeError(f"flash_attention_bwd {label}: non-finite {name}")
+            e = (a.float() - b.float()).abs().max().item()
+            err = max(err, e)
+            rel = max(rel, e / max(1.0, b.float().abs().max().item()))
+        ok = rel <= BWD_RTOL[dtype]
+        log("kernels", f"flash_attention_bwd {label} {shape} {str(dtype)[6:]} {kw} "
+            f"max_abs_err={err:.3e}, max_rel_err={rel:.3e} (tol {BWD_RTOL[dtype]:g} "
+            f"of max(1, max|grad|)) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise RuntimeError(f"flash_attention_bwd {label}: max_rel_err {rel} "
+                               f"> {BWD_RTOL[dtype]}")
+        if train_err is None:
+            train_err = (err, rel)
+
+    # the autograd.Function that the model calls gives the same gradients
+    q, k, v, do = inputs(*train_shape, torch.float32)
+    _, _, direct = kernel(q, k, v, do, {})
+    qa, ka, va = (t.detach().requires_grad_() for t in (q, k, v))
+    via = torch.autograd.grad(ops.flash_attention(qa, ka, va), (qa, ka, va), do)
+    if any(not torch.equal(a, b) for a, b in zip(direct, via)):
+        raise RuntimeError("ops.flash_attention's backward differs from the kernel's")
+
+    # timing at the training shape (one layer's attention backward)
+    out, lse, _ = kernel(q, k, v, do, {})
+    qr, kr, vr = (t.detach().requires_grad_() for t in (q, k, v))
+    ref_out = ref.reference_attention(qr, kr, vr)
+    B, T, KVH, G, D = q.shape
+    qs = qr.reshape(B, T, KVH * G, D).transpose(1, 2)
+    ks, vs = kr.transpose(1, 2), vr.transpose(1, 2)
+    sdpa_out = torch.nn.functional.scaled_dot_product_attention(
+        qs, ks, vs, is_causal=True, enable_gqa=True)
+    dos = do.reshape(B, T, KVH * G, D).transpose(1, 2)
+    t_kernel = time_ms(lambda: flash_attention_bwd_cuda(q, k, v, out, do, lse))
+    t_plain = time_ms(lambda: torch.autograd.grad(ref_out, (qr, kr, vr), do,
+                                                  retain_graph=True))
+    t_lib = time_ms(lambda: torch.autograd.grad(sdpa_out, (qr, kr, vr), dos,
+                                                retain_graph=True))
+    t_kernel2 = time_ms(lambda: flash_attention_bwd_cuda(q, k, v, out, do, lse))
+    bound, bound_by = attention_bound(q, k, ref, {}, backward=True)
+    log("kernels", f"flash_attention_bwd smollm-train fp32: kernel {t_kernel:.4f} / "
+        f"{t_kernel2:.4f} ms, plain {t_plain:.4f} ms, sdpa backward {t_lib:.4f} ms, "
+        f"bound {bound:.4f} ms ({bound_by})")
+    return dict(name="flash_attention_bwd", **KERNELS["flash_attention_bwd"],
+                launches=0, max_abs_err=train_err[0], max_rel_err=train_err[1],
+                ms=min(t_kernel, t_kernel2), plain_ms=t_plain, bound_ms=bound,
+                bound_by=bound_by, library_ms=t_lib)
+
+
+def train_comms() -> dict[str, dict]:
+    """The collective programs the training phase runs, as ``all_reduce``
+    keyword arguments: the parity run's, and the CLI run's ring and the
+    degraded program it switches to.  The CLI run has 2 NICs a node, so the
+    failed NIC takes half the node's bandwidth (``launch/train.py``: lost
+    fraction max(1/2, 0.34), g = 2) and the planner splits the payload
+    between a ring and the partial AllReduce; with 8 NICs a node (lost 0.34)
+    it would keep the plain ring."""
+    from repro_torch.configs.base import CommConfig
+    return {"parity": CommConfig(**R2CCL_COMM).kwargs(),
+            "ring": CommConfig(mode="ring").kwargs(),
+            "degraded": CommConfig(mode="r2ccl", degraded_rank=1, lost_fraction=0.5,
+                                   devices_per_node=CLI_NICS).kwargs()}
+
+
+def leaf_sizes() -> list[int]:
+    from repro_torch.models import get_config, init_model
+    from repro_torch.tree import leaves
+    sizes = [p.numel() for p in leaves(init_model(get_config(ARCH), seed=0, device="cuda"))]
+    torch.cuda.empty_cache()
+    return sizes
+
+
+def planned_merges(sizes: list[int], comm: dict) -> list[tuple[int, int]]:
+    """(rows, M) of every chunk_combine launch one rank makes in one gradient
+    sync: each leaf through each non-empty segment of the program, one launch
+    per step (on every rank, destination or not), from the IR alone."""
+    from repro_torch.core.collectives import program_for
+    prog = program_for(WORLD, **comm)
+    merges = []
+    for total in sizes:
+        start = 0
+        for i, seg in enumerate(prog.segments):
+            end = total if i == len(prog.segments) - 1 else start + int(round(seg.frac * total))
+            n = max(end - start, 0)
+            start = end
+            C = seg.schedule.num_chunks
+            if n:
+                merges += [(C if st.whole_buffer else 1, -(-n // C))
+                           for st in seg.schedule.steps]
+    return merges
+
+
+def largest_merges() -> tuple[tuple[int, int], tuple[int, int]]:
+    """(rows, M) of the largest buffer the training phase hands to
+    chunk_combine, and of the largest single row (a chunked step): every
+    leaf of smollm-360m through every program it runs."""
+    sizes = leaf_sizes()
+    merges = [m for comm in train_comms().values() for m in planned_merges(sizes, comm)]
+    return (max(merges, key=lambda rm: rm[0] * rm[1]),
+            max((m for m in merges if m[0] == 1), key=lambda rm: rm[1]))
+
+
+def check_chunk_combine(gen) -> dict:
+    from repro_torch.core.collectives import VEC_BYTES, StagingBuffers
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.chunk_combine import chunk_combine_cuda
+
+    def rand(n, dtype, offset=0):
+        flat = torch.randn(n + offset, device="cuda", generator=gen).to(dtype)
+        return flat[offset:]
+
+    n_cases, worst = 0, 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        for C in (1, 4, 12):
+            # every (seg, acc) combination: one per row, or one per case for C=1
+            combos = [([s], [a]) for s in (0, 1) for a in (0, 1)] if C == 1 else \
+                [([0, 0, 1, 1] * (C // 4), [0, 1, 0, 1] * (C // 4))]
+            for M in (1, 7, 513, 700):
+                for seg, acc in combos:
+                    # (local offset, recv offset): aligned, both off the 16-byte
+                    # grid by one element, and misaligned against each other
+                    for lo, ro in ((0, 0), (1, 1), (1, 0)):
+                        for inplace in (False, True):
+                            local = rand(C * M, dtype, lo).view(C, M)
+                            recv = rand(C * M, dtype, ro).view(C, M)
+                            want = ref.reference_chunk_combine(local, recv, seg, acc)
+                            out = chunk_combine_cuda(local, recv, seg, acc,
+                                                     out=local if inplace else None)
+                            torch.cuda.synchronize()
+                            err = (out.float() - want.float()).abs().max().item()
+                            worst = max(worst, err)
+                            n_cases += 1
+                            if err != 0.0:
+                                raise RuntimeError(
+                                    f"chunk_combine {str(dtype)[6:]} C={C} M={M} seg={seg} "
+                                    f"acc={acc} offsets=({lo},{ro}) inplace={inplace}: "
+                                    f"max_abs_err {err} (tol 0: one fp32 add, one rounding)")
+        log("kernels", f"chunk_combine {str(dtype)[6:]}: C in (1, 4, 12), M in (1, 7, 513, "
+            f"700), every seg/acc pair, aligned / offset / misaligned rows, in and out "
+            f"of place: max_abs_err={worst:.1e} (tol 0) ok")
+
+    # timing at the largest merge of the training phase: bf16, every row
+    # accumulating (3 x rows x M x 2 bytes move), in place as the collectives
+    # call it.  On these inputs (every row seg=1, acc=1) one in-place add
+    # computes the same function: it is the library yardstick, and must
+    # agree exactly (one fp32 add, one rounding to bf16)
+    (rows, M), (_, M1) = largest_merges()
+    local = rand(rows * M, torch.bfloat16).view(rows, M)
+    recv = rand(rows * M, torch.bfloat16).view(rows, M)
+    seg = acc = [1] * rows
+    lib = torch.add(local, recv)
+    if not torch.equal(chunk_combine_cuda(local, recv, seg, acc), lib):
+        raise RuntimeError("chunk_combine differs from torch.add where every row adds")
+    del lib
+    t_kernel = time_ms(lambda: chunk_combine_cuda(local, recv, seg, acc, out=local))
+    t_plain = time_ms(lambda: ref.reference_chunk_combine(local, recv, seg, acc))
+    t_lib = time_ms(lambda: torch.add(local, recv, out=local))
+    t_kernel2 = time_ms(lambda: chunk_combine_cuda(local, recv, seg, acc, out=local))
+    bound = 3 * rows * M * 2 / PEAK_BYTES * 1e3
+    log("kernels", f"chunk_combine largest training merge ({rows}, {M}) bf16: kernel "
+        f"{t_kernel:.4f} / {t_kernel2:.4f} ms, plain {t_plain:.4f} ms, in-place "
+        f"torch.add {t_lib:.4f} ms, bound {bound:.4f} ms (bytes); {n_cases} cases checked")
+    del local, recv
+
+    # the largest chunked merge, one row at an offset off the 16-byte grid
+    # (row rc of a (C, M) buffer with ragged M): received into a staging
+    # buffer at the row's phase, as the collectives stage it, and at offset 0
+    buf = rand(M1 + 1, torch.bfloat16)
+    row = buf[1:].view(1, M1)
+    staged = StagingBuffers().get("recv", M1, torch.bfloat16, row.device,
+                                  phase_of=row).view(1, M1)
+    staged.copy_(rand(M1, torch.bfloat16).view(1, M1))
+    at_zero = staged.clone()
+    if (staged.data_ptr() - row.data_ptr()) % VEC_BYTES or \
+            (at_zero.data_ptr() - row.data_ptr()) % VEC_BYTES == 0:
+        raise RuntimeError("staging buffer phases not as intended")
+    want = ref.reference_chunk_combine(row, staged, [1], [1])
+    got = chunk_combine_cuda(row, staged, [1], [1])
+    worst = max(worst, (got.float() - want.float()).abs().max().item())
+    if worst != 0.0:
+        raise RuntimeError(f"chunk_combine chunked row: max_abs_err {worst} (tol 0)")
+    t_phase = time_ms(lambda: chunk_combine_cuda(row, staged, [1], [1], out=row))
+    t_zero = time_ms(lambda: chunk_combine_cuda(row, at_zero, [1], [1], out=row))
+    log("kernels", f"chunk_combine largest chunked merge (1, {M1}) bf16, row off the "
+        f"16-byte grid: received at the row's phase {t_phase:.4f} ms, at offset 0 "
+        f"{t_zero:.4f} ms, bound {3 * M1 * 2 / PEAK_BYTES * 1e3:.4f} ms (bytes)")
+    return dict(name="chunk_combine", **KERNELS["chunk_combine"], launches=0,
+                max_abs_err=worst, ms=min(t_kernel, t_kernel2), plain_ms=t_plain,
+                bound_ms=bound, bound_by="bytes", library_ms=t_lib)
 
 
 def serve(card: str) -> dict[str, int]:
@@ -245,6 +535,218 @@ def serve(card: str) -> dict[str, int]:
     return launches
 
 
+def rank_batch(cfg, rank: int, step: int, dev) -> dict:
+    from repro_torch.data import make_batch
+    b = make_batch(cfg, seq_len=SEQ, batch_size=WORLD * LOCAL_BATCH, step=step)
+    return {k: torch.from_numpy(v[rank * LOCAL_BATCH:(rank + 1) * LOCAL_BATCH]).to(dev)
+            for k, v in b.items()}
+
+
+def synced_grads(cfg, rank: int, axis, dev) -> dict:
+    """Step 0's gradients on this rank, synchronized both ways: fp32
+    ``all_reduce_mean`` (what ``sync="xla"`` does) and the bf16 wire through
+    the degraded R2CCL program (what ``sync="r2ccl"`` does); returns the
+    worst leaf's ||g_r2ccl - g_xla|| / ||g_xla|| and its name, and the
+    largest ||g_xla|| / ||g_local|| gap between leaves (how far this rank's
+    own gradient is from the mean, for scale)."""
+    from repro_torch.configs.base import CommConfig
+    from repro_torch.core.collectives import all_reduce_mean, sync_gradients
+    from repro_torch.models import init_model
+    from repro_torch.training import compute_loss
+    from repro_torch.tree import leaves_with_path
+
+    params = init_model(cfg, seed=0, device=dev)
+    named = {"/".join(p): t.requires_grad_(True) for p, t in leaves_with_path(params)}
+    total, _ = compute_loss(params, cfg, rank_batch(cfg, rank, 0, dev))
+    grads = dict(zip(named, torch.autograd.grad(total, list(named.values()))))
+    xla = {n: all_reduce_mean(g, axis) for n, g in grads.items()}
+    wire = sync_gradients({n: g.to(torch.bfloat16) for n, g in grads.items()}, axis,
+                          mean=True, **CommConfig(**R2CCL_COMM).kwargs())
+    rel = {n: float((wire[n].float() - xla[n]).norm() / xla[n].norm()) for n in grads}
+    own = {n: float((grads[n] - xla[n]).norm() / xla[n].norm()) for n in grads}
+    worst = max(rel, key=rel.get)
+    return dict(worst=worst, rel=rel[worst], own=min(own.values()))
+
+
+def parity_rank(rank: int, world: int, device: str, _unused) -> dict:
+    """One rank of the xla-vs-r2ccl parity run: step 0's gradients synced
+    both ways, then 4 steps of each from the same seed and data; returns
+    losses, timings, launch counts, peak memory and (r2ccl) the largest
+    param difference against the xla run."""
+    from repro_torch.configs.base import CommConfig
+    from repro_torch.core.collectives import DataAxis
+    from repro_torch.kernels import ops
+    from repro_torch.models import get_config, init_model
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.training import init_train_state, make_train_step
+    from repro_torch.tree import leaves
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = get_config(ARCH)
+    dev = torch.device("cuda:0")
+    axis = DataAxis()
+    out, xla_params = {"grads": synced_grads(cfg, rank, axis, dev)}, None
+    torch.cuda.empty_cache()
+    for name, sync, comm in (("xla", "xla", None),
+                             ("r2ccl", "r2ccl", CommConfig(**R2CCL_COMM))):
+        state = init_train_state(init_model(cfg, seed=0, device=dev))
+        step = make_train_step(cfg, AdamWConfig(lr=1e-3), sync=sync, comm=comm,
+                               axis=axis, warmup_steps=1, total_steps=100)
+        torch.cuda.reset_peak_memory_stats(dev)
+        ops.reset_launch_counts()
+        losses, stats = [], []
+        for i in range(TRAIN_STEPS):
+            st: dict[str, float] = {}
+            t0 = time.perf_counter()
+            state, m = step(state, rank_batch(cfg, rank, i, dev), stats=st)
+            losses.append(float(m["loss"]))
+            st["step_s"] = time.perf_counter() - t0
+            stats.append(st)
+        run = dict(losses=losses, stats=stats, launches=ops.launch_counts(),
+                   max_memory_allocated=torch.cuda.max_memory_allocated(dev))
+        if xla_params is None:
+            xla_params = [p.detach().clone() for p in leaves(state.params)]
+        else:
+            run["param_diff"] = max(float((p.detach() - r).abs().max())
+                                    for p, r in zip(leaves(state.params), xla_params))
+        out[name] = run
+        del state, step
+        torch.cuda.empty_cache()
+    return out
+
+
+def grad_check(cfg) -> None:
+    """One rank's full-width gradients with attention through the kernels
+    against the same with the plain attention, on the card: with a float32
+    residual stream, and with the config's own (bfloat16)."""
+    from repro_torch.data import make_batch
+    from repro_torch.kernels import ops
+    from repro_torch.models import init_model
+    from repro_torch.training import compute_loss
+    from repro_torch.tree import leaves, leaves_with_path
+
+    params = init_model(cfg, seed=0, device="cuda")
+    names = ["/".join(p) for p, _ in leaves_with_path(params)]
+    flat = leaves(params)
+    for p in flat:
+        p.requires_grad_(True)
+    b = make_batch(cfg, seq_len=SEQ, batch_size=WORLD * LOCAL_BATCH, step=0)
+    batch = {k: torch.from_numpy(v[:LOCAL_BATCH]).cuda() for k, v in b.items()}
+    remat = 2 if cfg.remat else 1
+    for dtype in ("float32", cfg.dtype):
+        c = dataclasses.replace(cfg, dtype=dtype)
+        got = {}
+        for impl in ("auto", "reference"):
+            ops.reset_launch_counts()
+            total, _ = compute_loss(params, c, batch, attn_impl=impl)
+            got[impl] = (total.item(), torch.autograd.grad(total, flat), ops.launch_counts())
+        (la, ga, ca), (lr, gr, cr) = got["auto"], got["reference"]
+        if ca["flash_attention"] != remat * cfg.num_layers or \
+                ca["flash_attention_bwd"] != cfg.num_layers or any(cr.values()):
+            raise RuntimeError(f"grad check launches: kernels {ca}, plain {cr}")
+        rel = {n: float((a - r).norm() / r.norm().clamp(min=1e-30))
+               for n, a, r in zip(names, ga, gr)}
+        worst = max(rel, key=rel.get)
+        loss_tol, rel_tol = GRAD_TOL[dtype]
+        if not (np.isfinite(la) and abs(la - lr) <= loss_tol
+                and all(torch.isfinite(g).all() for g in ga) and rel[worst] <= rel_tol):
+            raise RuntimeError(f"full-width gradients kernel vs plain, {dtype} residual: "
+                               f"loss {la} vs {lr}, worst leaf {worst} rel err {rel[worst]}")
+        log("train", f"one rank's full-width gradients, {dtype} residual stream, "
+            f"attention kernels vs plain: loss {la:.6f} vs {lr:.6f} (tol {loss_tol}), "
+            f"worst leaf {worst} ||diff||/||plain|| = {rel[worst]:.3e} (tol {rel_tol}); "
+            f"launches {ca}")
+
+
+def split(stats: list[dict]) -> str:
+    keys = ("step_s", "fwd_bwd_s", "sync_s", "wire_s", "stage_s", "merge_s", "opt_s")
+    return ", ".join(f"{k[:-2]} {np.mean([s.get(k, 0.0) for s in stats]) * 1e3:.1f} ms"
+                     for k in keys)
+
+
+def train(card: str) -> dict[str, int]:
+    """The training phase; returns rank 0's launch counts of the CLI run."""
+    from repro_torch.launch import ranks
+    from repro_torch.launch import train as train_cli
+    from repro_torch.models import get_config
+
+    cfg = get_config(ARCH)
+    L, remat = cfg.num_layers, 2 if cfg.remat else 1
+    t0 = time.perf_counter()
+    grad_check(cfg)
+    torch.cuda.empty_cache()
+    log("train", f"grad check {time.perf_counter() - t0:.1f} s")
+
+    sizes = leaf_sizes()
+    comms = train_comms()
+    per_step = {k: len(planned_merges(sizes, c)) for k, c in comms.items()}
+    log("train", f"{len(sizes)} gradient leaves, {sum(sizes) / 1e6:.1f}M elements; "
+        f"chunk_combine launches per step per rank: {per_step}")
+
+    # (a) sync="xla" vs sync="r2ccl" from one seed
+    t0 = time.perf_counter()
+    runs = ranks.run(parity_rank, WORLD, "cuda", args=(None,))
+    xla, r2 = runs[0]["xla"], runs[0]["r2ccl"]
+    g = max((r["grads"] for r in runs), key=lambda x: x["rel"])
+    log("train", f"step 0's synced gradients, r2ccl (bf16 wire, degraded rank 1, lost "
+        f"0.5, g 2) vs xla (fp32), worst leaf of {WORLD} ranks: {g['worst']} "
+        f"||diff||/||g_xla|| = {g['rel']:.3e} (tol {SYNC_GRAD_TOL}); a rank's own "
+        f"gradient is at least {min(r['grads']['own'] for r in runs):.3e} from the mean")
+    if not g["rel"] <= SYNC_GRAD_TOL:
+        raise RuntimeError(f"synced gradients r2ccl vs xla: {g}")
+    d_loss = max(abs(a - b) for a, b in zip(xla["losses"], r2["losses"]))
+    want = {"xla": dict(flash_attention=remat * L * TRAIN_STEPS,
+                        flash_attention_bwd=L * TRAIN_STEPS, chunk_combine=0),
+            "r2ccl": dict(flash_attention=remat * L * TRAIN_STEPS,
+                          flash_attention_bwd=L * TRAIN_STEPS,
+                          chunk_combine=per_step["parity"] * TRAIN_STEPS)}
+    for name, run in (("xla", xla), ("r2ccl", r2)):
+        if run["launches"] != want[name]:
+            raise RuntimeError(f"{name} run launches {run['launches']} on rank 0, "
+                               f"want {want[name]}")
+        log("train", f"{name}: losses {[round(x, 6) for x in run['losses']]}; per step "
+            f"(steps 1-{TRAIN_STEPS - 1}): {split(run['stats'][1:])}; launches on rank 0 "
+            f"{run['launches']} (as predicted); peak memory per rank "
+            f"{[round(r[name]['max_memory_allocated'] / 2**30, 2) for r in runs]} GiB")
+    if not (np.isfinite(xla["losses"] + r2["losses"]).all() and d_loss <= PARITY_TOL
+            and r2["param_diff"] <= PARITY_TOL):
+        raise RuntimeError(f"xla vs r2ccl: loss diff {d_loss}, param diff "
+                           f"{r2['param_diff']} (tol {PARITY_TOL})")
+    log("train", f"xla vs r2ccl (degraded rank 1, lost 0.5, g 2): max loss diff "
+        f"{d_loss:.2e}, max param diff {r2['param_diff']:.2e} (tol {PARITY_TOL}); "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    # (b) the training CLI: ring, NIC failure on node 1 at step 2 -> degraded r2ccl
+    t0 = time.perf_counter()
+    res = train_cli.main([
+        "--arch", ARCH, "--world-size", str(WORLD), "--seq-len", str(SEQ),
+        "--batch", str(WORLD * LOCAL_BATCH), "--steps", str(TRAIN_STEPS),
+        "--sync", "r2ccl", "--comm-mode", "ring", "--fail-at-step", str(FAIL_AT),
+        "--fail-node", "1", "--nics-per-node", str(CLI_NICS), "--log-every", "1"])
+    scheds = ["healthy"] * FAIL_AT + ["degraded"] * (TRAIN_STEPS - FAIL_AT)
+    want_cli = dict(flash_attention=remat * L * TRAIN_STEPS,
+                    flash_attention_bwd=L * TRAIN_STEPS,
+                    chunk_combine=per_step["ring"] * FAIL_AT
+                    + per_step["degraded"] * (TRAIN_STEPS - FAIL_AT))
+    if res["scheds"] != scheds or res["located"] is None \
+            or not np.isfinite(res["history"]).all():
+        raise RuntimeError(f"failover run: schedules {res['scheds']}, located "
+                           f"{res['located']}, losses {res['history']}")
+    if res["launches"] != want_cli:
+        raise RuntimeError(f"CLI run launches {res['launches']} on rank 0, want {want_cli}")
+    st = res["stats"]
+    log("train", f"CLI failover: schedules {res['scheds']}, failure located at "
+        f"{res['located']}, losses {[round(x, 6) for x in res['history']]}; launches on "
+        f"rank 0 {res['launches']} (as predicted)")
+    log("train", f"CLI per step: ring (step 1) {split(st[1:FAIL_AT])}; degraded r2ccl "
+        f"(step {TRAIN_STEPS - 1}) {split(st[-1:])}; peak memory per rank "
+        f"{[round(r['max_memory_allocated'] / 2**30, 2) for r in res['ranks']]} GiB "
+        f"[{WORLD} ranks on one card, {LOCAL_BATCH} x {SEQ} tokens each; {card}]")
+    log("train", f"CLI run {time.perf_counter() - t0:.1f} s")
+    return res["launches"]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
@@ -274,10 +776,22 @@ def main() -> int:
     log("build", f"all kernels in {time.perf_counter() - t0:.2f} s")
 
     gen = torch.Generator(device="cuda").manual_seed(0)
-    rows = [check_flash_attention(gen)]
-    launches = serve(card)
+    t0 = time.perf_counter()
+    rows = [check_flash_attention(gen), check_flash_attention_bwd(gen),
+            check_chunk_combine(gen)]
+    log("kernels", f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    served = serve(card)
+    log("serve", f"{time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    trained = train(card)
+    log("train", f"{time.perf_counter() - t0:.1f} s")
     for row in rows:
-        row["launches"] = launches[row["name"]]
+        by_path = {"serve": served.get(row["name"], 0), "train": trained[row["name"]]}
+        row["launches"] = by_path["serve"] if row["name"] == "flash_attention" \
+            else by_path["train"]
+        row["launches_by_path"] = by_path
     log("done", f"{time.perf_counter() - t_start:.1f} s in all")
     print(card)
     print(json.dumps({"kernels": rows}))

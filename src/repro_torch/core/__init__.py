@@ -7,8 +7,14 @@
   balance    — R2CCL-Balance NIC-level redistribution (Section 5.1)
   partition  — Appendix-A optimal split Y*, threshold ng/(3ng-2)
   reranking  — bridge-based logical re-ranking, Algorithm 1 (Section 6)
-  recursive  — bandwidth-spectrum levels and their time model (Section 6)
+  schedule   — collective schedule IR + ring / tree builders
+  allreduce  — R2CCL-AllReduce program builder (Section 5.2)
+  recursive  — recursive decomposition over bandwidth spectra (Section 6)
+  executor_np — numpy rank-parallel oracle executor
   planner    — alpha-beta strategy selection (Table 1)
   comm_sim   — failure-cost constants and the collective rate model
   telemetry  — metrics registry and typed trace log
+
+and, ported to PyTorch: collectives — the schedule IR executed over
+``torch.distributed`` ranks, every round merged by the chunk_combine kernel.
 """

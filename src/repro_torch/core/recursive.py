@@ -1,11 +1,21 @@
-"""Recursive R2CCL bandwidth-spectrum model (paper Section 6).
+"""Recursive R2CCL-AllReduce for concurrent failures (paper Section 6).
 
-The port's copy of the planner-facing half of the JAX package's
-``core/recursive.py``: the decomposition of a bandwidth spectrum into
-recursion levels (:func:`spectrum_levels`) and the alpha-beta completion
-estimate over them (:func:`predict_time`).  The schedule builders
-(``_multi_bridge_ring``, ``build_recursive_all_reduce``) emit the schedule
-IR, which the port gains with its collective data plane.
+Under multiple failures the cluster develops a *bandwidth spectrum* rather
+than a binary healthy/degraded split.  The recursive strategy:
+
+  1. form a global ring over all nodes running at the slowest node's rate;
+  2. peel the slowest node off and build a faster sub-ring from the rest;
+  3. recurse while bandwidth variance persists, each sub-ring handling a
+     payload fraction proportional to the *incremental* bandwidth of its
+     members;
+  4. apply topology-aware logical re-ranking (Algorithm 1) at every level to
+     avoid rail mismatches introduced by skipping slower nodes;
+  5. excluded nodes contribute via injection edges and receive results via
+     delivery edges (the stage-2 broadcasts).
+
+The builder emits a :class:`CollectiveProgram` whose segments are the
+per-level rings — executable by the numpy oracle and ``core.collectives`` — plus
+an alpha-beta time estimate used by the planner.
 """
 
 from __future__ import annotations
@@ -14,6 +24,16 @@ import dataclasses
 from typing import Sequence
 
 from .partition import ring_coeff
+from .reranking import bridge_rerank
+from .schedule import (
+    ChunkSchedule,
+    CollectiveProgram,
+    Segment,
+    Step,
+    build_ring_all_gather,
+    build_ring_all_reduce,
+    build_ring_reduce_scatter,
+)
 
 
 @dataclasses.dataclass
@@ -80,6 +100,98 @@ def spectrum_levels(
     for lv in levels:
         lv.frac /= s
     return levels
+
+
+def _multi_bridge_ring(
+    members: Sequence[int], excluded: Sequence[int], n: int
+) -> ChunkSchedule:
+    """Ring AllReduce over ``members`` with injection/delivery edges for every
+    excluded node (generalizes ``allreduce.build_partial_all_reduce``)."""
+    k = len(members)
+    if k < 2:
+        from repro_torch.analysis.errors import Provenance, ScheduleError
+
+        raise ScheduleError(
+            f"bridged sub-ring needs >= 2 members, got {list(members)}",
+            Provenance(schedule=f"subring_ar[{k}]"))
+    order = list(members)
+
+    def whole(src: int, dst: int, accumulate: bool) -> Step:
+        send = [-1] * n
+        recv = [-1] * n
+        send[src] = 0
+        recv[dst] = 0
+        return Step(((src, dst),), tuple(send), tuple(recv),
+                    accumulate=accumulate, whole_buffer=True)
+
+    steps: list[Step] = []
+    # Spread injections across distinct healthy entry points so no single
+    # member becomes an ingest hotspot; one round can carry several disjoint
+    # injection edges.
+    entry = {ex: order[i % k] for i, ex in enumerate(excluded)}
+    groups: dict[int, list[int]] = {}
+    for i, ex in enumerate(excluded):
+        groups.setdefault(i // k, []).append(ex)
+    for _, exs in sorted(groups.items()):
+        perm = tuple((ex, entry[ex]) for ex in exs)
+        send = [-1] * n
+        recv = [-1] * n
+        for ex in exs:
+            send[ex] = 0
+            recv[entry[ex]] = 0
+        steps.append(Step(perm, tuple(send), tuple(recv),
+                          accumulate=True, whole_buffer=True))
+
+    rs = build_ring_reduce_scatter(order, n)
+    ag = build_ring_all_gather(order, n)
+    steps += rs.steps + ag.steps
+
+    exit_ = {ex: order[(i + 1) % k] for i, ex in enumerate(excluded)}
+    for _, exs in sorted(groups.items()):
+        perm = tuple((exit_[ex], ex) for ex in exs)
+        send = [-1] * n
+        recv = [-1] * n
+        for ex in exs:
+            send[exit_[ex]] = 0
+            recv[ex] = 0
+        steps.append(Step(perm, tuple(send), tuple(recv),
+                          accumulate=False, whole_buffer=True))
+
+    sched = ChunkSchedule(
+        f"subring_ar[{k}]+{len(excluded)}bridges", n, k, steps,
+        result_ranks=tuple(sorted(list(members) + list(excluded))),
+    )
+    sched.validate()
+    return sched
+
+
+def build_recursive_all_reduce(
+    bandwidths: Sequence[float],
+    *,
+    rail_sets: Sequence[frozenset[int]] | None = None,
+    g: int = 8,
+) -> tuple[CollectiveProgram, list[Level]]:
+    """Recursive decomposition over a bandwidth spectrum.
+
+    ``bandwidths[i]`` — residual egress bandwidth of node i.  When
+    ``rail_sets`` is given, each level's ring order is repaired with
+    Algorithm 1 before scheduling.
+    """
+    n = len(bandwidths)
+    levels = spectrum_levels(bandwidths)
+    segments: list[Segment] = []
+    for lv in levels:
+        order = lv.members
+        if rail_sets is not None and len(order) >= 3:
+            order = bridge_rerank(order, rail_sets).ring
+        if lv.excluded:
+            sched = _multi_bridge_ring(order, lv.excluded, n)
+        else:
+            sched = build_ring_all_reduce(order, n)
+        segments.append(Segment(lv.frac, sched))
+    prog = CollectiveProgram("recursive_r2ccl_all_reduce", n, segments)
+    prog.validate()
+    return prog, levels
 
 
 def predict_time(

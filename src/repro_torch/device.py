@@ -7,6 +7,9 @@ asks for it with ``device="cpu"``.
 
 from __future__ import annotations
 
+import contextlib
+import time
+
 import torch
 
 
@@ -23,3 +26,17 @@ def synchronize(device: torch.device) -> None:
     """Wait for the work queued on ``device`` (no-op on the CPU)."""
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+
+
+@contextlib.contextmanager
+def timed(stats: dict | None, key: str, device: torch.device):
+    """Add the host seconds of the block to ``stats[key]``, after
+    synchronizing ``device`` so that the block's kernels are counted
+    (nothing is timed or synchronized when ``stats`` is None)."""
+    if stats is None:
+        yield
+        return
+    t0 = time.perf_counter()
+    yield
+    synchronize(device)
+    stats[key] = stats.get(key, 0.0) + time.perf_counter() - t0

@@ -1,0 +1,98 @@
+"""R2CCL chunk combine on Hopper: the wrapper of ``csrc/chunk_combine.cu``.
+
+Replaces the TPU kernel ``chunk_combine_pallas`` of the JAX package
+(``kernels/chunk_combine.py``), the stage-2 merge of R2CCL-AllReduce.  The
+kernel's plain version is ``ref.reference_chunk_combine``;
+``ops.chunk_combine`` picks between them by the tensors' device.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+from .build import load_library
+
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_int,
+                                      ctypes.c_longlong, ctypes.c_void_p])
+MAX_CHUNKS = 1024       # rows whose (seg, acc) bits fit the kernel's parameters
+
+
+def _entry():
+    fn = load_library("chunk_combine").lib.repro_chunk_combine
+    if fn.argtypes is None:
+        fn.argtypes = _ARGTYPES
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _mask(m, C: int, name: str) -> np.ndarray:
+    """(C,) host bytes from a bool / int sequence or tensor (a CUDA tensor
+    is copied to the host, which waits for the card)."""
+    if isinstance(m, torch.Tensor):
+        m = m.detach().cpu().numpy()
+    a = np.ascontiguousarray(np.asarray(m).astype(bool).astype(np.uint8))
+    if a.shape != (C,):
+        raise ValueError(f"{name} must have shape ({C},), got {a.shape}")
+    return a
+
+
+def _overlap(a: torch.Tensor, b: torch.Tensor) -> bool:
+    a0, b0 = a.data_ptr(), b.data_ptr()
+    a1 = a0 + a.numel() * a.element_size()
+    b1 = b0 + b.numel() * b.element_size()
+    return a0 < b1 and b0 < a1
+
+
+def chunk_combine_cuda(local: torch.Tensor, recv: torch.Tensor, seg_mask,
+                       accumulate, *, out: torch.Tensor | None = None
+                       ) -> torch.Tensor:
+    """Launch the kernel on local's device and PyTorch's current stream.
+
+    ``local``, ``recv`` (and ``out``): contiguous (C, M) CUDA tensors of one
+    dtype, float32 or bfloat16; ``out`` may be ``local`` itself (in place)
+    and is a new tensor when not given.  ``seg_mask``, ``accumulate``: (C,)
+    bools on the host.  Raises on anything else and when the launch is
+    refused.  ``chunk_combine_cuda.launches`` counts launches.
+    """
+    if local.dim() != 2 or recv.shape != local.shape:
+        raise ValueError(f"want local = recv (C, M); got {tuple(local.shape)}, "
+                         f"{tuple(recv.shape)}")
+    if local.dtype not in _DTYPES or recv.dtype != local.dtype:
+        raise TypeError(f"chunk_combine takes float32 or bfloat16 local, recv "
+                        f"of one dtype; got {local.dtype}, {recv.dtype}")
+    if not (local.is_cuda and recv.device == local.device):
+        raise ValueError("chunk_combine kernel needs local, recv on one CUDA "
+                         f"device; got {local.device}, {recv.device}")
+    if not (local.is_contiguous() and recv.is_contiguous()):
+        raise ValueError("chunk_combine kernel needs contiguous local, recv")
+    C, M = local.shape
+    if not 1 <= C <= MAX_CHUNKS:
+        raise ValueError(f"chunk_combine kernel takes 1..{MAX_CHUNKS} rows, got {C}")
+    if out is None:
+        out = torch.empty_like(local)
+    elif (out.shape != local.shape or out.dtype != local.dtype
+          or out.device != local.device or not out.is_contiguous()):
+        raise ValueError("out must be a contiguous tensor like local")
+    elif out.data_ptr() != local.data_ptr() and _overlap(out, local):
+        raise ValueError("out must be local itself or not overlap it")
+    if _overlap(out, recv):
+        raise ValueError("out must not overlap recv")
+    seg = _mask(seg_mask, C, "seg_mask")
+    acc = _mask(accumulate, C, "accumulate")
+    fn = _entry()
+    with torch.cuda.device(local.device):
+        stream = torch.cuda.current_stream(local.device).cuda_stream
+        err = fn(local.data_ptr(), recv.data_ptr(), out.data_ptr(),
+                 seg.ctypes.data, acc.ctypes.data, _DTYPES[local.dtype], C, M,
+                 stream)
+    if err != 0:
+        raise RuntimeError(f"chunk_combine kernel launch failed: cudaError_t {err}")
+    chunk_combine_cuda.launches += 1
+    return out
+
+
+chunk_combine_cuda.launches = 0

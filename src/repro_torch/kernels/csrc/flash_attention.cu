@@ -26,6 +26,12 @@
 //     tile's first row can see: tiles wholly masked are never loaded.
 // This first version uses fp32 FMAs on the CUDA cores (4x4 register tiles
 // over padded, bank-conflict-free shared memory); wgmma and TMA come later.
+//
+// For training, the kernel also writes each row's log-sum-exp of the scaled
+// (and capped) scores, lse = m + log(l), -inf for a row that sees no key, to
+// an optional fp32 array laid out like q without D: (B, Tq, KVH, G).  The
+// backward kernel (flash_attention_bwd.cu) recomputes P = exp(S - lse) from
+// it.  Prefill passes no array and writes nothing more.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -62,7 +68,8 @@ __device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
 template <typename T, int DP>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o, Params p) {
+                 const T* __restrict__ v, T* __restrict__ o,
+                 float* __restrict__ lse, Params p) {
   extern __shared__ float smem[];
   constexpr int LD = DP + 1;          // odd stride: column reads hit 16 banks
   constexpr int LDS = kBlockK + 1;
@@ -242,11 +249,17 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       if (d < D) store(o + row + d, acc[i][j] / l);
     }
   }
+  if (lse != nullptr && tid < n_rows) {
+    const float l = l_s[tid];
+    const size_t row =
+        (((size_t)b * p.Tq + t0 + tid / G) * p.KVH + h) * (size_t)G + tid % G;
+    lse[row] = l > 0.f ? m_s[tid] + logf(l) : -INFINITY;
+  }
 }
 
 template <typename T, int DP>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   const Params& p, cudaStream_t stream) {
+                   float* lse, const Params& p, cudaStream_t stream) {
   const size_t smem =
       sizeof(float) * ((size_t)(kRows + 2 * kBlockK) * (DP + 1) +
                        (size_t)kRows * (kBlockK + 1) + 3 * kRows);
@@ -259,30 +272,31 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   const dim3 grid((p.Tq + bq - 1) / bq, p.KVH, p.B);
   flash_fwd_kernel<T, DP><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), p);
+      static_cast<const T*>(v), static_cast<T*>(o), lse, p);
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t dispatch_d(const void* q, const void* k, const void* v, void* o,
-                       const Params& p, cudaStream_t stream) {
-  if (p.D <= 16) return launch<T, 16>(q, k, v, o, p, stream);
-  if (p.D <= 32) return launch<T, 32>(q, k, v, o, p, stream);
-  if (p.D <= 64) return launch<T, 64>(q, k, v, o, p, stream);
-  if (p.D <= 128) return launch<T, 128>(q, k, v, o, p, stream);
-  return launch<T, 256>(q, k, v, o, p, stream);
+                       float* lse, const Params& p, cudaStream_t stream) {
+  if (p.D <= 16) return launch<T, 16>(q, k, v, o, lse, p, stream);
+  if (p.D <= 32) return launch<T, 32>(q, k, v, o, lse, p, stream);
+  if (p.D <= 64) return launch<T, 64>(q, k, v, o, lse, p, stream);
+  if (p.D <= 128) return launch<T, 128>(q, k, v, o, lse, p, stream);
+  return launch<T, 256>(q, k, v, o, lse, p, stream);
 }
 
 }  // namespace
 
 // Plain C entry point (loaded with ctypes).  dtype: 0 = fp32, 1 = bf16.
-// Returns the cudaError_t of the launch (0 = cudaSuccess); shapes the kernel
+// lse: fp32 (B, Tq, KVH, G) array for the row log-sum-exp, or null.  Returns the cudaError_t of the launch (0 = cudaSuccess); shapes the kernel
 // does not take return cudaErrorInvalidValue without launching.
 extern "C" int repro_flash_attention_fwd(
     const void* q, const void* k, const void* v, void* o, int dtype, int B,
     int Tq, int Tk, int KVH, int G, int D, int causal, int has_window,
     int window, int has_prefix, int prefix_len, int has_cap, float cap,
-    float scale, int q_offset, int has_kvl, int k_valid_len, void* stream) {
+    float scale, int q_offset, int has_kvl, int k_valid_len, void* lse,
+    void* stream) {
   if (B < 1 || Tq < 1 || Tk < 1 || KVH < 1 || G < 1 || G > kRows || D < 1 ||
       D > 256 || KVH > 65535 || B > 65535 || (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
@@ -291,8 +305,9 @@ extern "C" int repro_flash_attention_fwd(
                  has_cap,  cap,        scale,   q_offset,     has_kvl,
                  k_valid_len};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* l = static_cast<float*>(lse);
   const cudaError_t e = dtype == 0
-                            ? dispatch_d<float>(q, k, v, o, p, s)
-                            : dispatch_d<__nv_bfloat16>(q, k, v, o, p, s);
+                            ? dispatch_d<float>(q, k, v, o, l, p, s)
+                            : dispatch_d<__nv_bfloat16>(q, k, v, o, l, p, s);
   return (int)e;
 }

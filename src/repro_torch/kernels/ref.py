@@ -69,3 +69,21 @@ def reference_attention(
     out = torch.einsum("bhgqk,bkhd->bqhgd", p / torch.clamp(l, min=1e-30),
                        v.float())
     return out.to(q.dtype)
+
+
+def reference_chunk_combine(local: torch.Tensor, recv: torch.Tensor,
+                            seg_mask, accumulate) -> torch.Tensor:
+    """Plain version of the R2CCL stage-2 combine: per-row select/accumulate.
+
+    local/recv: (C, M); seg_mask, accumulate: (C,) bool or int.
+    out[c] = local[c]                 if not seg_mask[c]
+           = local[c] + recv[c]       if seg_mask[c] and accumulate[c]
+           = recv[c]                  if seg_mask[c] and not accumulate[c]
+    computed in float32 and returned in local's dtype, as the JAX package's
+    ``ref.reference_chunk_combine``.
+    """
+    seg = torch.as_tensor(seg_mask, device=local.device).bool()[:, None]
+    acc = torch.as_tensor(accumulate, device=local.device).bool()[:, None]
+    lf, rf = local.float(), recv.float()
+    comb = torch.where(acc, lf + rf, rf)
+    return torch.where(seg, comb, lf).to(local.dtype)

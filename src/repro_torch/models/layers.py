@@ -10,10 +10,11 @@ weights are float32, and JAX promotes ``bf16 x fp32`` to fp32 in ``einsum``
 and ``@``.  PyTorch refuses mixed-dtype products, so :func:`_mm` promotes
 explicitly, as ``jnp.result_type`` does.
 
-Prefill attention goes through ``kernels.ops.flash_attention``: the
-hand-written Hopper kernel for CUDA tensors, its plain version on the CPU.
-Decode attention is one query against the cache, computed in plain PyTorch
-as the JAX package computes it outside any kernel.
+Train and prefill attention go through ``kernels.ops.flash_attention``: the
+hand-written Hopper kernels for CUDA tensors (forward, and in training the
+backward kernel through ``autograd``), the plain version on the CPU.  Decode
+attention is one query against the cache, computed in plain PyTorch as the
+JAX package computes it outside any kernel.
 """
 
 from __future__ import annotations
@@ -235,16 +236,15 @@ def gqa_attention(
     causal: bool = True,
     window: int | None = None,
     logit_cap: float | None = None,
-    cache: KVCache,
-    mode: str = "prefill",       # prefill | decode (train: the training slice)
+    cache: KVCache | None = None,
+    mode: str = "prefill",       # train | prefill | decode
     attn_impl: str = "auto",
-) -> tuple[torch.Tensor, KVCache]:
-    """GQA attention with optional sliding window over a KV cache, which
-    prefill fills and decode extends (both in place)."""
-    if mode not in ("prefill", "decode"):
-        raise NotImplementedError(
-            f"mode={mode!r}: the port runs prefill and decode; train mode "
-            "comes with the training slice (ROADMAP queue 1)")
+) -> tuple[torch.Tensor, KVCache | None]:
+    """GQA attention with optional sliding window.  ``train`` attends over
+    the full sequence and keeps no cache; prefill fills the KV cache and
+    decode extends it (both in place)."""
+    if mode not in ("train", "prefill", "decode"):
+        raise ValueError(f"mode must be train, prefill or decode, got {mode!r}")
     B, T, d = x.shape
     G = num_heads // num_kv_heads
     q = _project(x, params["wq"])                        # (B,T,H,D)
@@ -281,6 +281,8 @@ def gqa_attention(
     out = blockwise_attention(qg, k, v, causal=causal, window=window,
                               logit_cap=logit_cap, impl=attn_impl)
     y = _mm(out.reshape(B, T, num_heads * head_dim), wo)
+    if mode == "train":
+        return y, None
 
     # Build the cache from the tail of the sequence (window caches keep only
     # the last ``size`` positions).  Ring-buffer layout invariant: token p
@@ -357,3 +359,23 @@ def unembed(params: Params, x: torch.Tensor, logit_cap: float | None = None) -> 
     else:
         logits = _mm(x, params["embedding"].T)
     return softcap(logits.float(), logit_cap)
+
+
+# ---------------------------------------------------------------------------
+# Losses
+# ---------------------------------------------------------------------------
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  mask: torch.Tensor | None = None,
+                  z_loss: float = 0.0) -> torch.Tensor:
+    """Token-level CE with optional z-loss; logits (..., V), labels (...)."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    loss = lse - ll
+    if z_loss:
+        loss = loss + z_loss * lse.square()
+    if mask is not None:
+        loss = loss * mask
+        return loss.sum() / torch.clamp(mask.sum(), min=1.0)
+    return loss.mean()

@@ -5,10 +5,12 @@ The port of the JAX package's ``models/transformer.py`` for attention-only
 block patterns.  Parameters keep its pytree layout: ``blocks`` is a tuple
 over the pattern of dicts whose tensors carry a leading ``n_groups`` axis
 (the axis ``lax.scan`` runs over there; a Python loop runs over it here),
-``tail`` holds the remainder layers.  Modes ``prefill`` (build caches,
-logits at the last position) and ``decode`` (one token + caches); ``train``
-comes with the training slice.  MoE, MLA, the recurrent blocks and the
-modality frontends raise ``NotImplementedError``.
+``tail`` holds the remainder layers.  Modes ``train`` (full sequence,
+logits everywhere, no caches), ``prefill`` (build caches, logits at the last
+position) and ``decode`` (one token + caches).  With ``cfg.remat``, train
+mode recomputes each layer in the backward pass (``torch.utils.checkpoint``,
+the counterpart of ``jax.checkpoint``).  MoE, MLA, the recurrent blocks and
+the modality frontends raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ from __future__ import annotations
 from typing import Any
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
@@ -132,53 +135,75 @@ def init_caches(cfg: ModelConfig, batch: int, context_len: int,
     return caches
 
 
+def _unstack(stacked: dict, n_groups: int) -> list[dict]:
+    """Per-group views of a layer's stacked params.  ``unbind`` makes one
+    backward node per tensor (the gradients of all groups are stacked once),
+    where indexing each group would scatter into a full-size zero tensor per
+    group."""
+    per = {k: {n: t.unbind(0) for n, t in sub.items()} for k, sub in stacked.items()}
+    return [{k: {n: ts[g] for n, ts in sub.items()} for k, sub in per.items()}
+            for g in range(n_groups)]
+
+
 def apply_model(
     params,
     cfg: ModelConfig,
     batch: dict[str, torch.Tensor],
     *,
-    mode: str = "prefill",          # prefill | decode
-    caches: dict,
+    mode: str = "prefill",          # train | prefill | decode
+    caches: dict | None = None,
     attn_impl: str = "auto",
-) -> tuple[torch.Tensor, dict, torch.Tensor]:
+) -> tuple[torch.Tensor, dict | None, torch.Tensor]:
     """Forward pass over ``batch["tokens"]`` (B, T).
 
     Returns (logits, new_caches, aux_loss) like the JAX package; the dense
-    path has no auxiliary loss, so aux is a zero.  ``caches`` (from
-    :func:`init_caches`) are updated in place and returned.
-    ``attn_impl="reference"`` runs prefill attention through the plain
-    version on any device.
+    path has no auxiliary loss, so aux is a zero.  ``train`` takes no caches
+    and returns None for them; prefill and decode update ``caches`` (from
+    :func:`init_caches`) in place and return them.  ``attn_impl="reference"``
+    runs train and prefill attention through the plain version on any
+    device.
     """
     _check_supported(cfg)
-    if mode not in ("prefill", "decode"):
-        raise NotImplementedError(
-            f"mode={mode!r}: train mode comes with the training slice "
-            "(ROADMAP queue 1)")
+    if mode not in ("train", "prefill", "decode"):
+        raise ValueError(f"mode must be train, prefill or decode, got {mode!r}")
+    train = mode == "train"
+    if not train and caches is None:
+        raise ValueError(f"mode={mode!r} needs caches (init_caches)")
     x = L.embed(params["embed"], batch["tokens"],
                 scale_by_dim=cfg.embedding_scale)
     x = x.to(torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32)
 
     n_groups, pattern, remainder = _pattern_split(cfg)
     kw = dict(mode=mode, attn_impl=attn_impl)
+
+    def layer(p, x, cache):
+        if train and cfg.remat:
+            return checkpoint(_apply_layer, p, cfg, x, cache=None, use_reentrant=False,
+                              **kw)
+        return _apply_layer(p, cfg, x, cache=cache, **kw)
+
     new_caches: dict[str, Any] = {}
     if n_groups > 0:
+        groups = [_unstack(params["blocks"][i], n_groups) for i in range(len(pattern))]
         for g in range(n_groups):
             for i in range(len(pattern)):
-                gp = {k: {n: t[g] for n, t in sub.items()}
-                      for k, sub in params["blocks"][i].items()}
-                c = caches["blocks"][i]
-                x, c2 = _apply_layer(gp, cfg, x, **kw, cache=L.KVCache(
-                    c.k[g], c.v[g], c.positions[g], c.index))
-                index = c2.index
-        new_caches["blocks"] = tuple(
-            L.KVCache(c.k, c.v, c.positions, index) for c in caches["blocks"])
+                cache = None
+                if not train:
+                    c = caches["blocks"][i]
+                    cache = L.KVCache(c.k[g], c.v[g], c.positions[g], c.index)
+                x, c2 = layer(groups[i][g], x, cache)
+        if not train:
+            index = c2.index
+            new_caches["blocks"] = tuple(
+                L.KVCache(c.k, c.v, c.positions, index) for c in caches["blocks"])
     if remainder:
         tail = []
         for i in range(len(remainder)):
-            x, c2 = _apply_layer(params["tail"][i], cfg, x,
-                                 cache=caches["tail"][i], **kw)
+            x, c2 = layer(params["tail"][i], x,
+                          None if train else caches["tail"][i])
             tail.append(c2)
-        new_caches["tail"] = tail
+        if not train:
+            new_caches["tail"] = tail
 
     _, norm_fn = L.make_norm(cfg.norm)
     xn = norm_fn(params["final_norm"], x)
@@ -186,4 +211,5 @@ def apply_model(
         xn = xn[:, -1:]                   # only the last position's logits
     cap = 30.0 if cfg.attention and cfg.attention.logit_softcap else None
     logits = L.unembed(params["embed"], xn, logit_cap=cap)
-    return logits, new_caches, torch.zeros((), device=logits.device)
+    aux = torch.zeros((), device=logits.device)
+    return logits, (None if train else new_caches), aux

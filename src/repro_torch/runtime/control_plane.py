@@ -1,8 +1,8 @@
 """Online recovery control plane (paper Sections 4-6 composed end-to-end).
 
 The port's copy of the JAX package's ``runtime/control_plane.py``.  The
-replan stage (``replan=True``) needs the schedule IR and raises until the
-port has it; the serving engine runs with ``replan=False``.
+replan stage (``replan=True``) is not wired to the port's schedule IR yet
+and raises; the serving engine runs with ``replan=False``.
 
 R²CCL's headline claim is not any single mechanism but the *pipeline*:
 bilateral-awareness detection, probe triangulation, pre-registered
@@ -30,7 +30,7 @@ from __future__ import annotations
 
 import dataclasses
 import enum
-from typing import Any, Mapping
+from typing import Mapping
 
 from repro_torch.core.balance import BalancePlan, rebalance
 from repro_torch.core.comm_sim import DETOUR_EFFICIENCY
@@ -47,11 +47,8 @@ from repro_torch.core.telemetry import TraceLog
 from repro_torch.core.failures import OUT_OF_SCOPE, Failure, FailureState, FailureType
 from repro_torch.core.migration import ROLLBACK_CPU_COST, RegistrationTable
 from repro_torch.core.planner import Collective, Planner, collective_payload_factor
+from repro_torch.core.schedule import CollectiveProgram
 from repro_torch.core.topology import ClusterTopology
-
-#: The schedule IR (the JAX package's ``core/schedule.py``) is not ported
-#: yet; a replanned program is opaque to everything in this module.
-CollectiveProgram = Any
 
 #: CPU time to compute a BalancePlan and install the detour routes (the plan
 #: is a closed-form water-fill over <= g NICs; the cost is dominated by
@@ -375,7 +372,7 @@ class ControlPlane:
         missing), not the whole payload."""
         raise NotImplementedError(
             "replanning builds a collective program from the schedule IR, "
-            "which the port gains with its collective data plane (ROADMAP "
+            "which the port's control plane does not do yet (ROADMAP "
             "queue 1); construct the control plane with replan=False")
 
     # -- failure path --------------------------------------------------------

@@ -45,3 +45,56 @@ def test_flash_attention_kernel_matches_plain(cuda_device, shape, dtype, kw):
     want = ref.reference_attention(q, k, v, **kw)
     atol = 2e-2 if dtype == torch.bfloat16 else 1e-4
     torch.testing.assert_close(out.float(), want.float(), rtol=0, atol=atol)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c,m,offset", [(1, 1, 0), (4, 513, 1), (12, 700, 0), (3, 7, 1)])
+def test_chunk_combine_kernel_matches_plain(cuda_device, dtype, c, m, offset):
+    """Exact: the kernel and the plain version both add in fp32 and round
+    once.  ``offset`` starts every row off the 16-byte grid."""
+    rng = np.random.default_rng(c * m)
+    flat = torch.from_numpy(rng.standard_normal(2 * c * m + offset, np.float32))
+    flat = flat.to(cuda_device, dtype)
+    local = flat[offset:offset + c * m].view(c, m)
+    recv = flat[offset + c * m:].view(c, m)
+    seg, acc = rng.integers(0, 2, c), rng.integers(0, 2, c)
+    want = ref.reference_chunk_combine(local, recv, seg, acc)
+    before = ops.launch_counts()["chunk_combine"]
+    out = ops.chunk_combine(local, recv, seg, acc, out=local)
+    torch.cuda.synchronize()
+    assert out is local
+    assert ops.launch_counts()["chunk_combine"] == before + 1
+    torch.testing.assert_close(out, want, rtol=0, atol=0)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("shape,dtype,kw", [
+    ((2, 512, 512, 5, 3, 64), torch.float32, {}),
+    ((2, 256, 256, 32, 1, 128), torch.bfloat16, {}),
+    ((1, 96, 160, 2, 2, 20), torch.float32, dict(causal=False)),
+    ((1, 128, 128, 2, 1, 16), torch.float32, dict(window=32, logit_cap=50.0)),
+    ((1, 128, 128, 2, 1, 16), torch.float32, dict(prefix_len=8)),
+])
+def test_flash_attention_backward_matches_plain(cuda_device, shape, dtype, kw):
+    """Gradients through ``ops.flash_attention`` (the backward kernel)
+    against autograd through the plain version.  Tolerance relative to
+    max(1, max |grad|): fp32 1e-3 (a dK entry sums over up to Tq * G rows),
+    bf16 3e-2."""
+    B, tq, tk, KVH, G, D = shape
+    rng = np.random.default_rng(11)
+    q = torch.from_numpy(rng.standard_normal((B, tq, KVH, G, D), np.float32))
+    k = torch.from_numpy(rng.standard_normal((B, tk, KVH, D), np.float32))
+    v = torch.from_numpy(rng.standard_normal((B, tk, KVH, D), np.float32))
+    do = torch.from_numpy(rng.standard_normal((B, tq, KVH, G, D), np.float32))
+    q, k, v, do = (t.to(cuda_device, dtype) for t in (q, k, v, do))
+    grads = {}
+    for impl in ("auto", "reference"):
+        qa, ka, va = (t.clone().requires_grad_() for t in (q, k, v))
+        out = ops.flash_attention(qa, ka, va, impl=impl, **kw)
+        grads[impl] = torch.autograd.grad(out, (qa, ka, va), do)
+    torch.cuda.synchronize()
+    rtol = 3e-2 if dtype == torch.bfloat16 else 1e-3
+    for a, b in zip(grads["auto"], grads["reference"]):
+        scale = max(1.0, b.float().abs().max().item())
+        assert (a.float() - b.float()).abs().max().item() <= rtol * scale

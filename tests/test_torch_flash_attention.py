@@ -110,7 +110,8 @@ def test_cpu_tensor_takes_plain_path_without_counting():
     q, k, v = (torch.from_numpy(a) for a in _inputs(4, 1, 32, 32, 2, 2, 16))
     ops.reset_launch_counts()
     out = ops.flash_attention(q, k, v)
-    assert ops.launch_counts() == {"flash_attention": 0}
+    counts = ops.launch_counts()
+    assert counts["flash_attention"] == 0 and not any(counts.values())
     torch.testing.assert_close(out, ref.reference_attention(q, k, v),
                                rtol=0, atol=0)
     torch.testing.assert_close(ops.flash_attention(q, k, v, impl="reference"), out,
@@ -138,3 +139,43 @@ def test_fully_masked_rows_give_zeros():
     assert float(out.abs().max()) == 0.0
     want = jax_blockwise(jq, jk, jv, k_valid_len=0, q_block=4, kv_block=16)
     np.testing.assert_allclose(_np(out), _np(want), atol=2e-5)
+
+
+@pytest.mark.parametrize("tq,tk,kw", [
+    (64, 64, {}), (64, 64, dict(causal=False)), (64, 64, dict(window=16)),
+    (64, 64, dict(prefix_len=8)), (64, 64, dict(logit_cap=20.0)),
+    (64, 64, dict(window=32, logit_cap=50.0)), (48, 80, {}),
+])
+def test_backward_matches_jax_vjp(tq, tk, kw):
+    """The gradient the backward kernel replaces: autograd through
+    ``ops.flash_attention`` (the plain version on the CPU) against
+    ``jax.vjp`` of the JAX package's ``blockwise_attention``, on the same
+    cotangent.  fp32, atol 2e-5 (the forward's tolerance)."""
+    import jax
+
+    q, k, v = _inputs(3, 2, tq, tk, 2, 3, 16)
+    do = np.random.default_rng(4).standard_normal(q.shape).astype(np.float32)
+    _, vjp = jax.vjp(lambda a, b, c: jax_blockwise(a, b, c, q_block=16, kv_block=32, **kw),
+                     jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    want = vjp(jnp.asarray(do))
+    tq_, tk_, tv = (torch.from_numpy(a).requires_grad_() for a in (q, k, v))
+    got = torch.autograd.grad(ops.flash_attention(tq_, tk_, tv, **kw),
+                              (tq_, tk_, tv), torch.from_numpy(do))
+    for a, b in zip(got, want):
+        np.testing.assert_allclose(_np(a), _np(b), atol=2e-5)
+
+
+def test_backward_refuses_decode_arguments():
+    """The backward kernel takes no q_offset / k_valid_len: on the card,
+    asking for a gradient with them raises before any launch."""
+    q, k, v = (torch.from_numpy(a) for a in _inputs(5, 1, 8, 8, 1, 1, 16))
+    if torch.cuda.is_available():
+        q, k, v = (t.cuda().requires_grad_() for t in (q, k, v))
+        with pytest.raises(ValueError, match="q_offset"):
+            ops.flash_attention(q, k, v, q_offset=2)
+    # on the CPU the plain version differentiates any mask
+    qc = torch.from_numpy(_inputs(5, 1, 8, 8, 1, 1, 16)[0]).requires_grad_()
+    out = ops.flash_attention(qc, k.detach().cpu(), v.detach().cpu(), q_offset=2,
+                              k_valid_len=6)
+    out.sum().backward()
+    assert torch.isfinite(qc.grad).all()

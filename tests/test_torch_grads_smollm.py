@@ -1,0 +1,11 @@
+"""Train-mode loss and gradients of the port's smollm-360m smoke config against
+``jax.value_and_grad`` (check and tolerances: ``_torch_grad_parity.py``)."""
+
+import pytest
+
+from _torch_grad_parity import check_loss_and_grads
+
+
+@pytest.mark.parametrize("remat", [False, True])
+def test_loss_and_grads_match_jax(remat):
+    check_loss_and_grads("smollm-360m", remat)

@@ -54,3 +54,14 @@ def test_serving_import_loads_no_jax():
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, env=env, timeout=120)
     assert out.returncode == 0, out.stdout + out.stderr
+
+
+def test_training_import_loads_no_jax():
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
+    code = ("import sys, repro_torch.launch.train, repro_torch.core.collectives, "
+            "repro_torch.analysis.corpus, repro_torch.core.executor_np; "
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'repro')); print(bad); sys.exit(1 if bad else 0)")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env=env, timeout=120)
+    assert out.returncode == 0, out.stdout + out.stderr

@@ -171,11 +171,19 @@ def test_decode_attention_ring_positions():
 
 
 def test_gqa_train_mode_not_ported():
-    _, tp = _gqa_params(7)
-    with pytest.raises(NotImplementedError, match="train"):
-        L.gqa_attention(tp, torch.zeros(1, 4, D_MODEL), num_kv_heads=KVH,
-                        num_heads=H, head_dim=HD, mode="train",
-                        cache=L.init_kv_cache(1, 4, KVH, HD))
+    """Train mode, which the first slice of the port did not run, now
+    attends over the full sequence like the JAX layer and keeps no cache;
+    an unknown mode raises."""
+    jp, tp = _gqa_params(7)
+    kw = dict(num_kv_heads=KVH, num_heads=H, head_dim=HD, window=5)
+    jx, tx = _both(np.random.default_rng(8).standard_normal(
+        (2, 9, D_MODEL)).astype(np.float32), "bf16")
+    jy, jc = JL.gqa_attention(jp, jx, mode="train", **kw)
+    ty, tc = L.gqa_attention(tp, tx, mode="train", **kw)
+    assert tc is None and jc is None
+    np.testing.assert_allclose(_np(ty), _np(jy), atol=ATOL)
+    with pytest.raises(ValueError, match="mode"):
+        L.gqa_attention(tp, tx, mode="bogus", **kw)
 
 
 def test_init_distributions():

@@ -79,10 +79,12 @@ def test_registry_and_device_rules():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             init_model(get_smoke_config("smollm-360m"))
-    with pytest.raises(NotImplementedError, match="train"):
+    with pytest.raises(ValueError, match="mode"):
         apply_model({}, get_smoke_config("smollm-360m"),
-                    {"tokens": torch.zeros(1, 2, dtype=torch.long)}, mode="train",
-                    caches={})
+                    {"tokens": torch.zeros(1, 2, dtype=torch.long)}, mode="bogus")
+    with pytest.raises(ValueError, match="caches"):
+        apply_model({}, get_smoke_config("smollm-360m"),
+                    {"tokens": torch.zeros(1, 2, dtype=torch.long)}, mode="prefill")
 
 
 def test_attn_impl_reference_equals_auto_on_cpu(pair):
