@@ -20,7 +20,15 @@ Phases, each printing its own lines and seconds, and raising on failure
                step 4; tokens must be identical, launch counts are read around
                the two runs, and prefill logits through the kernel are held
                against the plain attention on the card;
-  5. train   — full-width smollm-360m trained data-parallel on 4 ranks, all on
+  5. serve_recurrentgemma — the same for full-width recurrentgemma-9b (38
+               layers, 9.4B fp32 params): 2 requests of 2304-token prompts, more
+               than the 2048-token local-attention window, so prefill wraps the
+               ring buffer; 26 lru_scan and 12 flash_attention launches per
+               prefill; prefill logits through the kernels against the plain
+               versions of all of them;
+  6. serve_rwkv6 — the same for full-width rwkv6-1.6b: 4 requests of
+               512-token prompts, 24 wkv_scan launches per prefill;
+  7. train   — full-width smollm-360m trained data-parallel on 4 ranks, all on
                this card (host-staged gloo wire): one rank's gradients through
                the attention kernels against plain attention; ``sync="xla"``
                against ``sync="r2ccl"`` (degraded rank 1, lost 0.5, g 2) for 4
@@ -73,12 +81,50 @@ KERNELS = {
         route="cuda",
         source="src/repro_torch/kernels/csrc/chunk_combine.cu",
         replaces="src/repro/kernels/chunk_combine.py:35"),
+    "lru_scan": dict(
+        route="cuda",
+        source="src/repro_torch/kernels/csrc/lru_scan.cu",
+        replaces="src/repro/kernels/lru_scan.py:56"),
+    "wkv_scan": dict(
+        route="cuda",
+        source="src/repro_torch/kernels/csrc/wkv_scan.cu",
+        replaces="src/repro/kernels/wkv_scan.py:59"),
 }
+#: the path whose launches each kernel's row reports
+MAIN_PATH = {"flash_attention": "serve", "flash_attention_bwd": "train",
+             "chunk_combine": "train", "lru_scan": "serve_recurrentgemma",
+             "wkv_scan": "serve_rwkv6"}
+NO_LIBRARY = "no single PyTorch call computes this recurrence"
 
 ARCH, BATCH, PROMPT, NEW_TOKENS, CONTEXT = "smollm-360m", 4, 512, 16, 1024
 FAIL_STEP = 4
+#: the recurrent serve phases: (arch, batch, prompt, context, kernel
+#: launches per prefill); recurrentgemma-9b has 12 groups of (rglru, rglru,
+#: local_attn) and a tail of 2 rglru layers
+RECURRENT = {
+    "serve_recurrentgemma": ("recurrentgemma-9b", 2, 2304, 2560,
+                             dict(lru_scan=26, flash_attention=12)),
+    "serve_rwkv6": ("rwkv6-1.6b", 4, 512, 1024, dict(wkv_scan=24)),
+}
 ATOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}   # kernel vs plain
-LOGIT_ATOL = 5e-2                                     # model through kernel vs plain
+# prefill logits, model through the kernels vs the plain versions, by serve
+# phase, with the config's bf16 residual stream: the gap is bf16 roundings of
+# the residual that land differently once a value moves by an ulp (2^-8
+# relative), compounded over the layers, and for the recurrent families
+# carried along the sequence by the recurrences.  On an H100 it measured
+# 0.136 (recurrentgemma-9b, 38 layers) and 0.107 (rwkv6-1.6b, 24 layers),
+# top-1 equal, while the float32 run below stayed within 7e-5: the kernels
+# themselves are held there.
+LOGIT_ATOL = {"serve": 5e-2, "serve_recurrentgemma": 0.25, "serve_rwkv6": 0.25}
+# the same with a float32 residual stream, where the gap is the kernels' own
+# fp32 error (about 1e-6 relative) carried through the layers
+LOGIT_ATOL_F32 = 1e-3
+# scans vs their plain versions, relative to max(1, max |value|): both run
+# the recurrence in fp32 in time order, the kernels with fused multiply-adds
+# and (wkv) the sum over k in another order
+SCAN_RTOL = 1e-5
+# one recurrentgemma-9b local_attn layer in prefill: (B, Tq, Tk, KVH, G, D)
+RG_ATTN, RG_WINDOW = (2, 2304, 2304, 1, 16, 256), 2048
 # backward kernel vs autograd through the plain version, relative to
 # max(1, max |gradient|): a dK entry sums over up to Tq * G query rows
 BWD_RTOL = {torch.float32: 1e-3, torch.bfloat16: 3e-2}
@@ -103,6 +149,12 @@ GRAD_TOL = {"float32": (1e-4, 1e-3), "bfloat16": (2e-3, 5e-2)}
 R2CCL_COMM = dict(mode="r2ccl", degraded_rank=1, lost_fraction=0.5,
                   devices_per_node=2)
 CLI_NICS = 2               # NICs a node in the CLI failover run
+
+
+def counts(**nonzero) -> dict[str, int]:
+    """Launch counts as ``ops.launch_counts()`` reports them: every kernel,
+    0 unless given."""
+    return {name: nonzero.get(name, 0) for name in KERNELS}
 
 
 def log(phase: str, msg: str) -> None:
@@ -179,8 +231,10 @@ def check_flash_attention(gen) -> dict:
         ("q_offset/k_valid_len", (2, 16, 200, 2, 4, 32), torch.float32,
          dict(q_offset=100, k_valid_len=150)),
         ("glm4-heads", (1, 64, 64, 2, 16, 128), torch.bfloat16, {}),
+        ("recurrentgemma-local", RG_ATTN, torch.float32, dict(window=RG_WINDOW)),
+        ("D=256 ragged", (1, 70, 70, 1, 16, 256), torch.float32, dict(window=33)),
     ]
-    smollm_err = None
+    smollm_err = rg_err = None
     for label, shape, dtype, kw in cases:
         q, k, v = inputs(*shape, dtype)
         out = flash_attention_cuda(q, k, v, **kw)
@@ -197,6 +251,10 @@ def check_flash_attention(gen) -> dict:
                                f"> {ATOL[dtype]}")
         if smollm_err is None:
             smollm_err = err
+        if label == "recurrentgemma-local":
+            rg_err = err
+        del q, k, v, out, want
+    rg = time_local_attention(gen, ref, flash_attention_cuda)
 
     # timing at the serving prefill shape (one layer's attention)
     q, k, v = inputs(BATCH, PROMPT, PROMPT, 5, 3, 64, torch.float32)
@@ -218,7 +276,39 @@ def check_flash_attention(gen) -> dict:
     return dict(name="flash_attention", **KERNELS["flash_attention"],
                 launches=0, max_abs_err=smollm_err, ms=min(t_kernel, t_kernel2),
                 plain_ms=t_plain, bound_ms=bound, bound_by=bound_by,
-                library_ms=t_lib)
+                library_ms=t_lib, recurrentgemma=dict(shape=RG_ATTN, max_abs_err=rg_err,
+                                                      **rg))
+
+
+def time_local_attention(gen, ref, flash_attention_cuda) -> dict:
+    """One recurrentgemma-9b local_attn layer's prefill attention (MQA,
+    16 query heads of 256, window 2048, fp32): kernel, plain version and
+    SDPA with the window as a boolean mask, against the bound."""
+    B, T, KVH, G, D = RG_ATTN[0], RG_ATTN[1], *RG_ATTN[3:]
+    q = torch.randn(B, T, KVH, G, D, device="cuda", generator=gen)
+    k = torch.randn(B, T, KVH, D, device="cuda", generator=gen)
+    v = torch.randn(B, T, KVH, D, device="cuda", generator=gen)
+    kw = dict(window=RG_WINDOW)
+    pos = torch.arange(T, device="cuda")
+    mask = (pos[None, :] <= pos[:, None]) & (pos[:, None] - pos[None, :] < RG_WINDOW)
+    qs = q.reshape(B, T, KVH * G, D).transpose(1, 2)
+    ks, vs = k.transpose(1, 2), v.transpose(1, 2)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    got = sdpa(qs, ks, vs, attn_mask=mask, enable_gqa=True)
+    lib_err = (got.transpose(1, 2).reshape(q.shape)
+               - flash_attention_cuda(q, k, v, **kw)).abs().max().item()
+    del got
+    t_kernel = time_ms(lambda: flash_attention_cuda(q, k, v, **kw), iters=5)
+    t_plain = time_ms(lambda: ref.reference_attention(q, k, v, **kw), iters=3, warmup=1)
+    t_lib = time_ms(lambda: sdpa(qs, ks, vs, attn_mask=mask, enable_gqa=True), iters=5)
+    t_kernel2 = time_ms(lambda: flash_attention_cuda(q, k, v, **kw), iters=5)
+    bound, bound_by = attention_bound(q, k, ref, kw)
+    log("kernels", f"flash_attention recurrentgemma-local {RG_ATTN} fp32 window "
+        f"{RG_WINDOW}: kernel {t_kernel:.4f} / {t_kernel2:.4f} ms, plain {t_plain:.4f} ms, "
+        f"sdpa (boolean mask) {t_lib:.4f} ms (its max_abs_err vs the kernel {lib_err:.2e}), "
+        f"bound {bound:.4f} ms ({bound_by})")
+    return dict(ms=min(t_kernel, t_kernel2), plain_ms=t_plain, bound_ms=bound,
+                bound_by=bound_by, library_ms=t_lib)
 
 
 def check_flash_attention_bwd(gen) -> dict:
@@ -458,28 +548,144 @@ def check_chunk_combine(gen) -> dict:
                 bound_ms=bound, bound_by="bytes", library_ms=t_lib)
 
 
-def serve(card: str) -> dict[str, int]:
+def scan_err(got, want) -> tuple[float, float]:
+    """(max |got - want|, that over max(1, max |want|)), raising on
+    non-finite output."""
+    if not torch.isfinite(got).all():
+        raise RuntimeError("non-finite scan output")
+    err = (got - want).abs().max().item()
+    return err, err / max(1.0, want.abs().max().item())
+
+
+def check_lru_scan(gen) -> dict:
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.lru_scan import lru_scan_cuda
+    from repro_torch.models import get_config
+    from repro_torch.models.rglru import _gates, init_rglru_block
+
+    # a and x from the model's gates: one RG-LRU block's gate weights at
+    # recurrentgemma-9b's width, on post-conv activations of unit scale
+    cfg = get_config("recurrentgemma-9b")
+    W = cfg.rglru.lru_width
+    gates = {k: v for k, v in init_rglru_block(gen, 8, W, cfg.rglru.conv_width).items()
+             if k in ("w_rg", "b_rg", "w_ig", "b_ig", "lam")}
+
+    def inputs(B, T, W):
+        u = torch.randn(B, T, W, device="cuda", generator=gen)
+        a, x = _gates({k: v[..., :W, :W] if k.startswith("w_") else v[..., :W]
+                       for k, v in gates.items()}, u)
+        h0 = torch.randn(B, W, device="cuda", generator=gen)
+        return a.contiguous(), x.contiguous(), h0
+
+    serve_shape = (RECURRENT["serve_recurrentgemma"][1], RECURRENT["serve_recurrentgemma"][2], W)
+    worst = 0.0
+    for shape in (serve_shape, (3, 37, 100), (1, 1, 5), (2, 129, W - 3)):
+        a, x, h0 = inputs(*shape)
+        abs_err, err = scan_err(lru_scan_cuda(a, x, h0), ref.reference_lru_scan(a, x, h0))
+        worst = max(worst, err)
+        log("kernels", f"lru_scan {shape} fp32, a from _gates, nonzero h0: max_abs_err="
+            f"{abs_err:.3e}, {err:.3e} of max(1, max|h|) (tol {SCAN_RTOL:g}) "
+            f"{'ok' if err <= SCAN_RTOL else 'FAIL'}")
+        if err > SCAN_RTOL:
+            raise RuntimeError(f"lru_scan {shape}: max_err {err} > {SCAN_RTOL}")
+        if shape == serve_shape:
+            serve_err, timed = (abs_err, err), (a, x, h0)
+    a, x, h0 = timed
+    t_kernel = time_ms(lambda: lru_scan_cuda(a, x, h0))
+    t_plain = time_ms(lambda: ref.reference_lru_scan(a, x, h0), iters=3, warmup=1)
+    t_kernel2 = time_ms(lambda: lru_scan_cuda(a, x, h0))
+    nbytes = 12 * a.numel() + 4 * h0.numel()      # a, x in, h out; h0 in
+    bound = nbytes / PEAK_BYTES * 1e3
+    log("kernels", f"lru_scan serve shape {serve_shape} fp32: kernel {t_kernel:.4f} / "
+        f"{t_kernel2:.4f} ms, plain {t_plain:.4f} ms, bound {bound:.4f} ms (bytes, "
+        f"{nbytes / 1e6:.1f} MB), {bound / min(t_kernel, t_kernel2):.1%} of it; "
+        f"library: none ({NO_LIBRARY}); worst case err {worst:.3e}")
+    return dict(name="lru_scan", **KERNELS["lru_scan"], launches=0,
+                max_abs_err=serve_err[0], max_rel_err=serve_err[1], ms=min(t_kernel, t_kernel2), plain_ms=t_plain, bound_ms=bound,
+                bound_by="bytes", library_ms=None, library_note=NO_LIBRARY)
+
+
+def check_wkv_scan(gen) -> dict:
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.wkv_scan import wkv_scan_cuda
+
+    def inputs(B, T, H, K):
+        r, k, v = (torch.randn(B, T, H, K, device="cuda", generator=gen) for _ in range(3))
+        # w = exp(-exp(dec)) as rwkv_block makes it, dec around the
+        # decay_base of -6 moved by the low-rank term
+        dec = -6.0 + 2.0 * torch.randn(B, T, H, K, device="cuda", generator=gen)
+        w = torch.exp(-torch.exp(dec))
+        u = 0.1 * torch.randn(H, K, device="cuda", generator=gen)
+        s0 = torch.randn(B, H, K, K, device="cuda", generator=gen)
+        return r, k, v, w, u, s0
+
+    arch, B, T, _, _ = RECURRENT["serve_rwkv6"]
+    serve_shape = (B, T, 32, 64)                  # rwkv6-1.6b: d 2048 = 32 heads of 64
+    worst = 0.0
+    for shape in (serve_shape, (3, 37, 5, 32), (1, 1, 2, 16), (2, 100, 3, 64)):
+        ins = inputs(*shape)
+        got, want = wkv_scan_cuda(*ins), ref.reference_wkv(*ins)
+        errs = [scan_err(g, w) for g, w in zip(got, want)]
+        abs_err, err = max(e[0] for e in errs), max(e[1] for e in errs)
+        worst = max(worst, err)
+        log("kernels", f"wkv_scan {shape} fp32, w = exp(-exp(dec)), nonzero s0, out and "
+            f"s_T: max_abs_err={abs_err:.3e}, {err:.3e} of max(1, max|value|) (tol "
+            f"{SCAN_RTOL:g}) "
+            f"{'ok' if err <= SCAN_RTOL else 'FAIL'}")
+        if err > SCAN_RTOL:
+            raise RuntimeError(f"wkv_scan {shape}: max_err {err} > {SCAN_RTOL}")
+        if shape == serve_shape:
+            serve_err, timed = (abs_err, err), ins
+    t_kernel = time_ms(lambda: wkv_scan_cuda(*timed))
+    t_plain = time_ms(lambda: ref.reference_wkv(*timed), iters=3, warmup=1)
+    t_kernel2 = time_ms(lambda: wkv_scan_cuda(*timed))
+    B, T, H, K = serve_shape
+    # per (b, t, h, k, v): k*v, +u*kv, *r and sum, w*S + kv: 7 operations
+    flops = 7.0 * B * T * H * K * K
+    nbytes = 4 * (5 * B * T * H * K + H * K + 2 * B * H * K * K)
+    t_ops, t_bytes = flops / PEAK_FLOPS[torch.float32], nbytes / PEAK_BYTES
+    bound, bound_by = max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
+                                                   else "bytes")
+    log("kernels", f"wkv_scan serve shape {serve_shape} fp32: kernel {t_kernel:.4f} / "
+        f"{t_kernel2:.4f} ms, plain {t_plain:.4f} ms, bound {bound:.4f} ms ({bound_by}: "
+        f"{flops / 1e9:.2f} GFLOP -> {t_ops * 1e3:.4f} ms, {nbytes / 1e6:.1f} MB -> "
+        f"{t_bytes * 1e3:.4f} ms), {bound / min(t_kernel, t_kernel2):.1%} of it; library: "
+        f"none ({NO_LIBRARY}); worst case err {worst:.3e}")
+    return dict(name="wkv_scan", **KERNELS["wkv_scan"], launches=0,
+                max_abs_err=serve_err[0], max_rel_err=serve_err[1], ms=min(t_kernel, t_kernel2), plain_ms=t_plain, bound_ms=bound,
+                bound_by=bound_by, library_ms=None, library_note=NO_LIBRARY)
+
+
+def serve(card: str, phase: str, arch: str, batch: int, prompt: int, context: int,
+          per_prefill: dict[str, int], logit_atol: float) -> dict[str, int]:
+    """One serve phase: the engine healthy and with a NIC failure, launch
+    counts held to ``per_prefill`` times the two prefills (every other
+    kernel at 0), then the prefill logits through the kernels against the
+    plain versions of all of them.  Returns the launch counts."""
     from repro_torch.core.failures import Failure, FailureType
     from repro_torch.kernels import ops
     from repro_torch.models import apply_model, get_config, init_caches, init_model
     from repro_torch.serving import Request, ServingEngine
+    from repro_torch.tree import leaves
 
-    cfg = get_config(ARCH)
+    cfg = get_config(arch)
     t0 = time.perf_counter()
     params = init_model(cfg, seed=0, device="cuda")
     torch.cuda.synchronize()
-    log("serve", f"{ARCH}: {cfg.num_layers} layers, d_model {cfg.d_model}, "
-        f"{cfg.attention.num_heads}/{cfg.attention.num_kv_heads} heads, "
-        f"{cfg.param_count() / 1e6:.1f}M fp32 params, "
-        f"init {time.perf_counter() - t0:.2f} s")
+    heads = (f"{cfg.attention.num_heads}/{cfg.attention.num_kv_heads} heads"
+             if cfg.attention else f"{cfg.d_model // cfg.rwkv.head_size} wkv heads")
+    n_params = sum(t.numel() for t in leaves(params))
+    log(phase, f"{arch}: {cfg.num_layers} layers {tuple(cfg.block_pattern)}, d_model "
+        f"{cfg.d_model}, {heads}, {n_params / 1e6:.1f}M fp32 params "
+        f"({4 * n_params / 1e9:.1f} GB), init {time.perf_counter() - t0:.2f} s")
     rng = np.random.default_rng(0)
-    prompts = [rng.integers(0, cfg.vocab_size, PROMPT) for _ in range(BATCH)]
+    prompts = [rng.integers(0, cfg.vocab_size, prompt) for _ in range(batch)]
 
     def requests(new=NEW_TOKENS):
         return [Request(prompt=p, max_new_tokens=new) for p in prompts]
 
     def engine():
-        return ServingEngine(cfg, params, context_len=CONTEXT, strategy="r2ccl",
+        return ServingEngine(cfg, params, context_len=context, strategy="r2ccl",
                              device="cuda")
 
     engine().run_batch(requests(2))        # warm-up: cuBLAS handles, kernel load
@@ -499,39 +705,49 @@ def serve(card: str) -> dict[str, int]:
     if failed[0].failovers != 1 or failing.last_recovery is None \
             or not failing.last_recovery.total > 0:
         raise RuntimeError("r2ccl failover not taken through the control plane")
-    if launches["flash_attention"] != cfg.num_layers * prefills:
-        raise RuntimeError(f"flash_attention launched {launches['flash_attention']} "
-                           f"times, want {cfg.num_layers} x {prefills} prefills")
-    log("serve", f"tokens identical healthy vs NIC failure at step {FAIL_STEP}; "
+    want = counts(**{k: n * prefills for k, n in per_prefill.items()})
+    if launches != want:
+        raise RuntimeError(f"launches {launches}, want {want} ({per_prefill} per "
+                           f"prefill x {prefills} prefills)")
+    log(phase, f"tokens identical healthy vs NIC failure at step {FAIL_STEP}; "
         f"failovers={failed[0].failovers}, hiccup {failing.last_recovery.total * 1e3:.4f} ms "
-        f"(stages {failing.last_recovery.stages}); launches {launches}")
-    log("serve", f"healthy: TTFT {healthy[0].ttft * 1e3:.3f} ms, TPOT "
+        f"(stages {failing.last_recovery.stages}); launches {launches} ({per_prefill} "
+        f"per prefill, as predicted)")
+    log(phase, f"healthy: TTFT {healthy[0].ttft * 1e3:.3f} ms, TPOT "
         f"{healthy[0].tpot * 1e3:.3f} ms; with failure: TTFT {failed[0].ttft * 1e3:.3f} ms, "
         f"TPOT {failed[0].tpot * 1e3:.3f} ms, total {failed[0].total_latency * 1e3:.3f} ms "
-        f"[B={BATCH}, prompt {PROMPT}, {NEW_TOKENS} new tokens; {card}]")
-    log("serve", f"first tokens of request 0: {healthy[0].tokens[:8]}")
+        f"[B={batch}, prompt {prompt}, {NEW_TOKENS} new tokens; {card}]")
+    log(phase, f"first tokens of request 0: {healthy[0].tokens[:8]}")
 
-    # prefill logits through the kernel vs the same model with plain attention
+    # prefill logits through the kernels vs the same model with the plain
+    # version of every kernel: with a float32 residual stream, where the gap
+    # is the kernels' own error, and with the config's own dtype
     toks = torch.as_tensor(np.stack(prompts), device="cuda")
-    with torch.no_grad():
-        logits = {impl: apply_model(params, cfg, {"tokens": toks}, mode="prefill",
-                                    caches=init_caches(cfg, BATCH, CONTEXT,
-                                                       dtype=torch.float32,
-                                                       device="cuda"),
-                                    attn_impl=impl)[0][:, -1].float()
-                  for impl in ("auto", "reference")}
-    a, b = logits["auto"], logits["reference"]
-    if not (torch.isfinite(a).all() and a.shape == (BATCH, cfg.vocab_size)):
-        raise RuntimeError(f"prefill logits: shape {tuple(a.shape)} or non-finite")
-    err = (a - b).abs().max().item()
-    top2 = b.topk(2, dim=-1).values
-    decided = (top2[:, 0] - top2[:, 1]) > LOGIT_ATOL
-    same = a.argmax(-1) == b.argmax(-1)
-    if err > LOGIT_ATOL or not bool(same[decided].all()):
-        raise RuntimeError(f"prefill logits kernel vs plain: max_abs_err {err}, "
-                           f"top-1 equal {same.tolist()} (decided {decided.tolist()})")
-    log("serve", f"prefill logits through the kernel vs plain attention: "
-        f"max_abs_err={err:.3e} (tol {LOGIT_ATOL}), top-1 equal {same.tolist()}")
+    for dtype, tol in (("float32", LOGIT_ATOL_F32), (cfg.dtype, logit_atol)):
+        c = dataclasses.replace(cfg, dtype=dtype)
+        with torch.no_grad():
+            logits = {impl: apply_model(params, c, {"tokens": toks}, mode="prefill",
+                                        caches=init_caches(c, batch, context,
+                                                           dtype=torch.float32,
+                                                           device="cuda"),
+                                        kernel_impl=impl)[0][:, -1].float()
+                      for impl in ("auto", "reference")}
+        a, b = logits["auto"], logits["reference"]
+        if not (torch.isfinite(a).all() and a.shape == (batch, cfg.vocab_size)):
+            raise RuntimeError(f"prefill logits: shape {tuple(a.shape)} or non-finite")
+        err = (a - b).abs().max().item()
+        top2 = b.topk(2, dim=-1).values
+        decided = (top2[:, 0] - top2[:, 1]) > tol
+        same = a.argmax(-1) == b.argmax(-1)
+        log(phase, f"prefill logits through the kernels vs their plain versions, {dtype} "
+            f"residual stream: max_abs_err={err:.3e} (tol {tol}; logits span "
+            f"{b.min().item():.3f}..{b.max().item():.3f}), top-1 equal {same.tolist()}")
+        if err > tol or not bool(same[decided].all()):
+            raise RuntimeError(f"prefill logits kernel vs plain, {dtype} residual: "
+                               f"max_abs_err {err}, top-1 equal {same.tolist()} "
+                               f"(decided {decided.tolist()})")
+    del params, logits, a, b
+    torch.cuda.empty_cache()
     return launches
 
 
@@ -639,11 +855,11 @@ def grad_check(cfg) -> None:
         got = {}
         for impl in ("auto", "reference"):
             ops.reset_launch_counts()
-            total, _ = compute_loss(params, c, batch, attn_impl=impl)
+            total, _ = compute_loss(params, c, batch, kernel_impl=impl)
             got[impl] = (total.item(), torch.autograd.grad(total, flat), ops.launch_counts())
         (la, ga, ca), (lr, gr, cr) = got["auto"], got["reference"]
-        if ca["flash_attention"] != remat * cfg.num_layers or \
-                ca["flash_attention_bwd"] != cfg.num_layers or any(cr.values()):
+        if ca != counts(flash_attention=remat * cfg.num_layers,
+                        flash_attention_bwd=cfg.num_layers) or cr != counts():
             raise RuntimeError(f"grad check launches: kernels {ca}, plain {cr}")
         rel = {n: float((a - r).norm() / r.norm().clamp(min=1e-30))
                for n, a, r in zip(names, ga, gr)}
@@ -696,11 +912,11 @@ def train(card: str) -> dict[str, int]:
     if not g["rel"] <= SYNC_GRAD_TOL:
         raise RuntimeError(f"synced gradients r2ccl vs xla: {g}")
     d_loss = max(abs(a - b) for a, b in zip(xla["losses"], r2["losses"]))
-    want = {"xla": dict(flash_attention=remat * L * TRAIN_STEPS,
-                        flash_attention_bwd=L * TRAIN_STEPS, chunk_combine=0),
-            "r2ccl": dict(flash_attention=remat * L * TRAIN_STEPS,
-                          flash_attention_bwd=L * TRAIN_STEPS,
-                          chunk_combine=per_step["parity"] * TRAIN_STEPS)}
+    want = {"xla": counts(flash_attention=remat * L * TRAIN_STEPS,
+                          flash_attention_bwd=L * TRAIN_STEPS),
+            "r2ccl": counts(flash_attention=remat * L * TRAIN_STEPS,
+                            flash_attention_bwd=L * TRAIN_STEPS,
+                            chunk_combine=per_step["parity"] * TRAIN_STEPS)}
     for name, run in (("xla", xla), ("r2ccl", r2)):
         if run["launches"] != want[name]:
             raise RuntimeError(f"{name} run launches {run['launches']} on rank 0, "
@@ -725,10 +941,10 @@ def train(card: str) -> dict[str, int]:
         "--sync", "r2ccl", "--comm-mode", "ring", "--fail-at-step", str(FAIL_AT),
         "--fail-node", "1", "--nics-per-node", str(CLI_NICS), "--log-every", "1"])
     scheds = ["healthy"] * FAIL_AT + ["degraded"] * (TRAIN_STEPS - FAIL_AT)
-    want_cli = dict(flash_attention=remat * L * TRAIN_STEPS,
-                    flash_attention_bwd=L * TRAIN_STEPS,
-                    chunk_combine=per_step["ring"] * FAIL_AT
-                    + per_step["degraded"] * (TRAIN_STEPS - FAIL_AT))
+    want_cli = counts(flash_attention=remat * L * TRAIN_STEPS,
+                      flash_attention_bwd=L * TRAIN_STEPS,
+                      chunk_combine=per_step["ring"] * FAIL_AT
+                      + per_step["degraded"] * (TRAIN_STEPS - FAIL_AT))
     if res["scheds"] != scheds or res["located"] is None \
             or not np.isfinite(res["history"]).all():
         raise RuntimeError(f"failover run: schedules {res['scheds']}, located "
@@ -757,6 +973,7 @@ def main() -> int:
         return 1
     sys.path.insert(0, str(SRC))
     from repro_torch.kernels.build import load_libraries
+    from repro_torch.models import get_config
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -778,20 +995,26 @@ def main() -> int:
     gen = torch.Generator(device="cuda").manual_seed(0)
     t0 = time.perf_counter()
     rows = [check_flash_attention(gen), check_flash_attention_bwd(gen),
-            check_chunk_combine(gen)]
+            check_chunk_combine(gen), check_lru_scan(gen), check_wkv_scan(gen)]
     log("kernels", f"{time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
-    served = serve(card)
-    log("serve", f"{time.perf_counter() - t0:.1f} s")
     torch.cuda.empty_cache()
+    by_path = {}
     t0 = time.perf_counter()
-    trained = train(card)
+    by_path["serve"] = serve(card, "serve", ARCH, BATCH, PROMPT, CONTEXT,
+                             dict(flash_attention=get_config(ARCH).num_layers),
+                             LOGIT_ATOL["serve"])
+    log("serve", f"{time.perf_counter() - t0:.1f} s")
+    for phase, (arch, batch, prompt, context, per_prefill) in RECURRENT.items():
+        t0 = time.perf_counter()
+        by_path[phase] = serve(card, phase, arch, batch, prompt, context, per_prefill,
+                               LOGIT_ATOL[phase])
+        log(phase, f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    by_path["train"] = train(card)
     log("train", f"{time.perf_counter() - t0:.1f} s")
     for row in rows:
-        by_path = {"serve": served.get(row["name"], 0), "train": trained[row["name"]]}
-        row["launches"] = by_path["serve"] if row["name"] == "flash_attention" \
-            else by_path["train"]
-        row["launches_by_path"] = by_path
+        row["launches_by_path"] = {p: c[row["name"]] for p, c in by_path.items()}
+        row["launches"] = row["launches_by_path"][MAIN_PATH[row["name"]]]
     log("done", f"{time.perf_counter() - t_start:.1f} s in all")
     print(card)
     print(json.dumps({"kernels": rows}))

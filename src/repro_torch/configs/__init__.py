@@ -1,1 +1,1 @@
-"""Model configurations of the dense llama-family architectures."""
+"""Model configurations of the architectures the port runs."""

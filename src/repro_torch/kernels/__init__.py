@@ -8,6 +8,10 @@
                         joined to the forward as an ``autograd.Function``
   chunk_combine       — the R2CCL stage-2 merge of a round's received chunks
                         into the local buffer (select / accumulate per row)
+  lru_scan            — the RG-LRU recurrence h_t = a_t h_{t-1} + x_t from a
+                        starting state (RecurrentGemma prefill)
+  wkv_scan            — the RWKV-6 WKV recurrence with its matrix state, from
+                        a starting state, also returning the final state
 
 Each kernel has a ctypes wrapper that checks its inputs and counts its
 launches, a plain PyTorch version in ``ref.py``, and dispatch by device in

@@ -80,3 +80,13 @@ def load_libraries(names: list[str]) -> dict[str, Library]:
     with concurrent.futures.ThreadPoolExecutor(max(len(names), 1)) as pool:
         futures = {n: pool.submit(load_library, n) for n in names}
         return {n: f.result() for n, f in futures.items()}
+
+
+def entry(name: str, symbol: str, argtypes: list):
+    """The C entry point ``symbol`` of ``csrc/<name>.cu``, built and loaded
+    at first use, with its argument types set; it returns a cudaError_t."""
+    fn = getattr(load_library(name).lib, symbol)
+    if fn.argtypes is None:
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return fn

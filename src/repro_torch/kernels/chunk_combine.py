@@ -13,20 +13,12 @@ import ctypes
 import numpy as np
 import torch
 
-from .build import load_library
+from .build import entry
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_int,
                                       ctypes.c_longlong, ctypes.c_void_p])
 MAX_CHUNKS = 1024       # rows whose (seg, acc) bits fit the kernel's parameters
-
-
-def _entry():
-    fn = load_library("chunk_combine").lib.repro_chunk_combine
-    if fn.argtypes is None:
-        fn.argtypes = _ARGTYPES
-        fn.restype = ctypes.c_int
-    return fn
 
 
 def _mask(m, C: int, name: str) -> np.ndarray:
@@ -83,7 +75,7 @@ def chunk_combine_cuda(local: torch.Tensor, recv: torch.Tensor, seg_mask,
         raise ValueError("out must not overlap recv")
     seg = _mask(seg_mask, C, "seg_mask")
     acc = _mask(accumulate, C, "accumulate")
-    fn = _entry()
+    fn = entry("chunk_combine", "repro_chunk_combine", _ARGTYPES)
     with torch.cuda.device(local.device):
         stream = torch.cuda.current_stream(local.device).cuda_stream
         err = fn(local.data_ptr(), recv.data_ptr(), out.data_ptr(),

@@ -16,7 +16,7 @@ import ctypes
 
 import torch
 
-from .build import load_library
+from .build import entry
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 13
@@ -27,14 +27,6 @@ _BWD_ARGTYPES = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 13
 MAX_HEAD_DIM = 256
 MAX_BWD_HEAD_DIM = 128  # the backward's K, V, Q and dO tiles fit shared memory
 MAX_GROUP = 64          # query heads per KV head: one CTA holds them all
-
-
-def _entry(name: str, symbol: str, argtypes: list):
-    fn = getattr(load_library(name).lib, symbol)
-    if fn.argtypes is None:
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-    return fn
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
@@ -90,7 +82,7 @@ def flash_attention_cuda(
                          f"tensor on {q.device}")
     out = torch.empty_like(q)
     scale = scale if scale is not None else D ** -0.5
-    fn = _entry("flash_attention", "repro_flash_attention_fwd", _ARGTYPES)
+    fn = entry("flash_attention", "repro_flash_attention_fwd", _ARGTYPES)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
@@ -149,7 +141,7 @@ def flash_attention_bwd_cuda(
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     delta = torch.empty_like(lse)
     scale = scale if scale is not None else D ** -0.5
-    fn = _entry("flash_attention_bwd", "repro_flash_attention_bwd", _BWD_ARGTYPES)
+    fn = entry("flash_attention_bwd", "repro_flash_attention_bwd", _BWD_ARGTYPES)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),

@@ -1,0 +1,72 @@
+"""RG-LRU scan on Hopper: the wrapper of ``csrc/lru_scan.cu``.
+
+Replaces the TPU kernel ``lru_scan_pallas`` of the JAX package
+(``kernels/lru_scan.py``), with the starting state ``h0`` the model passes.
+The kernel's plain version is ``ref.reference_lru_scan``; ``ops.lru_scan``
+picks between them by the tensors' device.  :class:`LRUScan` puts the
+kernel under autograd with a backward that raises: the recurrent families
+are served, not trained, on the card (ROADMAP.md, queue 2, item 3).
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from .build import entry
+
+_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+
+
+def lru_scan_cuda(a: torch.Tensor, x: torch.Tensor, h0: torch.Tensor) -> torch.Tensor:
+    """Launch the kernel on a's device and PyTorch's current stream.
+
+    a, x: contiguous float32 (B, T, W) CUDA tensors, T >= 1; h0: contiguous
+    float32 (B, W).  Returns the (B, T, W) float32 states.  Raises on
+    anything else and when the launch is refused.
+    ``lru_scan_cuda.launches`` counts launches.
+    """
+    if a.dim() != 3 or x.shape != a.shape or h0.shape != (a.shape[0], a.shape[2]):
+        raise ValueError(f"want a = x (B,T,W), h0 (B,W); got {tuple(a.shape)}, "
+                         f"{tuple(x.shape)}, {tuple(h0.shape)}")
+    if any(t.dtype != torch.float32 for t in (a, x, h0)):
+        raise TypeError(f"lru_scan takes float32 a, x, h0; got {a.dtype}, "
+                        f"{x.dtype}, {h0.dtype}")
+    if not (a.is_cuda and x.device == a.device and h0.device == a.device):
+        raise ValueError("lru_scan kernel needs a, x, h0 on one CUDA device; got "
+                         f"{a.device}, {x.device}, {h0.device}")
+    if not (a.is_contiguous() and x.is_contiguous() and h0.is_contiguous()):
+        raise ValueError("lru_scan kernel needs contiguous a, x, h0")
+    B, T, W = a.shape
+    if T < 1:
+        raise ValueError("lru_scan kernel needs at least one time step")
+    out = torch.empty_like(a)
+    fn = entry("lru_scan", "repro_lru_scan", _ARGTYPES)
+    with torch.cuda.device(a.device):
+        stream = torch.cuda.current_stream(a.device).cuda_stream
+        err = fn(a.data_ptr(), x.data_ptr(), h0.data_ptr(), out.data_ptr(),
+                 B, T, W, stream)
+    if err != 0:
+        raise RuntimeError(f"lru_scan kernel launch failed: cudaError_t {err}")
+    lru_scan_cuda.launches += 1
+    return out
+
+
+lru_scan_cuda.launches = 0
+
+
+class LRUScan(torch.autograd.Function):
+    """The kernel under autograd: ``apply(a, x, h0)``.  Its backward raises,
+    so that a training step on the card fails where it needs a backward
+    kernel instead of going through the plain version."""
+
+    @staticmethod
+    def forward(ctx, a, x, h0):
+        return lru_scan_cuda(a, x, h0)
+
+    @staticmethod
+    def backward(ctx, grad):
+        raise NotImplementedError(
+            "lru_scan has no backward kernel: the recurrent families are "
+            "served, not trained, on the card (ROADMAP.md, queue 2, item 3)")

@@ -87,3 +87,43 @@ def reference_chunk_combine(local: torch.Tensor, recv: torch.Tensor,
     lf, rf = local.float(), recv.float()
     comb = torch.where(acc, lf + rf, rf)
     return torch.where(seg, comb, lf).to(local.dtype)
+
+
+def reference_lru_scan(a: torch.Tensor, x: torch.Tensor,
+                       h0: torch.Tensor) -> torch.Tensor:
+    """Plain version of the RG-LRU scan: ``h_t = a_t * h_{t-1} + x_t`` from
+    ``h0``, sequential in time, in float32.
+
+    a, x: (B, T, W); h0: (B, W).  Returns (B, T, W) float32, as the JAX
+    package's ``ref.reference_lru_scan`` (which fixes ``h0``'s role the same
+    way: the Pallas kernel itself starts from zero).
+    """
+    af, xf = a.float(), x.float()
+    h = h0.float()
+    hs = []
+    for t in range(a.shape[1]):
+        h = af[:, t] * h + xf[:, t]
+        hs.append(h)
+    return torch.stack(hs, dim=1) if hs else xf.clone()
+
+
+def reference_wkv(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  w: torch.Tensor, u: torch.Tensor,
+                  s0: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of the RWKV-6 WKV recurrence in the model's layout.
+
+    r, k, w: (B, T, H, K); v: (B, T, H, V); u: (H, K); s0: (B, H, K, V).
+    ``out_t = r_t @ (S_{t-1} + u * k_t^T v_t)``, ``S_t = w_t * S_{t-1} +
+    k_t^T v_t``.  Returns (out (B, T, H, V), s_T (B, H, K, V)), both float32,
+    as the JAX package's ``models/rwkv6.py::wkv_scan_ref``.
+    """
+    rf, kf, vf, wf = (t.float() for t in (r, k, v, w))
+    uf = u.float()[None, :, :, None]                       # (1, H, K, 1)
+    s = s0.float()
+    outs = []
+    for t in range(r.shape[1]):
+        kv = kf[:, t, :, :, None] * vf[:, t, :, None, :]   # (B, H, K, V)
+        outs.append(torch.einsum("bhk,bhkv->bhv", rf[:, t], s + uf * kv))
+        s = wf[:, t, :, :, None] * s + kv
+    out = torch.stack(outs, dim=1) if outs else vf.new_zeros(vf.shape)
+    return out, s

@@ -28,7 +28,7 @@ from torch.profiler import ProfilerActivity, profile
 from repro_torch.models import get_config, init_caches, init_model
 from repro_torch.serving.engine import make_decode_fn, make_prefill_fn
 
-REPS, TOP = 5, 6
+REPS, TOP = 5, 10
 LAUNCH_EVENTS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
                  "cuLaunchKernelEx")
 

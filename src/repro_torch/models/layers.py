@@ -238,7 +238,7 @@ def gqa_attention(
     logit_cap: float | None = None,
     cache: KVCache | None = None,
     mode: str = "prefill",       # train | prefill | decode
-    attn_impl: str = "auto",
+    impl: str = "auto",
 ) -> tuple[torch.Tensor, KVCache | None]:
     """GQA attention with optional sliding window.  ``train`` attends over
     the full sequence and keeps no cache; prefill fills the KV cache and
@@ -279,7 +279,7 @@ def gqa_attention(
         k = apply_rope(k, positions, rope_theta)
     qg = q.reshape(B, T, num_kv_heads, G, head_dim)
     out = blockwise_attention(qg, k, v, causal=causal, window=window,
-                              logit_cap=logit_cap, impl=attn_impl)
+                              logit_cap=logit_cap, impl=impl)
     y = _mm(out.reshape(B, T, num_heads * head_dim), wo)
     if mode == "train":
         return y, None

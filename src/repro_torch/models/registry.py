@@ -9,6 +9,8 @@ from repro_torch.configs.base import ModelConfig
 ARCHITECTURES: dict[str, str] = {
     "smollm-360m": "repro_torch.configs.smollm_360m",
     "glm4-9b": "repro_torch.configs.glm4_9b",
+    "recurrentgemma-9b": "repro_torch.configs.recurrentgemma_9b",
+    "rwkv6-1.6b": "repro_torch.configs.rwkv6_1_6b",
     # the paper's own simulated training model (Fig. 8)
     "paper-7b": "repro_torch.configs.paper_7b",
 }
@@ -16,8 +18,6 @@ ARCHITECTURES: dict[str, str] = {
 #: Architectures of the JAX package that the port does not run yet, with what
 #: each still needs.
 NOT_PORTED: dict[str, str] = {
-    "recurrentgemma-9b": "rglru blocks and the lru_scan kernel",
-    "rwkv6-1.6b": "rwkv6 blocks and the wkv_scan kernel",
     "dbrx-132b": "the MoE feed-forward",
     "deepseek-v3-671b": "MoE, MLA attention and the MTP head",
     "gemma2-27b": "the local/global attention pattern",

@@ -1,20 +1,25 @@
-"""Model assembly for the dense llama family: embedding -> block stack ->
-final norm -> unembed.
+"""Model assembly: embedding -> pattern block stack -> final norm -> unembed.
 
-The port of the JAX package's ``models/transformer.py`` for attention-only
-block patterns.  Parameters keep its pytree layout: ``blocks`` is a tuple
-over the pattern of dicts whose tensors carry a leading ``n_groups`` axis
-(the axis ``lax.scan`` runs over there; a Python loop runs over it here),
-``tail`` holds the remainder layers.  Modes ``train`` (full sequence,
-logits everywhere, no caches), ``prefill`` (build caches, logits at the last
-position) and ``decode`` (one token + caches).  With ``cfg.remat``, train
-mode recomputes each layer in the backward pass (``torch.utils.checkpoint``,
-the counterpart of ``jax.checkpoint``).  MoE, MLA, the recurrent blocks and
-the modality frontends raise ``NotImplementedError``.
+The port of the JAX package's ``models/transformer.py`` for dense GQA and
+the recurrent families: block patterns of ``attn``, ``local_attn``
+(sliding window), ``rglru`` (RecurrentGemma) and ``rwkv`` (RWKV-6).
+Parameters keep its pytree layout: ``blocks`` is a tuple over the pattern
+of dicts whose tensors carry a leading ``n_groups`` axis (the axis
+``lax.scan`` runs over there; a Python loop runs over it here), ``tail``
+holds the remainder layers.  Caches are stacked the same way, one per
+layer kind: a ``KVCache`` for attention (a ``local_attn`` cache holds
+``min(window, context_len)`` slots, a ring buffer), an ``RGLRUState`` or an
+``RWKVState``.  Modes ``train`` (full sequence, logits everywhere, no
+caches), ``prefill`` (build caches, logits at the last position) and
+``decode`` (one token + caches).  With ``cfg.remat``, train mode recomputes
+each layer in the backward pass (``torch.utils.checkpoint``, the
+counterpart of ``jax.checkpoint``).  MoE, MLA, global/local attention
+patterns and the modality frontends raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Any
 
 import torch
@@ -23,54 +28,81 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from . import layers as L
+from . import rglru as RG
+from . import rwkv6 as RW
+
+ATTN_KINDS = ("attn", "local_attn")
+KINDS = (*ATTN_KINDS, "rglru", "rwkv")
 
 
 def _check_supported(cfg: ModelConfig) -> None:
     missing = []
     if cfg.moe is not None and cfg.moe.num_experts > 0:
         missing.append("MoE feed-forward")
-    if cfg.attention is None or cfg.attention.kind != "gqa":
+    unknown = sorted(set(cfg.block_pattern) - set(KINDS))
+    if unknown:
+        missing.append(f"block kinds {unknown}")
+    if any(k in ATTN_KINDS for k in cfg.block_pattern) and (
+            cfg.attention is None or cfg.attention.kind != "gqa"):
         missing.append(f"attention kind "
                        f"{cfg.attention.kind if cfg.attention else None!r}")
-    if cfg.block_pattern != ("attn",):
-        missing.append(f"block pattern {cfg.block_pattern}")
     if cfg.modality.kind != "text":
         missing.append(f"{cfg.modality.kind} frontend")
     if cfg.mtp:
         missing.append("MTP head")
     if missing:
         raise NotImplementedError(
-            f"{cfg.name}: the port runs dense GQA text models; not yet "
-            f"ported: {', '.join(missing)} (ROADMAP.md, queue 1)")
+            f"{cfg.name}: the port runs dense GQA and recurrent text models; "
+            f"not yet ported: {', '.join(missing)} (ROADMAP.md, queue 1)")
 
 
 # ---------------------------------------------------------------------------
 # per-layer init / apply
 # ---------------------------------------------------------------------------
 
-def _init_layer(gen: torch.Generator, cfg: ModelConfig, lead=()) -> dict:
+def _init_layer(gen: torch.Generator, cfg: ModelConfig, kind: str, lead=()) -> dict:
     norm_init, _ = L.make_norm(cfg.norm)
-    a = cfg.attention
-    return {
-        "norm1": norm_init(cfg.d_model, lead, gen.device),
-        "attn": L.init_gqa(gen, cfg.d_model, a.num_heads, a.num_kv_heads,
-                           a.head_dim, lead),
-        "norm2": norm_init(cfg.d_model, lead, gen.device),
-        "mlp": L.init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.activation, lead),
-    }
+    params: dict[str, Any] = {"norm1": norm_init(cfg.d_model, lead, gen.device)}
+    if kind in ATTN_KINDS:
+        a = cfg.attention
+        params["attn"] = L.init_gqa(gen, cfg.d_model, a.num_heads,
+                                    a.num_kv_heads, a.head_dim, lead)
+    elif kind == "rglru":
+        params["rglru"] = RG.init_rglru_block(
+            gen, cfg.d_model, cfg.rglru.lru_width or cfg.d_model,
+            cfg.rglru.conv_width, lead)
+    else:
+        rw = cfg.rwkv
+        params["rwkv"] = RW.init_rwkv_block(gen, cfg.d_model, rw.head_size,
+                                            rw.decay_lora, rw.tokenshift_lora, lead)
+        return params                  # the rwkv block holds its channel-mix
+    params["norm2"] = norm_init(cfg.d_model, lead, gen.device)
+    params["mlp"] = L.init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.activation, lead)
+    return params
 
 
-def _apply_layer(params, cfg: ModelConfig, x, *, cache, mode, attn_impl="auto"):
+def _apply_layer(params, cfg: ModelConfig, kind: str, x, *, cache, mode,
+                 kernel_impl="auto"):
     """Returns (x_out, new_cache)."""
     _, norm_fn = L.make_norm(cfg.norm)
     h = norm_fn(params["norm1"], x)
-    a = cfg.attention
-    y, new_cache = L.gqa_attention(
-        params["attn"], h, num_heads=a.num_heads,
-        num_kv_heads=a.num_kv_heads, head_dim=a.head_dim,
-        rope_theta=a.rope_theta, use_rope=a.use_rope, causal=a.causal,
-        window=a.sliding_window, logit_cap=a.logit_softcap, cache=cache,
-        mode=mode, attn_impl=attn_impl)
+    if kind in ATTN_KINDS:
+        a = cfg.attention
+        y, new_cache = L.gqa_attention(
+            params["attn"], h, num_heads=a.num_heads,
+            num_kv_heads=a.num_kv_heads, head_dim=a.head_dim,
+            rope_theta=a.rope_theta, use_rope=a.use_rope, causal=a.causal,
+            window=a.sliding_window, logit_cap=a.logit_softcap, cache=cache,
+            mode=mode, impl=kernel_impl)
+    elif kind == "rglru":
+        y, new_cache = RG.rglru_block(params["rglru"], h,
+                                      conv_width=cfg.rglru.conv_width,
+                                      state=cache, mode=mode, impl=kernel_impl)
+    else:
+        y, new_cache = RW.rwkv_block(params["rwkv"], h,
+                                     head_size=cfg.rwkv.head_size,
+                                     state=cache, mode=mode, impl=kernel_impl)
+        return x + y.to(x.dtype), new_cache
     x = x + y.to(x.dtype)
     h2 = norm_fn(params["norm2"], x)
     y2 = L.mlp(params["mlp"], h2, cfg.activation)
@@ -105,34 +137,59 @@ def init_model(cfg: ModelConfig, *, seed: int = 0,
                                   cfg.tie_embeddings)}
     n_groups, pattern, remainder = _pattern_split(cfg)
     if n_groups > 0:
-        params["blocks"] = tuple(_init_layer(gen, cfg, (n_groups,))
-                                 for _ in pattern)
+        params["blocks"] = tuple(_init_layer(gen, cfg, kind, (n_groups,))
+                                 for kind in pattern)
     if remainder:
-        params["tail"] = [_init_layer(gen, cfg) for _ in remainder]
+        params["tail"] = [_init_layer(gen, cfg, kind) for kind in remainder]
     norm_init, _ = L.make_norm(cfg.norm)
     params["final_norm"] = norm_init(cfg.d_model, (), dev)
     return params
 
 
+def _layer_cache(cfg: ModelConfig, kind: str, batch: int, context_len: int,
+                 dtype, dev, lead=()):
+    if kind in ATTN_KINDS:
+        a = cfg.attention
+        size = context_len
+        if kind == "local_attn" and a.sliding_window:
+            size = min(a.sliding_window, context_len)
+        return L.init_kv_cache(batch, size, a.num_kv_heads, a.head_dim, dtype,
+                               dev, lead)
+    if kind == "rglru":
+        return RG.init_rglru_state(batch, cfg.rglru.lru_width or cfg.d_model,
+                                   cfg.rglru.conv_width, dtype, dev, lead)
+    return RW.init_rwkv_state(batch, cfg.d_model, cfg.rwkv.head_size, dtype,
+                              dev, lead)
+
+
 def init_caches(cfg: ModelConfig, batch: int, context_len: int,
                 dtype=torch.bfloat16, device: str | torch.device = "cuda") -> dict:
-    """Cache dict matching the model structure; ``blocks`` caches carry the
-    leading ``n_groups`` axis like the params."""
+    """Cache dict matching the model structure, one cache per layer by its
+    kind; ``blocks`` caches carry the leading ``n_groups`` axis like the
+    params."""
     _check_supported(cfg)
     dev = resolve_device(device)
-    a = cfg.attention
     n_groups, pattern, remainder = _pattern_split(cfg)
-
-    def one(lead=()):
-        return L.init_kv_cache(batch, context_len, a.num_kv_heads, a.head_dim,
-                               dtype, dev, lead)
-
     caches: dict[str, Any] = {}
     if n_groups > 0:
-        caches["blocks"] = tuple(one((n_groups,)) for _ in pattern)
+        caches["blocks"] = tuple(
+            _layer_cache(cfg, kind, batch, context_len, dtype, dev, (n_groups,))
+            for kind in pattern)
     if remainder:
-        caches["tail"] = [one() for _ in remainder]
+        caches["tail"] = [_layer_cache(cfg, kind, batch, context_len, dtype, dev)
+                          for kind in remainder]
     return caches
+
+
+def _group(cache, g: int):
+    """Group ``g``'s view of a stacked cache (a KVCache, RGLRUState or
+    RWKVState): its tensors indexed on the leading axis, so that in-place
+    writes reach the stack; other fields (a KVCache's index) as they are."""
+    return type(cache)(**{
+        f.name: (getattr(cache, f.name)[g]
+                 if isinstance(getattr(cache, f.name), torch.Tensor)
+                 else getattr(cache, f.name))
+        for f in dataclasses.fields(cache)})
 
 
 def _unstack(stacked: dict, n_groups: int) -> list[dict]:
@@ -152,16 +209,16 @@ def apply_model(
     *,
     mode: str = "prefill",          # train | prefill | decode
     caches: dict | None = None,
-    attn_impl: str = "auto",
+    kernel_impl: str = "auto",
 ) -> tuple[torch.Tensor, dict | None, torch.Tensor]:
     """Forward pass over ``batch["tokens"]`` (B, T).
 
-    Returns (logits, new_caches, aux_loss) like the JAX package; the dense
-    path has no auxiliary loss, so aux is a zero.  ``train`` takes no caches
-    and returns None for them; prefill and decode update ``caches`` (from
-    :func:`init_caches`) in place and return them.  ``attn_impl="reference"``
-    runs train and prefill attention through the plain version on any
-    device.
+    Returns (logits, new_caches, aux_loss) like the JAX package; these
+    families have no auxiliary loss, so aux is a zero.  ``train`` takes no
+    caches and returns None for them; prefill and decode update ``caches``
+    (from :func:`init_caches`) in place and return them.
+    ``kernel_impl="reference"`` runs every kernel of the model (attention,
+    ``lru_scan``, ``wkv_scan``) through its plain version on any device.
     """
     _check_supported(cfg)
     if mode not in ("train", "prefill", "decode"):
@@ -174,32 +231,33 @@ def apply_model(
     x = x.to(torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32)
 
     n_groups, pattern, remainder = _pattern_split(cfg)
-    kw = dict(mode=mode, attn_impl=attn_impl)
+    kw = dict(mode=mode, kernel_impl=kernel_impl)
 
-    def layer(p, x, cache):
+    def layer(p, kind, x, cache):
         if train and cfg.remat:
-            return checkpoint(_apply_layer, p, cfg, x, cache=None, use_reentrant=False,
-                              **kw)
-        return _apply_layer(p, cfg, x, cache=cache, **kw)
+            return checkpoint(_apply_layer, p, cfg, kind, x, cache=None,
+                              use_reentrant=False, **kw)
+        return _apply_layer(p, cfg, kind, x, cache=cache, **kw)
 
     new_caches: dict[str, Any] = {}
     if n_groups > 0:
         groups = [_unstack(params["blocks"][i], n_groups) for i in range(len(pattern))]
+        last = [None] * len(pattern)
         for g in range(n_groups):
-            for i in range(len(pattern)):
-                cache = None
-                if not train:
-                    c = caches["blocks"][i]
-                    cache = L.KVCache(c.k[g], c.v[g], c.positions[g], c.index)
-                x, c2 = layer(groups[i][g], x, cache)
+            for i, kind in enumerate(pattern):
+                cache = None if train else _group(caches["blocks"][i], g)
+                x, last[i] = layer(groups[i][g], kind, x, cache)
         if not train:
-            index = c2.index
+            # the stacks were written in place; a KVCache takes the index
+            # its layer advanced to
             new_caches["blocks"] = tuple(
-                L.KVCache(c.k, c.v, c.positions, index) for c in caches["blocks"])
+                L.KVCache(c.k, c.v, c.positions, last[i].index)
+                if isinstance(c, L.KVCache) else c
+                for i, c in enumerate(caches["blocks"]))
     if remainder:
         tail = []
-        for i in range(len(remainder)):
-            x, c2 = layer(params["tail"][i], x,
+        for i, kind in enumerate(remainder):
+            x, c2 = layer(params["tail"][i], kind, x,
                           None if train else caches["tail"][i])
             tail.append(c2)
         if not train:

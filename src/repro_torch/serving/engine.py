@@ -15,8 +15,8 @@ and a failure is handled by one of the paper's strategies:
                    (detect → diagnose → migrate → rebalance), then continue
                    at the residual rate.
 
-Compute runs for real on ``device`` (prefill attention in the Hopper
-flash-attention kernel on the card); *network* failure costs are modelled in
+Compute runs for real on ``device`` (prefill attention and the recurrent
+scans in the Hopper kernels on the card); *network* failure costs are modelled in
 virtual time by the port's copy of the control plane and the ``comm_sim``
 constants, as in the JAX package.
 """

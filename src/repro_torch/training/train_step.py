@@ -52,10 +52,10 @@ def init_train_state(params) -> TrainState:
 
 
 def compute_loss(params, cfg: ModelConfig, batch, *,
-                 attn_impl: str = "auto") -> tuple[torch.Tensor, dict]:
+                 kernel_impl: str = "auto") -> tuple[torch.Tensor, dict]:
     """(total loss, metrics) of the model in train mode on ``batch``."""
     logits, _, aux = apply_model(params, cfg, batch, mode="train",
-                                 attn_impl=attn_impl)
+                                 kernel_impl=kernel_impl)
     loss = losses.task_loss(cfg, logits, batch)
     mtp_loss = torch.zeros((), device=loss.device)    # no MTP head ported
     total = loss + aux + cfg.mtp_loss_weight * mtp_loss

@@ -3,6 +3,7 @@
 Split over two test files so that each stays short under ``--dist
 loadfile``: the op-by-op JAX reference compiles every op anew per shape."""
 
+import dataclasses
 import functools
 
 import jax
@@ -46,10 +47,33 @@ def assert_tokens_match(tlogits, jlogits):
     assert np.all(same[decided])
 
 
-def check_prefill_and_decode(arch):
+def _cache_leaves(caches):
+    """(name, array) of every tensor in a cache tree, JAX or port, with the
+    port's Python-int ``index`` and the JAX package's stacked one dropped."""
+    out = []
+
+    def walk(node, name):
+        if isinstance(node, (tuple, list)):
+            for i, c in enumerate(node):
+                walk(c, f"{name}/{i}")
+        elif isinstance(node, dict):
+            for k in sorted(node):
+                walk(node[k], f"{name}/{k}")
+        else:
+            for f in dataclasses.fields(node):
+                if f.name != "index":
+                    out.append((f"{name}/{f.name}", _np(getattr(node, f.name))))
+    walk(caches, "")
+    return out
+
+
+def check_prefill_and_decode(arch, T=10):
+    """Prefill T tokens (a RecurrentGemma smoke prompt of 20 wraps its
+    16-slot local-attention ring buffer), then 4 decode steps; logits, and
+    at the end every cache and recurrent state, against the JAX model."""
     cfg, jp, tp = converted_params(arch)
     tcfg = get_smoke_config(arch)
-    B, T, ctx = 2, 10, 24
+    B, ctx = 2, 24
     tokens = np.random.default_rng(0).integers(0, cfg.vocab_size, (B, T))
 
     jc = jax_init_caches(cfg, B, ctx, dtype=jnp.float32)
@@ -74,4 +98,10 @@ def check_prefill_and_decode(arch):
                                 mode="decode", caches=tc)
         np.testing.assert_allclose(_np(tl), _np(jl), atol=ATOL)
         assert_tokens_match(tl[:, -1], jl[:, -1])
-    assert tc["blocks"][0].index == int(jc["blocks"][0].index[0]) == T + 4
+    for (name, got), (jname, want) in zip(_cache_leaves(tc), _cache_leaves(jc),
+                                          strict=True):
+        assert name == jname
+        np.testing.assert_allclose(got, want, atol=ATOL, rtol=ATOL, err_msg=name)
+    for c, jc_ in zip(tc["blocks"], jc["blocks"]):
+        if hasattr(c, "index"):
+            assert c.index == int(jc_.index[0]) == T + 4

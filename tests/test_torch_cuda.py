@@ -29,6 +29,8 @@ def cuda_device():
     ((1, 128, 128, 2, 1, 16), torch.float32, dict(window=32, logit_cap=50.0)),
     ((1, 128, 128, 2, 1, 16), torch.float32, dict(prefix_len=8)),
     ((2, 16, 200, 2, 4, 32), torch.float32, dict(q_offset=100, k_valid_len=150)),
+    ((2, 2304, 2304, 1, 16, 256), torch.float32, dict(window=2048)),
+    ((1, 70, 70, 1, 16, 256), torch.float32, dict(window=33)),
 ])
 def test_flash_attention_kernel_matches_plain(cuda_device, shape, dtype, kw):
     """Tolerance: fp32 atol 1e-4 (summation order), bf16 atol 2e-2."""
@@ -98,3 +100,71 @@ def test_flash_attention_backward_matches_plain(cuda_device, shape, dtype, kw):
     for a, b in zip(grads["auto"], grads["reference"]):
         scale = max(1.0, b.float().abs().max().item())
         assert (a.float() - b.float()).abs().max().item() <= rtol * scale
+
+
+def _scan_inputs(shapes, seed, device):
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.standard_normal(s).astype(np.float32)).to(device)
+            for s in shapes]
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("b,t,w", [(2, 2304, 4096), (3, 37, 100), (1, 1, 5)])
+def test_lru_scan_kernel_matches_plain(cuda_device, b, t, w):
+    """a from the model's gate distribution (exp of a negative), nonzero
+    h0; T and B * W off every tile.  Tolerance 1e-5 of max(1, |h|): both
+    run the same recurrence in fp32 in the same order, the kernel with a
+    fused multiply-add."""
+    z, x, h0 = _scan_inputs([(b, t, w), (b, t, w), (b, w)], t + w, cuda_device)
+    a = torch.exp(-8.0 * torch.sigmoid(z) * 0.05)
+    before = ops.launch_counts()["lru_scan"]
+    out = ops.lru_scan(a, x, h0)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["lru_scan"] == before + 1
+    want = ref.reference_lru_scan(a, x, h0)
+    tol = 1e-5 * max(1.0, want.abs().max().item())
+    torch.testing.assert_close(out, want, rtol=0, atol=tol)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("b,t,h,k", [(4, 512, 32, 64), (3, 37, 5, 32), (1, 1, 2, 16)])
+def test_wkv_scan_kernel_matches_plain(cuda_device, b, t, h, k):
+    """w = exp(-exp(dec)) as the model makes it, nonzero s0, T off the
+    kernel's 16-step chunk; output and final state.  Tolerance 1e-5 of
+    max(1, |value|): fp32, the sum over k in another order."""
+    r, kk, v, dec, u, s0 = _scan_inputs(
+        [(b, t, h, k)] * 4 + [(h, k), (b, h, k, k)], t * h + k, cuda_device)
+    w = torch.exp(-torch.exp(dec - 3.0))
+    before = ops.launch_counts()["wkv_scan"]
+    out, s_t = ops.wkv_scan(r, kk, v, w, u, s0)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["wkv_scan"] == before + 1
+    for got, want in zip((out, s_t), ref.reference_wkv(r, kk, v, w, u, s0)):
+        tol = 1e-5 * max(1.0, want.abs().max().item())
+        torch.testing.assert_close(got, want, rtol=0, atol=tol)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("family", ["rglru", "rwkv"])
+def test_recurrent_block_backward_raises_on_the_card(cuda_device, family):
+    """A recurrent block trained on the card runs its scan kernel under
+    autograd, and the backward raises instead of going through the plain
+    version.  (On the CPU the blocks are differentiable:
+    ``test_torch_recurrent.py``.)"""
+    from repro_torch.models import rglru, rwkv6
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    x = torch.randn(2, 8, 32, device=cuda_device, generator=gen)
+    if family == "rglru":
+        params = rglru.init_rglru_block(gen, 32, 32, 4)
+        block = lambda p: rglru.rglru_block(p, x, conv_width=4, mode="train")
+    else:
+        params = rwkv6.init_rwkv_block(gen, 32, 16, 8, 4)
+        block = lambda p: rwkv6.rwkv_block(p, x, head_size=16, mode="train")
+    for t in params.values():
+        t.requires_grad_()
+    kernel = "lru_scan" if family == "rglru" else "wkv_scan"
+    before = ops.launch_counts()[kernel]
+    y, _ = block(params)
+    assert ops.launch_counts()[kernel] == before + 1
+    with pytest.raises(NotImplementedError, match=kernel):
+        y.sum().backward()

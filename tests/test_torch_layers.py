@@ -170,10 +170,9 @@ def test_decode_attention_ring_positions():
         np.testing.assert_allclose(_np(out), _np(want), atol=ATOL)
 
 
-def test_gqa_train_mode_not_ported():
-    """Train mode, which the first slice of the port did not run, now
-    attends over the full sequence like the JAX layer and keeps no cache;
-    an unknown mode raises."""
+def test_gqa_train_mode_matches_jax():
+    """Train mode attends over the full sequence like the JAX layer and
+    keeps no cache; an unknown mode raises."""
     jp, tp = _gqa_params(7)
     kw = dict(num_kv_heads=KVH, num_heads=H, head_dim=HD, window=5)
     jx, tx = _both(np.random.default_rng(8).standard_normal(

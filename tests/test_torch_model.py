@@ -1,5 +1,6 @@
-"""The port's dense model held against the JAX package's ``apply_model`` on
-three dense smoke configs, from the same (JAX-initialised) weights.  The
+"""The port's model held against the JAX package's ``apply_model`` on three
+dense and two recurrent smoke configs, from the same (JAX-initialised)
+weights.  The
 prefill + decode check lives in ``_torch_model_parity.py``.
 
 Tolerance: logits atol 3e-2, because the residual stream is bfloat16 in
@@ -27,11 +28,11 @@ from repro.models import get_smoke_config as jax_smoke
 from repro_torch.models import (apply_model, get_config, get_smoke_config,
                                 init_caches, init_model)
 
-ARCHS = ["smollm-360m", "paper-7b", "glm4-9b"]
+ARCHS = ["smollm-360m", "paper-7b", "glm4-9b", "recurrentgemma-9b", "rwkv6-1.6b"]
 
 
 def test_prefill_and_decode_match_jax():
-    """paper-7b-smoke and glm4-smoke: ``test_torch_model_parity.py``."""
+    """The other smoke configs: ``test_torch_model_parity.py``."""
     check_prefill_and_decode("smollm-360m")
 
 
@@ -70,8 +71,8 @@ def test_configs_match_jax(arch):
 
 
 def test_registry_and_device_rules():
-    with pytest.raises(NotImplementedError, match="rwkv6"):
-        get_config("rwkv6-1.6b")
+    with pytest.raises(NotImplementedError, match="local/global"):
+        get_config("gemma2-27b")
     with pytest.raises(NotImplementedError, match="MoE"):
         get_smoke_config("dbrx-132b")
     with pytest.raises(KeyError):
@@ -88,6 +89,8 @@ def test_registry_and_device_rules():
 
 
 def test_attn_impl_reference_equals_auto_on_cpu(pair):
+    """``kernel_impl="reference"`` (the plain version of every kernel) is the
+    CPU path itself."""
     arch, cfg, _, tp = pair
     tcfg = get_smoke_config(arch)
     tokens = torch.from_numpy(np.random.default_rng(1).integers(0, cfg.vocab_size, (1, 7)))
@@ -95,5 +98,5 @@ def test_attn_impl_reference_equals_auto_on_cpu(pair):
                           caches=init_caches(tcfg, 1, 8, device="cpu"))
     b, _, _ = apply_model(tp, tcfg, {"tokens": tokens}, mode="prefill",
                           caches=init_caches(tcfg, 1, 8, device="cpu"),
-                          attn_impl="reference")
+                          kernel_impl="reference")
     torch.testing.assert_close(a, b, rtol=0, atol=0)

@@ -180,6 +180,29 @@ def test_engine_matches_jax_engine(setup, strategy):
     assert teng.hiccup_attribution() == jeng.hiccup_attribution()
 
 
+@pytest.mark.parametrize("arch,prompt_len", [("recurrentgemma-9b", 24), ("rwkv6-1.6b", 12)])
+def test_recurrent_engine_matches_jax_engine(arch, prompt_len):
+    """The recurrent families through both engines under one fake clock:
+    same tokens, virtual latencies, ledger and trace, with a NIC failure at
+    decode step 2.  recurrentgemma-smoke's 24-token prompts overrun its
+    16-slot local-attention window, so prefill wraps the ring buffer."""
+    jcfg = jax_smoke(arch)
+    jp = jax.jit(lambda key: jax_init_model(key, jcfg)[0])(jax.random.PRNGKey(0))
+    tp = params_from_jax(jax.tree_util.tree_map(np.asarray, jp), device="cpu")
+    jeng = JServingEngine(jcfg, jp, context_len=64, clock=FakeClock())
+    teng = ServingEngine(get_smoke_config(arch), tp, context_len=64, device="cpu",
+                         clock=FakeClock())
+    want = jeng.run_batch(_reqs(jcfg, plen=prompt_len), fail_at_step=2,
+                          failure=JFailure(JFailureType.NIC_HARDWARE, 1, 0))
+    got = teng.run_batch(_reqs(jcfg, plen=prompt_len), fail_at_step=2,
+                         failure=Failure(FailureType.NIC_HARDWARE, 1, 0))
+    assert [dataclasses.asdict(r) for r in got] == \
+        [dataclasses.asdict(r) for r in want]
+    assert got[0].failovers == 1 and len(got[0].tokens) == 6
+    assert teng.last_recovery.stages == jeng.last_recovery.stages
+    assert teng.trace.records == jeng.trace.records
+
+
 def test_serve_trace_matches_jax(setup):
     cfg, _, jcfg, jp = setup
     kw = dict(qps=2.0, duration=2.0, prompt_len=12, max_new_tokens=4,
@@ -197,6 +220,19 @@ def test_serve_cli_on_cpu(capsys):
     serve_cli.main(["--arch", "glm4-9b", "--smoke", "--device", "cpu",
                     "--requests", "2", "--prompt-len", "12", "--max-new", "4",
                     "--fail-at-step", "1", "--fail-node", "1"])
+    out = capsys.readouterr().out.strip().splitlines()
+    assert "failovers=1" in out[0]
+    assert '"device": "cpu"' in out[-1]
+
+
+@pytest.mark.parametrize("arch", ["recurrentgemma-9b", "rwkv6-1.6b"])
+def test_recurrent_serve_cli_on_cpu(arch, capsys):
+    """``--arch`` takes the recurrent families; recurrentgemma-smoke's
+    24-token prompts wrap its 16-slot window."""
+    from repro_torch.launch import serve as serve_cli
+    serve_cli.main(["--arch", arch, "--smoke", "--device", "cpu", "--requests", "2",
+                    "--prompt-len", "24", "--max-new", "4", "--fail-at-step", "1",
+                    "--fail-node", "1"])
     out = capsys.readouterr().out.strip().splitlines()
     assert "failovers=1" in out[0]
     assert '"device": "cpu"' in out[-1]
