@@ -113,8 +113,10 @@ ATOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}   # kernel vs plain
 # relative), compounded over the layers, and for the recurrent families
 # carried along the sequence by the recurrences.  On an H100 it measured
 # 0.136 (recurrentgemma-9b, 38 layers) and 0.107 (rwkv6-1.6b, 24 layers),
-# top-1 equal, while the float32 run below stayed within 7e-5: the kernels
-# themselves are held there.
+# top-1 equal, while the float32 run below stayed within 7e-5.  For the
+# recurrent phases this bf16 limit is only a guard on the rounding: it is
+# too loose to catch a kernel fault, and the float32 check (LOGIT_ATOL_F32)
+# is the one that holds the kernels.
 LOGIT_ATOL = {"serve": 5e-2, "serve_recurrentgemma": 0.25, "serve_rwkv6": 0.25}
 # the same with a float32 residual stream, where the gap is the kernels' own
 # fp32 error (about 1e-6 relative) carried through the layers
@@ -640,8 +642,10 @@ def check_wkv_scan(gen) -> dict:
     t_plain = time_ms(lambda: ref.reference_wkv(*timed), iters=3, warmup=1)
     t_kernel2 = time_ms(lambda: wkv_scan_cuda(*timed))
     B, T, H, K = serve_shape
-    # per (b, t, h, k, v): k*v, +u*kv, *r and sum, w*S + kv: 7 operations
-    flops = 7.0 * B * T * H * K * K
+    V = K
+    # what the function needs per (b, t, h): out_t[j] = sum_k r_k S[k,j]
+    # + v_j sum_k r_k u_k k_k is 2KV + 3K + 2V, S <- w*S + k v^T is 3KV
+    flops = (5.0 * K * V + 3 * K + 2 * V) * B * T * H
     nbytes = 4 * (5 * B * T * H * K + H * K + 2 * B * H * K * K)
     t_ops, t_bytes = flops / PEAK_FLOPS[torch.float32], nbytes / PEAK_BYTES
     bound, bound_by = max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes

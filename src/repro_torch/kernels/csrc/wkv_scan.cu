@@ -12,12 +12,14 @@
 // (B, T, H, K), v (B, T, H, V), u (H, K), s0 and s_T (B, H, K, V), out
 // (B, T, H, V); all fp32 and contiguous; K = V in {16, 32, 64}.
 //
-// What bounds it on the card: per (b, t, h) about 6 K V fp32 operations
-// against 4 K + V floats in and V out.  At RWKV-6 1.6B's serving shape
-// (B=4, T=512, H=32, K=V=64) that is 1.6 GFLOP (0.024 ms at 67 TFLOP/s
-// outside the tensor cores) against 84 MB (0.025 ms at 3.35 TB/s): both
-// about equal.  What actually limits this design is the sequential time
-// axis: each step's state update depends on the last.
+// What bounds it on the card: per (b, t, h) the function needs 5 K V + 3 K
+// + 2 V fp32 operations (out_t[j] = sum_k r_k S[k,j] + v_j sum_k r_k u_k k_k
+// is 2 K V + 3 K + 2 V, the state update 3 K V) against 4 K + V floats in
+// and V out, plus s0 in and s_T out.  At RWKV-6 1.6B's serving shape (B=4,
+// T=512, H=32, K=V=64) that is 1.36 GFLOP (0.020 ms at 67 TFLOP/s outside
+// the tensor cores) against 88 MB (0.026 ms at 3.35 TB/s): bound by bytes,
+// with the operations close behind.  What actually limits this design is
+// the sequential time axis: each step's state update depends on the last.
 //
 // The design: one CTA per (b, h), one thread per value column j, which
 // keeps S[:, j] (K floats) in registers for the whole sequence, so the

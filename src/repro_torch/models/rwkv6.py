@@ -11,7 +11,8 @@ Token-shift mixes each input with the previous token through learned,
 data-dependent (low-rank) interpolation.  Train and prefill run the
 recurrence through ``kernels.ops.wkv_scan`` (the Hopper kernel for CUDA
 tensors, the plain scan on the CPU); decode is a single state update in
-plain PyTorch, like the RG-LRU block's.  Parameters keep the JAX keys and
+plain PyTorch (the plain scan at T=1, as the JAX block decodes through
+``wkv_scan_ref``), like the RG-LRU block's.  Parameters keep the JAX keys and
 shapes.  Like the port's KV cache, an :class:`RWKVState` is updated in
 place by prefill and decode and returned.
 """
@@ -23,7 +24,7 @@ import dataclasses
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels import ops
+from repro_torch.kernels import ops, ref
 from .layers import dense_init
 
 GROUP_NORM_EPS = 64e-5        # RWKV's ln_x, per head
@@ -83,14 +84,6 @@ def _token_shift(x: torch.Tensor, prev: torch.Tensor) -> torch.Tensor:
     return torch.cat([prev[:, None], x[:, :-1]], dim=1)
 
 
-def _wkv_step(r, k, v, w, u, s):
-    """One token of the WKV recurrence (decode): r, k, v, w (B,1,H,K),
-    u (H,K), s (B,H,K,V) -> (out (B,1,H,V), new state)."""
-    kv = k[:, 0, :, :, None] * v[:, 0, :, None, :]             # (B,H,K,V)
-    out = torch.einsum("bhk,bhkv->bhv", r[:, 0], s + u[None, :, :, None] * kv)
-    return out[:, None], w[:, 0, :, :, None] * s + kv
-
-
 def rwkv_block(
     params,
     x: torch.Tensor,               # (B,T,d)
@@ -137,7 +130,7 @@ def rwkv_block(
     s0 = state.s.float() if state is not None \
         else torch.zeros((B, H, head_size, head_size), device=x.device)
     if mode == "decode":
-        out, s_t = _wkv_step(r, k, v, w, u, s0)
+        out, s_t = ref.reference_wkv(r, k, v, w, u, s0)
     else:
         out, s_t = ops.wkv_scan(r, k, v, w, u, s0.contiguous(), impl=impl)
 
