@@ -61,8 +61,16 @@ import torch
 REPO = Path(__file__).resolve().parent
 SRC = REPO / "src"
 
-# H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
-PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
+# H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit).  An
+# attention kernel's least time counts its products at the tensor cores'
+# rate for work of its accuracy: fp32-accurate as 3xTF32 (three TF32
+# products per product at 495 TFLOP/s), bf16 at 989 TFLOP/s.  The fp32
+# CUDA-core rate, the attention yardstick before the backward moved to the
+# tensor cores, is printed beside it; the scans' work is no matrix product
+# and keeps it.
+PEAK_FLOPS = {torch.float32: (495e12 / 3, "3xTF32 on the tensor cores at 495/3 TFLOP/s"),
+              torch.bfloat16: (989e12, "bf16 tensor cores at 989 TFLOP/s")}
+PEAK_FP32_CUDA_CORES = 67e12
 PEAK_BYTES = 3.35e12
 
 #: kernels of the main paths: wrapper count key (and csrc/<key>.cu) ->
@@ -184,13 +192,15 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def attention_bound(q, k, ref, kw, backward: bool = False) -> tuple[float, str]:
+def attention_bound(q, k, ref, kw, backward: bool = False) -> dict:
     """Least time for the work: each input read once and each output written
     once at the memory rate, against the matmul operations that this mask
-    leaves at the dtype's peak.  Forward: q, k, v in and o out, 4 * D
-    operations per visible (query, key) pair and query head.  Backward: q,
-    k, v, o, dO and the fp32 row lse in, dq, dk, dv out, and five products
-    of 2 * D per visible pair instead of two (2.5x the forward's)."""
+    leaves at the tensor cores' peak for the dtype (``PEAK_FLOPS``), with the
+    peak named; for fp32 also the same at the CUDA cores' 67 TFLOP/s.
+    Forward: q, k, v in and o out, 4 * D operations per visible (query,
+    key) pair and query head.  Backward: q, k, v, o, dO and the fp32 row lse
+    in, dq, dk, dv out, and five products of 2 * D per visible pair instead
+    of two (2.5x the forward's)."""
     B, Tq, KVH, G, D = q.shape
     Tk = k.shape[1]
     mask = ref.attention_mask(
@@ -204,8 +214,25 @@ def attention_bound(q, k, ref, kw, backward: bool = False) -> tuple[float, str]:
         flops *= 2.5
         nbytes = (4 * q.numel() + 4 * k.numel()) * q.element_size() \
             + B * Tq * KVH * G * 4
-    t_ops, t_bytes = flops / PEAK_FLOPS[q.dtype], nbytes / PEAK_BYTES
-    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+    peak, peak_name = PEAK_FLOPS[q.dtype]
+    t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
+    out = dict(bound_ms=max(t_ops, t_bytes) * 1e3,
+               bound_by="operations" if t_ops >= t_bytes else "bytes",
+               bound_peak=peak_name, ops_ms=t_ops * 1e3, bytes_ms=t_bytes * 1e3,
+               gflop=flops / 1e9, mbytes=nbytes / 1e6)
+    if q.dtype == torch.float32:
+        out["bound_ms_fp32_cuda_cores"] = max(flops / PEAK_FP32_CUDA_CORES, t_bytes) * 1e3
+    return out
+
+
+def bound_text(b: dict) -> str:
+    text = (f"bound {b['bound_ms']:.4f} ms ({b['bound_by']}; {b['gflop']:.3f} GFLOP, "
+            f"{b['bound_peak']}: {b['ops_ms']:.4f} ms; {b['mbytes']:.1f} MB at 3.35 TB/s: "
+            f"{b['bytes_ms']:.4f} ms)")
+    if "bound_ms_fp32_cuda_cores" in b:
+        text += (f", fp32 on the CUDA cores at 67 TFLOP/s "
+                 f"{b['bound_ms_fp32_cuda_cores']:.4f} ms")
+    return text
 
 
 def check_flash_attention(gen) -> dict:
@@ -271,14 +298,13 @@ def check_flash_attention(gen) -> dict:
     t_plain = time_ms(lambda: ref.reference_attention(q, k, v))
     t_lib = time_ms(lambda: sdpa(qs, ks, vs, is_causal=True, enable_gqa=True))
     t_kernel2 = time_ms(lambda: flash_attention_cuda(q, k, v))
-    bound, bound_by = attention_bound(q, k, ref, {})
+    bound = attention_bound(q, k, ref, {})
     log("kernels", f"flash_attention smollm-prefill fp32: kernel {t_kernel:.4f} / "
         f"{t_kernel2:.4f} ms, plain {t_plain:.4f} ms, sdpa {t_lib:.4f} ms "
-        f"(sdpa max_abs_err {lib_err:.2e}), bound {bound:.4f} ms ({bound_by})")
+        f"(sdpa max_abs_err {lib_err:.2e}), {bound_text(bound)}")
     return dict(name="flash_attention", **KERNELS["flash_attention"],
                 launches=0, max_abs_err=smollm_err, ms=min(t_kernel, t_kernel2),
-                plain_ms=t_plain, bound_ms=bound, bound_by=bound_by,
-                library_ms=t_lib, recurrentgemma=dict(shape=RG_ATTN, max_abs_err=rg_err,
+                plain_ms=t_plain, **bound, library_ms=t_lib, recurrentgemma=dict(shape=RG_ATTN, max_abs_err=rg_err,
                                                       **rg))
 
 
@@ -304,19 +330,19 @@ def time_local_attention(gen, ref, flash_attention_cuda) -> dict:
     t_plain = time_ms(lambda: ref.reference_attention(q, k, v, **kw), iters=3, warmup=1)
     t_lib = time_ms(lambda: sdpa(qs, ks, vs, attn_mask=mask, enable_gqa=True), iters=5)
     t_kernel2 = time_ms(lambda: flash_attention_cuda(q, k, v, **kw), iters=5)
-    bound, bound_by = attention_bound(q, k, ref, kw)
+    bound = attention_bound(q, k, ref, kw)
     log("kernels", f"flash_attention recurrentgemma-local {RG_ATTN} fp32 window "
         f"{RG_WINDOW}: kernel {t_kernel:.4f} / {t_kernel2:.4f} ms, plain {t_plain:.4f} ms, "
         f"sdpa (boolean mask) {t_lib:.4f} ms (its max_abs_err vs the kernel {lib_err:.2e}), "
-        f"bound {bound:.4f} ms ({bound_by})")
-    return dict(ms=min(t_kernel, t_kernel2), plain_ms=t_plain, bound_ms=bound,
-                bound_by=bound_by, library_ms=t_lib)
+        f"{bound_text(bound)}")
+    return dict(ms=min(t_kernel, t_kernel2), plain_ms=t_plain, **bound, library_ms=t_lib)
 
 
 def check_flash_attention_bwd(gen) -> dict:
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels.flash_attention import (flash_attention_bwd_cuda,
                                                      flash_attention_cuda)
+    from repro_torch.launch.profile_kernels import device_ms
 
     def inputs(B, Tq, Tk, KVH, G, D, dtype):
         q = torch.randn(B, Tq, KVH, G, D, device="cuda", generator=gen).to(dtype)
@@ -382,30 +408,77 @@ def check_flash_attention_bwd(gen) -> dict:
     if any(not torch.equal(a, b) for a, b in zip(direct, via)):
         raise RuntimeError("ops.flash_attention's backward differs from the kernel's")
 
+    # two calls on the same inputs give the same bits (no atomics)
+    _, _, again = kernel(q, k, v, do, {})
+    if any(not torch.equal(a, b) for a, b in zip(direct, again)):
+        raise RuntimeError("flash_attention_bwd: two calls on the same inputs differ")
+    log("kernels", "flash_attention_bwd smollm-train: ops.flash_attention's gradients "
+        "equal the direct call's, and a second call's, bit for bit")
+
     # timing at the training shape (one layer's attention backward)
     out, lse, _ = kernel(q, k, v, do, {})
     qr, kr, vr = (t.detach().requires_grad_() for t in (q, k, v))
     ref_out = ref.reference_attention(qr, kr, vr)
-    B, T, KVH, G, D = q.shape
-    qs = qr.reshape(B, T, KVH * G, D).transpose(1, 2)
-    ks, vs = kr.transpose(1, 2), vr.transpose(1, 2)
-    sdpa_out = torch.nn.functional.scaled_dot_product_attention(
-        qs, ks, vs, is_causal=True, enable_gqa=True)
-    dos = do.reshape(B, T, KVH * G, D).transpose(1, 2)
+    sdpa_out, dos = sdpa_graph(qr, kr, vr, do)
     t_kernel = time_ms(lambda: flash_attention_bwd_cuda(q, k, v, out, do, lse))
     t_plain = time_ms(lambda: torch.autograd.grad(ref_out, (qr, kr, vr), do,
                                                   retain_graph=True))
     t_lib = time_ms(lambda: torch.autograd.grad(sdpa_out, (qr, kr, vr), dos,
                                                 retain_graph=True))
     t_kernel2 = time_ms(lambda: flash_attention_bwd_cuda(q, k, v, out, do, lse))
-    bound, bound_by = attention_bound(q, k, ref, {}, backward=True)
+    bound = attention_bound(q, k, ref, {}, backward=True)
+    passes = {bwd_pass(n): t for n, t in
+              device_ms(lambda: flash_attention_bwd_cuda(q, k, v, out, do, lse)).items()}
+    lib_dev = sum(device_ms(lambda: torch.autograd.grad(
+        sdpa_out, (qr, kr, vr), dos, retain_graph=True)).values())
     log("kernels", f"flash_attention_bwd smollm-train fp32: kernel {t_kernel:.4f} / "
         f"{t_kernel2:.4f} ms, plain {t_plain:.4f} ms, sdpa backward {t_lib:.4f} ms, "
-        f"bound {bound:.4f} ms ({bound_by})")
+        f"{bound_text(bound)}")
+    log("kernels", f"flash_attention_bwd smollm-train fp32, device time per call by pass "
+        f"(torch.profiler): " + (", ".join(f"{n} {t:.4f} ms" for n, t in passes.items())
+                                 or "not measured (no device time in the profile)")
+        + f"; in all {sum(passes.values()):.4f} ms; sdpa backward's kernels {lib_dev:.4f} ms")
+
+    # paper-7b's heads in bf16 (one layer's attention backward)
+    q7, k7, v7, do7 = inputs(2, 256, 256, 32, 1, 128, torch.bfloat16)
+    out7, lse7, _ = kernel(q7, k7, v7, do7, {})
+    qr7, kr7, vr7 = (t.detach().requires_grad_() for t in (q7, k7, v7))
+    sdpa7, dos7 = sdpa_graph(qr7, kr7, vr7, do7)
+    t7 = time_ms(lambda: flash_attention_bwd_cuda(q7, k7, v7, out7, do7, lse7))
+    t7_lib = time_ms(lambda: torch.autograd.grad(sdpa7, (qr7, kr7, vr7), dos7,
+                                                 retain_graph=True))
+    t7_2 = time_ms(lambda: flash_attention_bwd_cuda(q7, k7, v7, out7, do7, lse7))
+    bound7 = attention_bound(q7, k7, ref, {}, backward=True)
+    passes7 = {bwd_pass(n): t for n, t in
+               device_ms(lambda: flash_attention_bwd_cuda(q7, k7, v7, out7, do7, lse7)).items()}
+    log("kernels", f"flash_attention_bwd paper-7b-heads (2, 256, 256, 32, 1, 128) bf16: "
+        f"kernel {t7:.4f} / {t7_2:.4f} ms, sdpa backward {t7_lib:.4f} ms, "
+        f"{bound_text(bound7)}; by pass " + ", ".join(f"{n} {t:.4f} ms"
+                                                      for n, t in passes7.items()))
     return dict(name="flash_attention_bwd", **KERNELS["flash_attention_bwd"],
                 launches=0, max_abs_err=train_err[0], max_rel_err=train_err[1],
-                ms=min(t_kernel, t_kernel2), plain_ms=t_plain, bound_ms=bound,
-                bound_by=bound_by, library_ms=t_lib)
+                ms=min(t_kernel, t_kernel2), plain_ms=t_plain, **bound,
+                library_ms=t_lib, passes_ms=passes, library_device_ms=lib_dev,
+                paper_7b_bf16=dict(ms=min(t7, t7_2), library_ms=t7_lib, passes_ms=passes7,
+                                   **bound7))
+
+
+def sdpa_graph(q, k, v, do):
+    """SDPA's forward on (B, T, KVH, G, D) leaves, causal with GQA, kept for
+    timing its backward, and dO in SDPA's (B, H, T, D) layout."""
+    B, T, KVH, G, D = q.shape
+    qs = q.reshape(B, T, KVH * G, D).transpose(1, 2)
+    out = torch.nn.functional.scaled_dot_product_attention(
+        qs, k.transpose(1, 2), v.transpose(1, 2), is_causal=True, enable_gqa=True)
+    return out, do.reshape(B, T, KVH * G, D).transpose(1, 2)
+
+
+def bwd_pass(kernel_name: str) -> str:
+    """The backward's pass a profiled kernel name belongs to."""
+    for short in ("bwd_preprocess", "bwd_dkdv", "bwd_dq"):
+        if short in kernel_name:
+            return short
+    return kernel_name[:60]
 
 
 def train_comms() -> dict[str, dict]:
@@ -465,6 +538,7 @@ def check_chunk_combine(gen) -> dict:
     from repro_torch.core.collectives import VEC_BYTES, StagingBuffers
     from repro_torch.kernels import ref
     from repro_torch.kernels.chunk_combine import chunk_combine_cuda
+    from repro_torch.launch.profile_kernels import device_ms, host_ms
 
     def rand(n, dtype, offset=0):
         flat = torch.randn(n + offset, device="cuda", generator=gen).to(dtype)
@@ -472,7 +546,7 @@ def check_chunk_combine(gen) -> dict:
 
     n_cases, worst = 0, 0.0
     for dtype in (torch.float32, torch.bfloat16):
-        for C in (1, 4, 12):
+        for C in (1, 4, 12, 1024):
             # every (seg, acc) combination: one per row, or one per case for C=1
             combos = [([s], [a]) for s in (0, 1) for a in (0, 1)] if C == 1 else \
                 [([0, 0, 1, 1] * (C // 4), [0, 1, 0, 1] * (C // 4))]
@@ -496,7 +570,7 @@ def check_chunk_combine(gen) -> dict:
                                     f"chunk_combine {str(dtype)[6:]} C={C} M={M} seg={seg} "
                                     f"acc={acc} offsets=({lo},{ro}) inplace={inplace}: "
                                     f"max_abs_err {err} (tol 0: one fp32 add, one rounding)")
-        log("kernels", f"chunk_combine {str(dtype)[6:]}: C in (1, 4, 12), M in (1, 7, 513, "
+        log("kernels", f"chunk_combine {str(dtype)[6:]}: C in (1, 4, 12, 1024), M in (1, 7, 513, "
             f"700), every seg/acc pair, aligned / offset / misaligned rows, in and out "
             f"of place: max_abs_err={worst:.1e} (tol 0) ok")
 
@@ -517,10 +591,23 @@ def check_chunk_combine(gen) -> dict:
     t_plain = time_ms(lambda: ref.reference_chunk_combine(local, recv, seg, acc))
     t_lib = time_ms(lambda: torch.add(local, recv, out=local))
     t_kernel2 = time_ms(lambda: chunk_combine_cuda(local, recv, seg, acc, out=local))
+    t_lib2 = time_ms(lambda: torch.add(local, recv, out=local))
     bound = 3 * rows * M * 2 / PEAK_BYTES * 1e3
     log("kernels", f"chunk_combine largest training merge ({rows}, {M}) bf16: kernel "
         f"{t_kernel:.4f} / {t_kernel2:.4f} ms, plain {t_plain:.4f} ms, in-place "
-        f"torch.add {t_lib:.4f} ms, bound {bound:.4f} ms (bytes); {n_cases} cases checked")
+        f"torch.add {t_lib:.4f} / {t_lib2:.4f} ms (events, back to back), bound "
+        f"{bound:.4f} ms (bytes); {n_cases} cases checked")
+    # the same split into device time (torch.profiler) and the host's time
+    # per call with the card kept busy
+    dev = {"kernel": device_ms(lambda: chunk_combine_cuda(local, recv, seg, acc, out=local)),
+           "torch.add": device_ms(lambda: torch.add(local, recv, out=local))}
+    dev = {n: sum(d.values()) or None for n, d in dev.items()}
+    host = {"kernel": host_ms(lambda: chunk_combine_cuda(local, recv, seg, acc, out=local)),
+            "torch.add": host_ms(lambda: torch.add(local, recv, out=local))}
+    log("kernels", "chunk_combine largest training merge, device time per call "
+        "(torch.profiler): " + ", ".join(
+            f"{n} {t:.4f} ms" if t else f"{n} not measured" for n, t in dev.items())
+        + "; host time per call: " + ", ".join(f"{n} {t:.4f} ms" for n, t in host.items()))
     del local, recv
 
     # the largest chunked merge, one row at an offset off the 16-byte grid
@@ -547,7 +634,9 @@ def check_chunk_combine(gen) -> dict:
         f"{t_zero:.4f} ms, bound {3 * M1 * 2 / PEAK_BYTES * 1e3:.4f} ms (bytes)")
     return dict(name="chunk_combine", **KERNELS["chunk_combine"], launches=0,
                 max_abs_err=worst, ms=min(t_kernel, t_kernel2), plain_ms=t_plain,
-                bound_ms=bound, bound_by="bytes", library_ms=t_lib)
+                bound_ms=bound, bound_by="bytes", library_ms=min(t_lib, t_lib2),
+                device_ms=dev["kernel"], library_device_ms=dev["torch.add"],
+                host_ms=host["kernel"], library_host_ms=host["torch.add"])
 
 
 def scan_err(got, want) -> tuple[float, float]:
@@ -647,7 +736,7 @@ def check_wkv_scan(gen) -> dict:
     # + v_j sum_k r_k u_k k_k is 2KV + 3K + 2V, S <- w*S + k v^T is 3KV
     flops = (5.0 * K * V + 3 * K + 2 * V) * B * T * H
     nbytes = 4 * (5 * B * T * H * K + H * K + 2 * B * H * K * K)
-    t_ops, t_bytes = flops / PEAK_FLOPS[torch.float32], nbytes / PEAK_BYTES
+    t_ops, t_bytes = flops / PEAK_FP32_CUDA_CORES, nbytes / PEAK_BYTES
     bound, bound_by = max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
                                                    else "bytes")
     log("kernels", f"wkv_scan serve shape {serve_shape} fp32: kernel {t_kernel:.4f} / "

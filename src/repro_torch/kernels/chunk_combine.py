@@ -4,6 +4,13 @@ Replaces the TPU kernel ``chunk_combine_pallas`` of the JAX package
 (``kernels/chunk_combine.py``), the stage-2 merge of R2CCL-AllReduce.  The
 kernel's plain version is ``ref.reference_chunk_combine``;
 ``ops.chunk_combine`` picks between them by the tensors' device.
+
+The wrapper runs once per merge, 66-132 times a training step, and an
+event-timed loop of launches counts the first call's host time, so its
+host work is kept small: masks go to the kernel as Python ``bytes`` (no
+numpy round trip for the lists the collectives pass), the device context is
+entered only when the tensors are not on the current device, and each
+tensor's byte span is taken once for the overlap checks.
 """
 
 from __future__ import annotations
@@ -16,27 +23,34 @@ import torch
 from .build import entry
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_int,
-                                      ctypes.c_longlong, ctypes.c_void_p])
+_ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_char_p] * 2
+             + [ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p])
 MAX_CHUNKS = 1024       # rows whose (seg, acc) bits fit the kernel's parameters
 
 
-def _mask(m, C: int, name: str) -> np.ndarray:
-    """(C,) host bytes from a bool / int sequence or tensor (a CUDA tensor
-    is copied to the host, which waits for the card)."""
+def _mask(m, C: int, name: str) -> bytes:
+    """(C,) host bytes, 0 or 1, from a bool / int sequence, array or tensor
+    (a CUDA tensor is copied to the host, which waits for the card)."""
+    if isinstance(m, (list, tuple)):
+        b = bytes(map(bool, m))
+        if len(b) != C:
+            raise ValueError(f"{name} must have shape ({C},), got ({len(b)},)")
+        return b
     if isinstance(m, torch.Tensor):
         m = m.detach().cpu().numpy()
-    a = np.ascontiguousarray(np.asarray(m).astype(bool).astype(np.uint8))
+    a = np.asarray(m).astype(bool)
     if a.shape != (C,):
         raise ValueError(f"{name} must have shape ({C},), got {a.shape}")
-    return a
+    return a.astype(np.uint8).tobytes()
 
 
-def _overlap(a: torch.Tensor, b: torch.Tensor) -> bool:
-    a0, b0 = a.data_ptr(), b.data_ptr()
-    a1 = a0 + a.numel() * a.element_size()
-    b1 = b0 + b.numel() * b.element_size()
-    return a0 < b1 and b0 < a1
+def _span(t: torch.Tensor) -> tuple[int, int]:
+    start = t.data_ptr()
+    return start, start + t.numel() * t.element_size()
+
+
+def _overlap(a: tuple[int, int], b: tuple[int, int]) -> bool:
+    return a[0] < b[1] and b[0] < a[1]
 
 
 def chunk_combine_cuda(local: torch.Tensor, recv: torch.Tensor, seg_mask,
@@ -69,18 +83,21 @@ def chunk_combine_cuda(local: torch.Tensor, recv: torch.Tensor, seg_mask,
     elif (out.shape != local.shape or out.dtype != local.dtype
           or out.device != local.device or not out.is_contiguous()):
         raise ValueError("out must be a contiguous tensor like local")
-    elif out.data_ptr() != local.data_ptr() and _overlap(out, local):
+    out_span, local_span = _span(out), _span(local)
+    if out_span[0] != local_span[0] and _overlap(out_span, local_span):
         raise ValueError("out must be local itself or not overlap it")
-    if _overlap(out, recv):
+    if _overlap(out_span, _span(recv)):
         raise ValueError("out must not overlap recv")
     seg = _mask(seg_mask, C, "seg_mask")
     acc = _mask(accumulate, C, "accumulate")
     fn = entry("chunk_combine", "repro_chunk_combine", _ARGTYPES)
-    with torch.cuda.device(local.device):
-        stream = torch.cuda.current_stream(local.device).cuda_stream
-        err = fn(local.data_ptr(), recv.data_ptr(), out.data_ptr(),
-                 seg.ctypes.data, acc.ctypes.data, _DTYPES[local.dtype], C, M,
-                 stream)
+    args = (local_span[0], recv.data_ptr(), out_span[0], seg, acc,
+            _DTYPES[local.dtype], C, M)
+    if local.device.index == torch.cuda.current_device():
+        err = fn(*args, torch.cuda.current_stream().cuda_stream)
+    else:
+        with torch.cuda.device(local.device):
+            err = fn(*args, torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"chunk_combine kernel launch failed: cudaError_t {err}")
     chunk_combine_cuda.launches += 1

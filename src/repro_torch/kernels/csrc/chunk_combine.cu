@@ -19,12 +19,19 @@
 //     so the host never copies masks to the card and a block reads them once;
 //   * grid (blocks per row, C): a block whose row has seg=0 in place exits
 //     before touching memory;
-//   * a grid-stride loop over the row moves 16 bytes per thread per load (8
-//     bf16 or 4 fp32).  Rows of a ragged (C, M) buffer, or a row view at an odd
-//     offset, start off the 16-byte grid: the unaligned head and tail go
-//     through scalar loads here, so the wrapper pads and copies nothing.  If
-//     the three pointers are misaligned relative to each other, the row goes
-//     scalar as a whole.
+//   * no loop: each block of 128 threads moves one stretch of 128 16-byte
+//     vectors of its row (8 bf16 or 4 fp32 each), one per thread, and the
+//     blocks sweep the buffer in order, as PyTorch's own elementwise
+//     kernels do.  On the H100 a grid-stride loop over ~2 waves of resident
+//     blocks ran ~10% behind in-place `torch.add` on the same bytes; four
+//     vectors a thread, streaming cache hints, or `recv` read through the
+//     read-only path (`__restrict__`) were all slower than this.
+//   * rows of a ragged (C, M) buffer, or a row view at an odd offset, start
+//     off the 16-byte grid: the unaligned head and tail (under 16 bytes
+//     each) go through scalar loads in the row's first block, so the wrapper
+//     pads and copies nothing.  If the three pointers are misaligned
+//     relative to each other, every block moves its stretch element by
+//     element.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -32,10 +39,9 @@
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kThreads = 128;
 constexpr int kMaxChunks = 1024;
 constexpr int kWords = kMaxChunks / 32;
-constexpr int kMaxBlocks = 2048;      // total blocks over all rows (~16 per SM)
 
 struct Masks {
   unsigned seg[kWords];
@@ -87,7 +93,7 @@ __device__ __forceinline__ void combine_scalar(const T* l, const T* r, T* o,
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
-chunk_combine_kernel(const T* local, const T* __restrict__ recv, T* out,
+chunk_combine_kernel(const T* local, const T* recv, T* out,
                      long long M, Masks masks) {
   const int c = blockIdx.y;
   const bool seg = (masks.seg[c >> 5] >> (c & 31)) & 1u;
@@ -99,33 +105,36 @@ chunk_combine_kernel(const T* local, const T* __restrict__ recv, T* out,
   T* o = out + base;
 
   constexpr int V = 16 / sizeof(T);
+  constexpr long long kStretch = (long long)kThreads * V;
   const unsigned al = (unsigned)((uintptr_t)l & 15);
-  long long head = M, nvec = 0;
-  if (al == ((uintptr_t)r & 15) && al == ((uintptr_t)o & 15)) {
-    head = al ? (long long)((16 - al) / sizeof(T)) : 0;
-    if (head > M) head = M;
-    nvec = (M - head) / V;
+  if (al != ((uintptr_t)r & 15) || al != ((uintptr_t)o & 15)) {
+    // misaligned against each other: this block's stretch, element by element
+    const long long end = min(M, (blockIdx.x + 1) * kStretch);
+    for (long long i = blockIdx.x * kStretch + threadIdx.x; i < end; i += kThreads)
+      combine_scalar(l, r, o, i, seg, acc);
+    return;
   }
-  const long long tail = head + nvec * V;
-  const long long tid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  const long long stride = (long long)gridDim.x * blockDim.x;
-
-  for (long long i = tid; i < head; i += stride)
-    combine_scalar(l, r, o, i, seg, acc);
-  for (long long i = tail + tid; i < M; i += stride)
-    combine_scalar(l, r, o, i, seg, acc);
+  long long head = al ? (long long)((16 - al) / sizeof(T)) : 0;
+  if (head > M) head = M;
+  const long long nvec = (M - head) / V;
+  if (blockIdx.x == 0) {      // the scalar head and tail: under 16 bytes each
+    for (long long i = threadIdx.x; i < head; i += kThreads)
+      combine_scalar(l, r, o, i, seg, acc);
+    for (long long i = head + nvec * V + threadIdx.x; i < M; i += kThreads)
+      combine_scalar(l, r, o, i, seg, acc);
+  }
 
   const uint4* lv = reinterpret_cast<const uint4*>(l + head);
   const uint4* rv = reinterpret_cast<const uint4*>(r + head);
   uint4* ov = reinterpret_cast<uint4*>(o + head);
-  if (!seg) {
-    for (long long i = tid; i < nvec; i += stride) ov[i] = lv[i];
-  } else if (!acc) {
-    for (long long i = tid; i < nvec; i += stride) ov[i] = rv[i];
-  } else {
-    for (long long i = tid; i < nvec; i += stride)
-      ov[i] = add16(lv[i], rv[i], T());
-  }
+  const long long i = (long long)blockIdx.x * kThreads + threadIdx.x;
+  if (i >= nvec) return;
+  if (!seg)
+    ov[i] = lv[i];
+  else if (!acc)
+    ov[i] = rv[i];
+  else
+    ov[i] = add16(lv[i], rv[i], T());
 }
 
 template <typename T>
@@ -133,9 +142,8 @@ cudaError_t launch(const void* local, const void* recv, void* out, int C,
                    long long M, const Masks& masks, cudaStream_t stream) {
   constexpr long long per_block = (long long)kThreads * (16 / sizeof(T));
   long long bx = (M + per_block - 1) / per_block;
-  const long long cap = kMaxBlocks / C > 0 ? kMaxBlocks / C : 1;
-  if (bx > cap) bx = cap;
   if (bx < 1) bx = 1;
+  if (bx > 0x7fffffffLL) return cudaErrorInvalidValue;
   const dim3 grid((unsigned)bx, (unsigned)C);
   chunk_combine_kernel<T><<<grid, kThreads, 0, stream>>>(
       static_cast<const T*>(local), static_cast<const T*>(recv),

@@ -1,12 +1,12 @@
 // Flash-attention backward for NVIDIA Hopper (sm_90a), hand-written CUDA C++.
 //
-// The JAX package has no Pallas backward: in train mode it differentiates
-// its jnp `blockwise_attention` (src/repro/models/layers.py:137) with
-// `jax.grad`.  This kernel is the port's counterpart of that gradient for
-// the forward in flash_attention.cu, over the mask menu training uses
-// (causal, sliding window, prefix-LM, logit softcap; q_offset = 0, no cache
-// fill level).  With x = cap * tanh(scale q.k / cap) (or scale q.k), the
-// forward's row log-sum-exp lse and delta = rowsum(dO * O):
+// Replaces: the JAX package has no Pallas backward; in train mode it
+// differentiates its jnp `blockwise_attention` (src/repro/models/layers.py:137)
+// with `jax.grad`.  This kernel is the port's counterpart of that gradient for
+// the forward in flash_attention.cu, over the mask menu training uses (causal,
+// sliding window, prefix-LM, logit softcap, non-causal; ragged Tq != Tk;
+// q_offset = 0, no cache fill level).  With x = cap * tanh(scale q.k / cap)
+// (or scale q.k), the forward's row log-sum-exp lse and delta = rowsum(dO*O):
 //
 //   P  = exp(x - lse)          (0 where masked or where the row sees no key)
 //   dV = P^T dO                dP = dO V^T
@@ -14,37 +14,102 @@
 //   dQ = scale * dS K          dK = scale * dS^T Q
 //
 // Layout (the JAX package's): q, o, dO, dq (B, Tq, KVH, G, D); k, v, dk, dv
-// (B, Tk, KVH, D); lse, delta fp32 (B, Tq, KVH, G).  fp32 or bf16 in and out,
-// fp32 arithmetic.  D <= 128, G <= 64.
+// (B, Tk, KVH, D); lse, delta fp32 (B, Tq, KVH, G).  fp32 or bf16 in and out.
+// D <= 128, G <= 64.  A "row" is one (position, query head) pair of a kv
+// head, r = t * G + g: the G heads of a kv head share its K and V.
 //
-// What bounds it on the card: five products of 2*D operations per visible
-// (query, key) pair and query head, against the bytes of q, k, v, o, dO, lse
-// and the three gradients: at the training shape (smollm-360m, B=2, T=512,
-// KVH=5, G=3, D=64, fp32) ~1.6 GFLOP against ~12 MB, far above the 20 FLOP
-// per byte where fp32 on the CUDA cores stops being memory-bound.  So the
-// design spends shared memory on operand reuse, keeps every sum in registers
-// and is deterministic (no atomics):
-//   * bwd_preprocess: delta = rowsum(dO * O), one warp per row;
-//   * bwd_dkdv: one CTA per (batch, kv head, 64-key tile) holds K, V and the
-//     dK, dV accumulators, and loops over the query tiles that can see the
-//     key tile.  A query tile holds 64 rows = positions x all G heads of the
-//     kv head (the forward's GQA grouping), so each K/V tile serves G heads
-//     and dK, dV sum over the group without a second pass;
-//   * bwd_dq: one CTA per (batch, kv head, query tile) holds Q, dO and the dQ
-//     accumulator, and loops over the key tiles the forward visited.
-// Both recompute S and P from lse instead of storing the T x T matrix.  Like
-// the forward, this first version multiplies on the CUDA cores (4x4 register
-// tiles over padded shared memory); wgmma and TMA come later.
+// What bounds it: five products of 2 * D operations per visible (row, key)
+// pair.  At the training shape (smollm-360m, B=2, T=512, KVH=5, G=3, D=64)
+// that is 2.52 GFLOP against ~21 MB, far above the card's ridge, so it is
+// bound by the tensor cores: fp32-accurate work as 3xTF32 is three TF32
+// products per product at 495 TFLOP/s, 0.0153 ms.
+//
+// Precision route (the products run on the tensor cores with mma.sync):
+//   * bf16: mma.sync.m16n8k16 bf16 x bf16 -> fp32.  P and dS are rounded to
+//     bf16 for the second products (dV, dK, dQ);
+//   * fp32: 3xTF32 on mma.sync.m16n8k8 tf32.  Each operand x splits into
+//     hi = x with its low 13 bits cleared (exactly a tf32) and lo = x - hi
+//     (exact in fp32; the tensor core reads its top 19 bits), and each
+//     product is lo*hi + hi*lo + hi*hi summed in fp32: ~2^-21 relative per
+//     product at a third of the TF32 rate.  Plain TF32 keeps ~3 decimal
+//     digits and is not used.
+//   Fragments are read from padded shared memory with 32-bit loads (no bank
+//   conflicts at any D).  A product whose A operand is P or dS takes it
+//   straight from the accumulator registers of S or dP: for bf16 two 16x8
+//   accumulator tiles are one 16x16 A fragment; for tf32 the accumulator
+//   holds columns (2t, 2t+1) where A wants (t, t+4), so the k index of the
+//   8-wide chunk is permuted the same way in A and B, which leaves the sum
+//   unchanged.
+//
+// Passes (three launches on one stream; every sum in registers or in a fixed
+// order, no atomics, so two calls give identical bits):
+//   1. bwd_preprocess: delta = rowsum(dO * O), one warp per row.
+//   2. bwd_dkdv: a CTA of 4 warps holds a 64-key tile of K and V (16 keys a
+//      warp) and the fp32 dK, dV accumulators, and steps over the query rows
+//      that see the key tile, 32 rows a step (16 for fp32 at D = 128).
+//   3. bwd_dq: a CTA of 4 warps holds 64 query rows (16 a warp) and the dQ
+//      accumulator, and steps over the keys the forward visited, 32 a step.
+//   In both, one tile's range of steps is split evenly over a thread-block
+//   cluster of S CTAs (S = 1, 2, 4 or 8: the least whose share of the
+//   longest tile is no longer than an even share of the pass over the card,
+//   so no CTA outlasts the rest); the S partial sums meet in shared memory and
+//   each CTA of the cluster sums a slice of the tile over the cluster in
+//   rank order through distributed shared memory: no scratch in device
+//   memory, no atomics.  CTAs go out longest first (the first key tile, the
+//   last query tile, under the causal mask).  The streamed tiles (Q, dO, lse,
+//   delta in dK/dV; K, V in dQ) are double-buffered with cp.async, so the
+//   next step loads while the current one multiplies.  At D = 64 a CTA takes
+//   ~72 KB of shared memory and at most 170 registers a thread: three an SM.
+//   Where a step's whole (row, key) rectangle is visible, the mask is not
+//   evaluated pair by pair.
+//
+// The dQ pass recomputes S and dP (seven products per visible pair, not
+// five) instead of taking dS from the dK/dV pass: storing dS would cost
+// Tq * G * Tk * 4 bytes written and read again (31 MB at the training shape,
+// more than the inputs and outputs together) and would order the dQ pass
+// behind the dK/dV pass; accumulating dQ in the dK/dV pass would need
+// atomics or a partial per key tile.  Both passes are bound by the tensor
+// cores, and the two extra products cost less than those bytes.
+//
+// What it does about the first version's limits: (1) products on the tensor
+// cores instead of fp32 FMAs fed by shared memory; (2) the cluster splits
+// give 640 dK/dV CTAs and 960 dQ CTAs at the training shape instead of 80
+// and 250, and no CTA has more steps than an even share (key tile 0's 48
+// row steps go to 8 CTAs); (3) the recompute stays, for the reason above;
+// (4) cp.async double buffering instead of synchronous tile loads; (5) still
+// three launches: each split is summed inside its cluster, not by another
+// pass.
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
+
+#include <algorithm>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kRows = 64;        // query rows per tile: (position, head) pairs
-constexpr int kBlockK = 64;      // keys per tile
-constexpr int kThreads = 256;    // 16 x 16 threads, 4 x 4 scores each
+constexpr int kWarps = 4;
+constexpr int kThreads = 32 * kWarps;
+constexpr int kBK = 16 * kWarps;   // keys per dK/dV CTA, 16 a warp
+constexpr int kBQ = 16 * kWarps;   // query rows per dQ CTA, 16 a warp
+constexpr int kMaxSplit = 8;       // the portable cluster size
+constexpr int kPreThreads = 256;
+
+// query rows per dK/dV step and keys per dQ step, and the CTAs an SM each
+// pass is built for: 32-wide steps keep the S and dP tiles in 32 registers
+// a thread and a CTA in 72 KB of shared memory at D = 64, three an SM;
+// fp32 at D = 128 steps 16 rows to keep dK and dV (128 registers) from
+// spilling
+template <typename T, int DP>
+struct Tiles {
+  static constexpr int BR = DP <= 64 || sizeof(T) == 2 ? 32 : 16;
+  static constexpr int BKQ = 32;
+  static constexpr int MINB = DP <= 64 ? 3 : 1;
+};
 
 struct Params {
   int B, Tq, Tk, KVH, G, D;
@@ -54,6 +119,8 @@ struct Params {
   int has_cap;
   float cap;
   float scale;
+  int vec;     // rows start on the 16-byte grid: cp.async 16 bytes at a time
+  int split;   // CTAs (a cluster) per tile of the pass
 };
 
 __device__ __forceinline__ float to_float(float x) { return x; }
@@ -64,6 +131,14 @@ __device__ __forceinline__ void store(float* p, float x) { *p = x; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
   *p = __float2bfloat16(x);
 }
+template <typename T>
+__device__ __forceinline__ T from_float(float x);
+template <>
+__device__ __forceinline__ float from_float<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
+  return __float2bfloat16(x);
+}
 
 __device__ __forceinline__ bool visible(const Params& p, int qp, int kp) {
   bool ok = kp < p.Tk;
@@ -72,124 +147,327 @@ __device__ __forceinline__ bool visible(const Params& p, int qp, int kp) {
   return ok;
 }
 
-// Offset of query row r of the tile starting at position t0: (t0 + r/G, r%G).
-__device__ __forceinline__ size_t q_row(const Params& p, int b, int h, int t0,
-                                        int r) {
-  return (((size_t)b * p.Tq + t0 + r / p.G) * p.KVH + h) * (size_t)p.G +
+// element offset / D of row r (= t * G + g) of (batch b, kv head h)
+__device__ __forceinline__ size_t row_off(const Params& p, int b, int h,
+                                          int r) {
+  return (((size_t)b * p.Tq + r / p.G) * p.KVH + h) * (size_t)p.G +
          (size_t)(r % p.G);
 }
 
-// Stage a query tile: q (pre-scaled), dO, lse and delta, zero past n_rows.
-template <typename T, int DP>
-__device__ __forceinline__ void load_q_tile(
-    const Params& p, const T* q, const T* dout, const float* lse,
-    const float* delta, int b, int h, int t0, int n_rows, float* q_s,
-    float* do_s, float* lse_s, float* dl_s) {
-  constexpr int LD = DP + 1;
-  for (int idx = threadIdx.x; idx < kRows * DP; idx += kThreads) {
-    const int r = idx / DP, d = idx % DP;
-    float qx = 0.f, dx = 0.f;
-    if (r < n_rows && d < p.D) {
-      const size_t off = q_row(p, b, h, t0, r) * p.D + d;
-      qx = to_float(q[off]) * p.scale;
-      dx = to_float(dout[off]);
-    }
-    q_s[r * LD + d] = qx;
-    do_s[r * LD + d] = dx;
+// ---- cp.async ---------------------------------------------------------------
+
+__device__ __forceinline__ void cp16(void* dst, const void* src, bool ok) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+               "l"(src), "r"(ok ? 16 : 0));
+}
+__device__ __forceinline__ void cp4(void* dst, const void* src, bool ok) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
+               "l"(src), "r"(ok ? 4 : 0));
+}
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// ---- tensor-core fragments --------------------------------------------------
+//
+// m16n8k8 tf32 (A 16x8 row, B 8x8 col, C 16x8), lane = 4 g + t:
+//   A: (g, t) (g+8, t) (g, t+4) (g+8, t+4);  B: (k=t, n=g) (k=t+4, n=g);
+//   C: (g, 2t) (g, 2t+1) (g+8, 2t) (g+8, 2t+1).
+// m16n8k16 bf16: A pairs (g, 2t..) (g+8, 2t..) (g, 2t+8..) (g+8, 2t+8..);
+//   B pairs (k=2t.., n=g) (k=2t+8.., n=g); C as above.
+
+template <typename T>
+struct Mma;
+
+// hi = x with its low 13 bits cleared (a tf32, exactly), lo = x - hi (exact
+// in fp32; the tensor core reads only its top 19 bits): |x - hi - lo| is
+// below 2^-21 |x|
+__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+  hi = __float_as_uint(x) & 0xffffe000u;
+  lo = __float_as_uint(x - __uint_as_float(hi));
+}
+__device__ __forceinline__ void mma_tf32(float* c, const uint32_t* a,
+                                         const uint32_t* b) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
+                                         const uint32_t* b) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+template <>
+struct Mma<float> {
+  static constexpr int K = 8;
+  struct A { uint32_t h[4], l[4]; };
+  struct B { uint32_t h[2], l[2]; };
+
+  // A = X[m0 + i][k0 + j] from a row-major shared tile
+  static __device__ __forceinline__ A load_a(const float* s, int ld, int m0,
+                                             int k0) {
+    const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
+    const float* r0 = s + (m0 + g) * ld + k0 + t;
+    const float* r8 = r0 + 8 * ld;
+    A a;
+    split(r0[0], a.h[0], a.l[0]);
+    split(r8[0], a.h[1], a.l[1]);
+    split(r0[4], a.h[2], a.l[2]);
+    split(r8[4], a.h[3], a.l[3]);
+    return a;
   }
-  for (int r = threadIdx.x; r < kRows; r += kThreads) {
-    const bool ok = r < n_rows;
-    lse_s[r] = ok ? lse[q_row(p, b, h, t0, r)] : -INFINITY;
-    dl_s[r] = ok ? delta[q_row(p, b, h, t0, r)] : 0.f;
+  // A = chunk kc of a 16 x (8 n) accumulator, k permuted (2t, 2t+1 -> t, t+4)
+  static __device__ __forceinline__ A from_c(float (*c)[4], int kc) {
+    A a;
+    split(c[kc][0], a.h[0], a.l[0]);
+    split(c[kc][2], a.h[1], a.l[1]);
+    split(c[kc][1], a.h[2], a.l[2]);
+    split(c[kc][3], a.h[3], a.l[3]);
+    return a;
+  }
+  // B[k][n] = X[n0 + n][k0 + k]  (X row-major: S = Q K^T takes K so)
+  static __device__ __forceinline__ B load_b_nt(const float* s, int ld, int n0,
+                                                int k0) {
+    const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
+    const float* r = s + (n0 + g) * ld + k0 + t;
+    B b;
+    split(r[0], b.h[0], b.l[0]);
+    split(r[4], b.h[1], b.l[1]);
+    return b;
+  }
+  // B[k][n] = X[k0 + k][n0 + n], k permuted as in from_c
+  static __device__ __forceinline__ B load_b_nn(const float* s, int ld, int k0,
+                                                int n0) {
+    const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
+    const float* r = s + (k0 + 2 * t) * ld + n0 + g;
+    B b;
+    split(r[0], b.h[0], b.l[0]);
+    split(r[ld], b.h[1], b.l[1]);
+    return b;
+  }
+  // c += a b in 3xTF32: the small terms first
+  static __device__ __forceinline__ void mma(float* c, const A& a, const B& b) {
+    mma_tf32(c, a.l, b.h);
+    mma_tf32(c, a.h, b.l);
+    mma_tf32(c, a.h, b.h);
+  }
+};
+
+__device__ __forceinline__ uint32_t pack(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+__device__ __forceinline__ uint32_t pack(__nv_bfloat16 lo, __nv_bfloat16 hi) {
+  __nv_bfloat162 v;
+  v.x = lo;
+  v.y = hi;
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+template <>
+struct Mma<__nv_bfloat16> {
+  using T = __nv_bfloat16;
+  static constexpr int K = 16;
+  struct A { uint32_t x[4]; };
+  struct B { uint32_t x[2]; };
+
+  static __device__ __forceinline__ uint32_t word(const T* p) {
+    return *reinterpret_cast<const uint32_t*>(p);
+  }
+  static __device__ __forceinline__ A load_a(const T* s, int ld, int m0,
+                                             int k0) {
+    const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
+    const T* r0 = s + (m0 + g) * ld + k0 + 2 * t;
+    const T* r8 = r0 + 8 * ld;
+    return A{{word(r0), word(r8), word(r0 + 8), word(r8 + 8)}};
+  }
+  // A = columns 16 kc .. 16 kc + 15 of the accumulator: tiles 2 kc, 2 kc + 1
+  static __device__ __forceinline__ A from_c(float (*c)[4], int kc) {
+    const float* lo = c[2 * kc];
+    const float* hi = c[2 * kc + 1];
+    return A{{pack(lo[0], lo[1]), pack(lo[2], lo[3]), pack(hi[0], hi[1]),
+              pack(hi[2], hi[3])}};
+  }
+  static __device__ __forceinline__ B load_b_nt(const T* s, int ld, int n0,
+                                                int k0) {
+    const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
+    const T* r = s + (n0 + g) * ld + k0 + 2 * t;
+    return B{{word(r), word(r + 8)}};
+  }
+  static __device__ __forceinline__ B load_b_nn(const T* s, int ld, int k0,
+                                                int n0) {
+    const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
+    const T* r = s + (k0 + 2 * t) * ld + n0 + g;
+    return B{{pack(r[0], r[ld]), pack(r[8 * ld], r[9 * ld])}};
+  }
+  static __device__ __forceinline__ void mma(float* c, const A& a, const B& b) {
+    mma_bf16(c, a.x, b.x);
+  }
+};
+
+// ---- tile loads -------------------------------------------------------------
+
+template <typename T>
+__host__ __device__ constexpr int ld_of(int DP) {
+  return DP + 16 / (int)sizeof(T);
+}
+
+// rows r0 .. r0 + n - 1 of q-like tensors (and lse * log2(e), delta, the
+// rows' positions) into shared tiles; zero past the last row.  Columns
+// D .. DP-1 are zeroed once by the caller.
+template <typename T, int DP>
+__device__ __forceinline__ void load_rows(const Params& p, const T* a,
+                                          const T* c, const float* lse,
+                                          const float* delta, int b, int h,
+                                          int r0, int n, T* a_s, T* c_s,
+                                          float* lse_s, float* dl_s,
+                                          int* pos_s) {
+  constexpr int LD = ld_of<T>(DP);
+  const int nr = p.Tq * p.G;
+  if (p.vec) {
+    constexpr int V = 16 / sizeof(T);
+    const int cpr = p.D / V;
+    for (int i = threadIdx.x; i < n * cpr; i += kThreads) {
+      const int r = i / cpr, col = (i % cpr) * V;
+      const bool ok = r0 + r < nr;
+      const size_t off = ok ? row_off(p, b, h, r0 + r) * p.D + col : 0;
+      cp16(a_s + r * LD + col, a + off, ok);
+      cp16(c_s + r * LD + col, c + off, ok);
+    }
+  } else {
+    for (int i = threadIdx.x; i < n * p.D; i += kThreads) {
+      const int r = i / p.D, col = i % p.D;
+      const bool ok = r0 + r < nr;
+      const size_t off = ok ? row_off(p, b, h, r0 + r) * p.D + col : 0;
+      a_s[r * LD + col] = ok ? a[off] : from_float<T>(0.f);
+      c_s[r * LD + col] = ok ? c[off] : from_float<T>(0.f);
+    }
+  }
+  for (int r = threadIdx.x; r < n; r += kThreads) {
+    const bool ok = r0 + r < nr;
+    const size_t off = ok ? row_off(p, b, h, r0 + r) : 0;
+    cp4(lse_s + r, lse + off, ok);
+    cp4(dl_s + r, delta + off, ok);
+    pos_s[r] = (r0 + r) / p.G;
   }
 }
 
+// keys k0 .. k0 + n - 1 of k and v into shared tiles, zero past Tk
 template <typename T, int DP>
-__device__ __forceinline__ void load_kv_tile(const Params& p, const T* k,
-                                             const T* v, int b, int h, int k0,
-                                             float* k_s, float* v_s) {
-  constexpr int LD = DP + 1;
-  for (int idx = threadIdx.x; idx < kBlockK * DP; idx += kThreads) {
-    const int c = idx / DP, d = idx % DP;
-    float kx = 0.f, vx = 0.f;
-    if (k0 + c < p.Tk && d < p.D) {
-      const size_t off = (((size_t)b * p.Tk + k0 + c) * p.KVH + h) * p.D + d;
-      kx = to_float(k[off]);
-      vx = to_float(v[off]);
+__device__ __forceinline__ void load_keys(const Params& p, const T* k,
+                                          const T* v, int b, int h, int k0,
+                                          int n, T* k_s, T* v_s) {
+  constexpr int LD = ld_of<T>(DP);
+  if (p.vec) {
+    constexpr int V = 16 / sizeof(T);
+    const int cpr = p.D / V;
+    for (int i = threadIdx.x; i < n * cpr; i += kThreads) {
+      const int r = i / cpr, col = (i % cpr) * V;
+      const bool ok = k0 + r < p.Tk;
+      const size_t off =
+          ok ? (((size_t)b * p.Tk + k0 + r) * p.KVH + h) * p.D + col : 0;
+      cp16(k_s + r * LD + col, k + off, ok);
+      cp16(v_s + r * LD + col, v + off, ok);
     }
-    k_s[c * LD + d] = kx;
-    v_s[c * LD + d] = vx;
+  } else {
+    for (int i = threadIdx.x; i < n * p.D; i += kThreads) {
+      const int r = i / p.D, col = i % p.D;
+      const bool ok = k0 + r < p.Tk;
+      const size_t off =
+          ok ? (((size_t)b * p.Tk + k0 + r) * p.KVH + h) * p.D + col : 0;
+      k_s[r * LD + col] = ok ? k[off] : from_float<T>(0.f);
+      v_s[r * LD + col] = ok ? v[off] : from_float<T>(0.f);
+    }
   }
 }
 
-// For the staged tiles, P and dS of rows ty + 16 i, keys tx + 16 j into
-// p_s (if given) and ds_s.
-template <int DP>
-__device__ __forceinline__ void scores(const Params& p, int t0, int n_rows,
-                                       int k0, const float* q_s,
-                                       const float* do_s, const float* k_s,
-                                       const float* v_s, const float* lse_s,
-                                       const float* dl_s, float* p_s,
-                                       float* ds_s) {
-  constexpr int LD = DP + 1;
-  constexpr int LDS = kBlockK + 1;
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-  float s[4][4], dp[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
-#pragma unroll 4
-  for (int d = 0; d < DP; ++d) {
-    float qa[4], oa[4], kb[4], vb[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      qa[i] = q_s[(ty + 16 * i) * LD + d];
-      oa[i] = do_s[(ty + 16 * i) * LD + d];
-    }
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      kb[j] = k_s[(tx + 16 * j) * LD + d];
-      vb[j] = v_s[(tx + 16 * j) * LD + d];
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        s[i][j] = fmaf(qa[i], kb[j], s[i][j]);
-        dp[i][j] = fmaf(oa[i], vb[j], dp[i][j]);
-      }
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = ty + 16 * i;
-    const int qp = t0 + r / p.G;
-    const float lse = lse_s[r], dl = dl_s[r];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int c = tx + 16 * j;
-      float x = s[i][j];
-      if (p.has_cap) x = tanhf(x / p.cap) * p.cap;
-      const bool ok = r < n_rows && lse != -INFINITY && visible(p, qp, k0 + c);
-      const float pr = ok ? expf(x - lse) : 0.f;
-      float ds = pr * (dp[i][j] - dl);
-      if (p.has_cap) {
-        const float t = x / p.cap;
-        ds *= 1.f - t * t;
-      }
-      if (p_s != nullptr) p_s[r * LDS + c] = pr;
-      ds_s[r * LDS + c] = ds;
-    }
+// zero columns D .. DP-1 of `rows` rows (cp.async never writes them)
+template <typename T, int DP>
+__device__ __forceinline__ void zero_pad(const Params& p, T* s, int rows) {
+  constexpr int LD = ld_of<T>(DP);
+  const int w = DP - p.D;
+  if (w <= 0) return;
+  for (int i = threadIdx.x; i < rows * w; i += kThreads)
+    s[(i / w) * LD + p.D + i % w] = from_float<T>(0.f);
+}
+
+// ---- probabilities ----------------------------------------------------------
+
+constexpr float kLog2e = 1.4426950408889634f;
+
+// Every (row, key) of positions [qa, qb] x keys [ka, kb] visible, rows and
+// keys inside the tensors: the mask need not be read pair by pair.
+__device__ __forceinline__ bool all_visible(const Params& p, int r_end, int qa,
+                                            int qb, int ka, int kb) {
+  bool ok = r_end <= p.Tq * p.G && kb < p.Tk;
+  if (p.causal) ok = ok && (kb <= qa || (p.has_prefix && kb < p.prefix_len));
+  if (p.has_window) ok = ok && (qb - ka < p.window);
+  return ok;
+}
+
+// P and dS from the raw score s and dP of one (row, key) pair; lse2 is the
+// row's lse * log2(e).  `full`: the pair is known to be visible.
+__device__ __forceinline__ void probs(const Params& p, bool full, float s,
+                                      float dp, float lse2, float dl, bool row_ok,
+                                      int qp, int key, float& pr, float& ds) {
+  float x = s * p.scale;
+  if (p.has_cap) x = tanhf(x / p.cap) * p.cap;
+  const bool ok = full || (row_ok && lse2 != -INFINITY && visible(p, qp, key));
+  pr = ok ? exp2f(fmaf(x, kLog2e, -lse2)) : 0.f;
+  ds = pr * (dp - dl);
+  if (p.has_cap) {
+    const float t = x / p.cap;
+    ds *= 1.f - t * t;
   }
 }
+
+// ---- cluster sums -----------------------------------------------------------
+
+// The cluster's S partial sums of a 64-row tile meet in shared memory: each
+// CTA has written its (NPART x 64) x rld floats to `red`; rank r sums rows
+// [r 64 / S, (r + 1) 64 / S) over ranks 0 .. S-1 in that order and hands
+// (row, column, sums) to `emit`.  Deterministic, no atomics.
+template <int NPART, typename Emit>
+__device__ __forceinline__ void cluster_sum(const float* red, int rld,
+                                            int ncols, Emit emit) {
+  cg::cluster_group cluster = cg::this_cluster();
+  const int S = (int)cluster.num_blocks(), rank = (int)cluster.block_rank();
+  cluster.sync();
+  const int per = 64 / S;
+  for (int i = threadIdx.x; i < per * ncols; i += kThreads) {
+    const int c = rank * per + i / ncols, d = i % ncols;
+    float acc[NPART];
+#pragma unroll
+    for (int q = 0; q < NPART; ++q) acc[q] = 0.f;
+    for (int s = 0; s < S; ++s) {
+      const float* rr = cluster.map_shared_rank(red, s);
+#pragma unroll
+      for (int q = 0; q < NPART; ++q) acc[q] += rr[(q * 64 + c) * rld + d];
+    }
+    emit(c, d, acc);
+  }
+  cluster.sync();      // no CTA leaves while another reads its shared memory
+}
+
+// ---- the passes -------------------------------------------------------------
 
 // delta = rowsum(dO * O), one warp per row of D.
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kPreThreads)
 bwd_preprocess(const T* __restrict__ o, const T* __restrict__ dout,
                float* __restrict__ delta, long long rows, int D) {
   const long long row =
-      (long long)blockIdx.x * (kThreads / 32) + threadIdx.x / 32;
+      (long long)blockIdx.x * (kPreThreads / 32) + threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   if (row >= rows) return;
   float acc = 0.f;
@@ -201,214 +479,417 @@ bwd_preprocess(const T* __restrict__ o, const T* __restrict__ dout,
   if (lane == 0) delta[row] = acc;
 }
 
+// Query row tiles [lo, hi) (of `tile` rows) that can see key tile [k0, k0 +
+// kBK): rows of positions >= k0 under the causal mask (all, for a key tile
+// inside the prefix), below kmax + window with a window.
+__host__ __device__ inline void dkdv_tiles(const Params& p, int k0, int tile,
+                                           int& lo, int& hi) {
+  const int kmax = (k0 + kBK < p.Tk ? k0 + kBK : p.Tk) - 1;
+  int qlo = 0, qhi = p.Tq;
+  if (p.causal && !(p.has_prefix && k0 < p.prefix_len)) qlo = k0;
+  if (p.has_window && kmax + p.window < qhi) qhi = kmax + p.window;
+  if (qlo >= qhi) {
+    lo = hi = 0;
+    return;
+  }
+  lo = qlo * p.G / tile;
+  hi = (qhi * p.G + tile - 1) / tile;
+}
+
+// Key tiles [lo, hi) (of `tile` keys) the forward visited for query rows
+// [r0, r1).
+__host__ __device__ inline void dq_tiles(const Params& p, int r0, int r1,
+                                         int tile, int& lo, int& hi) {
+  const int t_first = r0 / p.G, t_last = (r1 - 1) / p.G;
+  int khi = p.Tk;
+  if (p.causal) {
+    int lim = t_last + 1;
+    if (p.has_prefix && p.prefix_len > lim) lim = p.prefix_len;
+    if (lim < khi) khi = lim;
+  }
+  int klo = 0;
+  if (p.has_window && t_first - p.window + 1 > 0) klo = t_first - p.window + 1;
+  lo = klo / tile;
+  hi = klo < khi ? (khi + tile - 1) / tile : lo;
+}
+
+// This cluster rank's share [first, first + n) of `lo .. hi` split S ways.
+__device__ __forceinline__ void share(int lo, int hi, int& first, int& n) {
+  cg::cluster_group cluster = cg::this_cluster();
+  const int S = (int)cluster.num_blocks(), rank = (int)cluster.block_rank();
+  const int chunk = (hi - lo + S - 1) / S;
+  first = min(hi, lo + rank * chunk);
+  n = min(hi, first + chunk) - first;
+}
+
 template <typename T, int DP>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, Tiles<T, DP>::MINB)
 bwd_dkdv(const T* __restrict__ q, const T* __restrict__ k,
          const T* __restrict__ v, const T* __restrict__ dout,
          const float* __restrict__ lse, const float* __restrict__ delta,
          T* __restrict__ dk, T* __restrict__ dv, Params p) {
-  extern __shared__ float smem[];
-  constexpr int LD = DP + 1;
-  constexpr int LDS = kBlockK + 1;
-  constexpr int DJ = DP / 16;
-  float* k_s = smem;                  // kBlockK x LD
-  float* v_s = k_s + kBlockK * LD;    // kBlockK x LD
-  float* q_s = v_s + kBlockK * LD;    // kRows x LD, pre-scaled
-  float* do_s = q_s + kRows * LD;     // kRows x LD
-  float* p_s = do_s + kRows * LD;     // kRows x LDS
-  float* ds_s = p_s + kRows * LDS;    // kRows x LDS
-  float* lse_s = ds_s + kRows * LDS;  // kRows
-  float* dl_s = lse_s + kRows;        // kRows
+  using M = Mma<T>;
+  constexpr int BR = Tiles<T, DP>::BR;
+  constexpr int LD = ld_of<T>(DP);
+  constexpr int NB = BR / 8;        // 8-row blocks of S^T per warp
+  constexpr int ND = DP / 8;        // 8-column blocks of dK, dV per warp
+  constexpr int RLD = DP + 8;       // fp32 stride of the reduction tiles
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* k_s = reinterpret_cast<T*>(smem);      // kBK x LD
+  T* v_s = k_s + kBK * LD;                  // kBK x LD
+  T* q_s = v_s + kBK * LD;                  // 2 x BR x LD
+  T* do_s = q_s + 2 * BR * LD;              // 2 x BR x LD
+  float* lse_s = reinterpret_cast<float*>(do_s + 2 * BR * LD);  // 2 x BR
+  float* dl_s = lse_s + 2 * BR;                                  // 2 x BR
+  int* pos_s = reinterpret_cast<int*>(dl_s + 2 * BR);            // 2 x BR
+  float* red = reinterpret_cast<float*>(q_s);  // after the loop: 2 x kBK x RLD
 
-  const int kt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int k0 = kt * kBlockK;
-  const int bq = kRows / p.G;
-  load_kv_tile<T, DP>(p, k, v, b, h, k0, k_s, v_s);
+  const int item = blockIdx.x / p.split;    // (key tile, b, h), longest first
+  const int BH = p.B * p.KVH;
+  const int k0 = (item / BH) * kBK;
+  const int b = (item % BH) / p.KVH, h = (item % BH) % p.KVH;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane >> 2, t = lane & 3;
+  const int nr = p.Tq * p.G;
 
-  // query positions that see at least one key of this tile
-  const int kmax = min(k0 + kBlockK, p.Tk) - 1;
-  int qlo = 0, qhi = p.Tq;
-  if (p.causal && !(p.has_prefix && k0 < p.prefix_len)) qlo = k0;
-  if (p.has_window) qhi = min(qhi, kmax + p.window);
+  int lo, hi, first, n;
+  dkdv_tiles(p, k0, BR, lo, hi);
+  share(lo, hi, first, n);
 
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-  float dka[4][DJ], dva[4][DJ];
+  zero_pad<T, DP>(p, k_s, 2 * kBK + 4 * BR);
+  load_keys<T, DP>(p, k, v, b, h, k0, kBK, k_s, v_s);
+  if (n > 0)
+    load_rows<T, DP>(p, q, dout, lse, delta, b, h, first * BR, BR, q_s, do_s,
+                     lse_s, dl_s, pos_s);
+  cp_commit();
+
+  float dka[ND][4], dva[ND][4];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int j = 0; j < ND; ++j)
 #pragma unroll
-    for (int j = 0; j < DJ; ++j) dka[i][j] = dva[i][j] = 0.f;
+    for (int e = 0; e < 4; ++e) dka[j][e] = dva[j][e] = 0.f;
+  const int key0 = k0 + warp * 16 + g;      // this thread's keys: key0, key0 + 8
 
-  for (int qt = qlo / bq; qt * bq < qhi; ++qt) {
-    const int t0 = qt * bq;
-    const int n_rows = min(bq, p.Tq - t0) * p.G;
-    __syncthreads();   // the previous tile's products are done with smem
-    load_q_tile<T, DP>(p, q, dout, lse, delta, b, h, t0, n_rows, q_s, do_s,
-                       lse_s, dl_s);
+  for (int it = 0; it < n; ++it) {
+    const int buf = it & 1;
+    if (it + 1 < n)
+      load_rows<T, DP>(p, q, dout, lse, delta, b, h, (first + it + 1) * BR, BR,
+                       q_s + (buf ^ 1) * BR * LD, do_s + (buf ^ 1) * BR * LD,
+                       lse_s + (buf ^ 1) * BR, dl_s + (buf ^ 1) * BR,
+                       pos_s + (buf ^ 1) * BR);
+    cp_commit();
+    cp_wait<1>();
     __syncthreads();
-    scores<DP>(p, t0, n_rows, k0, q_s, do_s, k_s, v_s, lse_s, dl_s, p_s, ds_s);
-    __syncthreads();
-    // dV[c] += sum_r P[r][c] dO[r];  dK[c] += sum_r dS[r][c] (scale q)[r]
-#pragma unroll 4
-    for (int r = 0; r < kRows; ++r) {
-      float pa[4], sa[4], ob[DJ], qb[DJ];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        pa[i] = p_s[r * LDS + ty + 16 * i];
-        sa[i] = ds_s[r * LDS + ty + 16 * i];
-      }
-#pragma unroll
-      for (int j = 0; j < DJ; ++j) {
-        ob[j] = do_s[r * LD + tx + 16 * j];
-        qb[j] = q_s[r * LD + tx + 16 * j];
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < DJ; ++j) {
-          dva[i][j] = fmaf(pa[i], ob[j], dva[i][j]);
-          dka[i][j] = fmaf(sa[i], qb[j], dka[i][j]);
-        }
-    }
-  }
+    const T* qs = q_s + buf * BR * LD;
+    const T* dos = do_s + buf * BR * LD;
+    const float* ls = lse_s + buf * BR;
+    const float* dls = dl_s + buf * BR;
+    const int* ps = pos_s + buf * BR;
 
+    // S^T = K Q^T and dP^T = V dO^T: this warp's 16 keys x BR rows
+    float st[NB][4], dpt[NB][4];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int c = ty + 16 * i;
-    if (k0 + c >= p.Tk) continue;
-    const size_t row = (((size_t)b * p.Tk + k0 + c) * p.KVH + h) * p.D;
+    for (int j = 0; j < NB; ++j)
 #pragma unroll
-    for (int j = 0; j < DJ; ++j) {
-      const int d = tx + 16 * j;
-      if (d < p.D) {
-        store(dk + row + d, dka[i][j]);
-        store(dv + row + d, dva[i][j]);
+      for (int e = 0; e < 4; ++e) st[j][e] = dpt[j][e] = 0.f;
+#pragma unroll 2
+    for (int kc = 0; kc < DP / M::K; ++kc) {
+      const typename M::A ka = M::load_a(k_s, LD, warp * 16, kc * M::K);
+      const typename M::A va = M::load_a(v_s, LD, warp * 16, kc * M::K);
+#pragma unroll
+      for (int j = 0; j < NB; ++j) {
+        M::mma(st[j], ka, M::load_b_nt(qs, LD, j * 8, kc * M::K));
+        M::mma(dpt[j], va, M::load_b_nt(dos, LD, j * 8, kc * M::K));
       }
     }
+
+    // P^T and dS^T in place; element e of block j is (key, row) =
+    // (key0 + 8 (e >> 1), 8 j + 2 t + (e & 1))
+    const int r0 = (first + it) * BR;
+    const bool full = all_visible(p, r0 + BR, ps[0], ps[BR - 1], k0,
+                                  k0 + kBK - 1);
+#pragma unroll
+    for (int j = 0; j < NB; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int rl = j * 8 + 2 * t + (e & 1);
+        probs(p, full, st[j][e], dpt[j][e], ls[rl] * kLog2e, dls[rl],
+              r0 + rl < nr, ps[rl], key0 + 8 * (e >> 1), st[j][e], dpt[j][e]);
+      }
+
+    // dV += P^T dO and dK += dS^T Q, summing over the tile's rows
+#pragma unroll
+    for (int kc = 0; kc < BR / M::K; ++kc) {
+      const typename M::A pa = M::from_c(st, kc);
+      const typename M::A sa = M::from_c(dpt, kc);
+#pragma unroll
+      for (int nd = 0; nd < ND; ++nd) {
+        M::mma(dva[nd], pa, M::load_b_nn(dos, LD, kc * M::K, nd * 8));
+        M::mma(dka[nd], sa, M::load_b_nn(qs, LD, kc * M::K, nd * 8));
+      }
+    }
+    __syncthreads();   // the next iteration's load reuses this buffer
   }
+  cp_wait<0>();
+  __syncthreads();
+
+#pragma unroll
+  for (int nd = 0; nd < ND; ++nd)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int c = warp * 16 + g + 8 * (e >> 1), d = nd * 8 + 2 * t + (e & 1);
+      red[c * RLD + d] = dka[nd][e];
+      red[(kBK + c) * RLD + d] = dva[nd][e];
+    }
+  cluster_sum<2>(red, RLD, p.D, [&](int c, int d, const float* sum) {
+    if (k0 + c >= p.Tk) return;
+    const size_t off = (((size_t)b * p.Tk + k0 + c) * p.KVH + h) * p.D + d;
+    store(dk + off, sum[0] * p.scale);
+    store(dv + off, sum[1]);
+  });
 }
 
 template <typename T, int DP>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, Tiles<T, DP>::MINB)
 bwd_dq(const T* __restrict__ q, const T* __restrict__ k,
        const T* __restrict__ v, const T* __restrict__ dout,
        const float* __restrict__ lse, const float* __restrict__ delta,
        T* __restrict__ dq, Params p) {
-  extern __shared__ float smem[];
-  constexpr int LD = DP + 1;
-  constexpr int LDS = kBlockK + 1;
-  constexpr int DJ = DP / 16;
-  float* q_s = smem;                  // kRows x LD, pre-scaled
-  float* do_s = q_s + kRows * LD;     // kRows x LD
-  float* k_s = do_s + kRows * LD;     // kBlockK x LD
-  float* v_s = k_s + kBlockK * LD;    // kBlockK x LD
-  float* ds_s = v_s + kBlockK * LD;   // kRows x LDS
-  float* lse_s = ds_s + kRows * LDS;  // kRows
-  float* dl_s = lse_s + kRows;        // kRows
+  using M = Mma<T>;
+  constexpr int BKQ = Tiles<T, DP>::BKQ;
+  constexpr int LD = ld_of<T>(DP);
+  constexpr int NK = BKQ / 8;       // 8-key blocks of S per warp
+  constexpr int ND = DP / 8;
+  constexpr int RLD = DP + 8;
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* q_s = reinterpret_cast<T*>(smem);      // kBQ x LD
+  T* do_s = q_s + kBQ * LD;                 // kBQ x LD
+  T* k_s = do_s + kBQ * LD;                 // 2 x BKQ x LD
+  T* v_s = k_s + 2 * BKQ * LD;              // 2 x BKQ x LD
+  float* lse_s = reinterpret_cast<float*>(v_s + 2 * BKQ * LD);  // kBQ
+  float* dl_s = lse_s + kBQ;                                     // kBQ
+  int* pos_s = reinterpret_cast<int*>(dl_s + kBQ);               // kBQ
+  float* red = reinterpret_cast<float*>(k_s);  // after the loop: kBQ x RLD
 
-  const int qt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int bq = kRows / p.G;
-  const int t0 = qt * bq;
-  const int n_pos = min(bq, p.Tq - t0);
-  const int n_rows = n_pos * p.G;
-  load_q_tile<T, DP>(p, q, dout, lse, delta, b, h, t0, n_rows, q_s, do_s,
-                     lse_s, dl_s);
+  const int nr = p.Tq * p.G;
+  const int nqt = (nr + kBQ - 1) / kBQ;
+  const int BH = p.B * p.KVH;
+  const int item = blockIdx.x / p.split;    // (query tile, b, h)
+  const int qt = p.causal ? nqt - 1 - item / BH : item / BH;  // longest first
+  const int b = (item % BH) / p.KVH, h = (item % BH) % p.KVH;
+  const int r0 = qt * kBQ, r1 = min(r0 + kBQ, nr);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane >> 2, t = lane & 3;
 
-  // the forward's key range for this tile
-  int hi = p.Tk;
-  if (p.causal) {
-    int lim = t0 + n_pos;
-    if (p.has_prefix) lim = max(lim, p.prefix_len);
-    hi = min(hi, lim);
+  int lo, hi, first, n;
+  dq_tiles(p, r0, r1, BKQ, lo, hi);
+  share(lo, hi, first, n);
+
+  zero_pad<T, DP>(p, q_s, 2 * kBQ + 4 * BKQ);
+  load_rows<T, DP>(p, q, dout, lse, delta, b, h, r0, kBQ, q_s, do_s, lse_s,
+                   dl_s, pos_s);
+  if (n > 0) load_keys<T, DP>(p, k, v, b, h, first * BKQ, BKQ, k_s, v_s);
+  cp_commit();
+
+  float dqa[ND][4];
+#pragma unroll
+  for (int j = 0; j < ND; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dqa[j][e] = 0.f;
+
+  // this thread's two rows, 16 warp + g and + 8: their position, lse, delta
+  const int rl0 = warp * 16 + g;
+  int qp[2];
+  float lse2[2], dl[2];
+  bool row_ok[2];
+  cp_wait<0>();
+  __syncthreads();
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    qp[i] = pos_s[rl0 + 8 * i];
+    lse2[i] = lse_s[rl0 + 8 * i] * kLog2e;
+    dl[i] = dl_s[rl0 + 8 * i];
+    row_ok[i] = r0 + rl0 + 8 * i < nr;
   }
-  int lo = 0;
-  if (p.has_window) lo = max(0, t0 - p.window + 1);
-  lo = (lo / kBlockK) * kBlockK;
 
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-  float dqa[4][DJ];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < DJ; ++j) dqa[i][j] = 0.f;
-
-  for (int k0 = lo; k0 < hi; k0 += kBlockK) {
-    __syncthreads();   // the previous tile's dS K is done with smem
-    load_kv_tile<T, DP>(p, k, v, b, h, k0, k_s, v_s);
+  for (int it = 0; it < n; ++it) {
+    const int buf = it & 1;
+    const int k0 = (first + it) * BKQ;
+    if (it + 1 < n)
+      load_keys<T, DP>(p, k, v, b, h, k0 + BKQ, BKQ, k_s + (buf ^ 1) * BKQ * LD,
+                       v_s + (buf ^ 1) * BKQ * LD);
+    cp_commit();
+    cp_wait<1>();
     __syncthreads();
-    scores<DP>(p, t0, n_rows, k0, q_s, do_s, k_s, v_s, lse_s, dl_s, nullptr,
-               ds_s);
-    __syncthreads();
-    // dQ[r] += sum_c dS[r][c] K[c]
-#pragma unroll 4
-    for (int c = 0; c < kBlockK; ++c) {
-      float sa[4], kb[DJ];
+    const T* ks = k_s + buf * BKQ * LD;
+    const T* vs = v_s + buf * BKQ * LD;
+
+    // S = Q K^T and dP = dO V^T: this warp's 16 rows x BKQ keys
+    float s[NK][4], dp[NK][4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) sa[i] = ds_s[(ty + 16 * i) * LDS + c];
+    for (int j = 0; j < NK; ++j)
 #pragma unroll
-      for (int j = 0; j < DJ; ++j) kb[j] = k_s[c * LD + tx + 16 * j];
+      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+#pragma unroll 2
+    for (int kc = 0; kc < DP / M::K; ++kc) {
+      const typename M::A qa = M::load_a(q_s, LD, warp * 16, kc * M::K);
+      const typename M::A oa = M::load_a(do_s, LD, warp * 16, kc * M::K);
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < DJ; ++j) dqa[i][j] = fmaf(sa[i], kb[j], dqa[i][j]);
+      for (int j = 0; j < NK; ++j) {
+        M::mma(s[j], qa, M::load_b_nt(ks, LD, j * 8, kc * M::K));
+        M::mma(dp[j], oa, M::load_b_nt(vs, LD, j * 8, kc * M::K));
+      }
     }
+    // element e of block j is (row, key) = (rl0 + 8 (e >> 1),
+    // k0 + 8 j + 2 t + (e & 1))
+    const bool full = all_visible(p, r0 + kBQ, pos_s[0], pos_s[kBQ - 1], k0,
+                                  k0 + BKQ - 1);
+#pragma unroll
+    for (int j = 0; j < NK; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = e >> 1;
+        float pr;
+        probs(p, full, s[j][e], dp[j][e], lse2[i], dl[i], row_ok[i], qp[i],
+              k0 + j * 8 + 2 * t + (e & 1), pr, dp[j][e]);
+      }
+    // dQ += dS K
+#pragma unroll
+    for (int kc = 0; kc < BKQ / M::K; ++kc) {
+      const typename M::A sa = M::from_c(dp, kc);
+#pragma unroll
+      for (int nd = 0; nd < ND; ++nd)
+        M::mma(dqa[nd], sa, M::load_b_nn(ks, LD, kc * M::K, nd * 8));
+    }
+    __syncthreads();
   }
+  cp_wait<0>();
+  __syncthreads();
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = ty + 16 * i;
-    if (r >= n_rows) continue;
-    const size_t row = q_row(p, b, h, t0, r) * p.D;
+  for (int nd = 0; nd < ND; ++nd)
 #pragma unroll
-    for (int j = 0; j < DJ; ++j) {
-      const int d = tx + 16 * j;
-      if (d < p.D) store(dq + row + d, dqa[i][j] * p.scale);
-    }
-  }
+    for (int e = 0; e < 4; ++e)
+      red[(rl0 + 8 * (e >> 1)) * RLD + nd * 8 + 2 * t + (e & 1)] = dqa[nd][e];
+  cluster_sum<1>(red, RLD, p.D, [&](int c, int d, const float* sum) {
+    if (r0 + c < nr) store(dq + row_off(p, b, h, r0 + c) * p.D + d, sum[0] * p.scale);
+  });
+}
+
+// ---- host side --------------------------------------------------------------
+
+template <typename T, int DP>
+size_t smem_dkdv() {
+  constexpr int BR = Tiles<T, DP>::BR;
+  const size_t tiles = sizeof(T) * (size_t)(2 * kBK + 4 * BR) * ld_of<T>(DP) +
+                       sizeof(float) * 6 * BR;
+  const size_t red = sizeof(T) * (size_t)2 * kBK * ld_of<T>(DP) +
+                     sizeof(float) * (size_t)2 * kBK * (DP + 8);
+  return tiles > red ? tiles : red;
+}
+
+template <typename T, int DP>
+size_t smem_dq() {
+  constexpr int BKQ = Tiles<T, DP>::BKQ;
+  const size_t tiles = sizeof(T) * (size_t)(2 * kBQ + 4 * BKQ) * ld_of<T>(DP) +
+                       sizeof(float) * 3 * kBQ;
+  const size_t red = sizeof(T) * (size_t)2 * kBQ * ld_of<T>(DP) +
+                     sizeof(float) * (size_t)kBQ * (DP + 8);
+  return tiles > red ? tiles : red;
+}
+
+// CTAs (a cluster) per item of a pass: the least power of two up to
+// kMaxSplit whose share of the longest item (`most` steps) is no longer than
+// an even share of all `total` steps over the card's CTA slots (SMs x
+// `minb`), so that no CTA outlasts the rest.
+// kernels/flash_attention.py::bwd_plan computes the same.
+int choose_split(long long total, int most, int minb, int n_sm) {
+  int s = 1;
+  while (s < kMaxSplit && (long long)((most + s - 1) / s) * n_sm * minb > total)
+    s *= 2;
+  return s;
+}
+
+template <typename Kernel, typename... Args>
+cudaError_t launch_cluster(Kernel kernel, unsigned grid, int split,
+                           size_t smem, cudaStream_t stream, Args... args) {
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return e;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(grid);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = (unsigned)split;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  e = cudaLaunchKernelEx(&cfg, kernel, args...);
+  if (e != cudaSuccess) return e;
+  return cudaGetLastError();
 }
 
 template <typename T, int DP>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* o,
                    const void* dout, const float* lse, float* delta, void* dq,
-                   void* dk, void* dv, const Params& p, cudaStream_t stream) {
+                   void* dk, void* dv, Params p, cudaStream_t stream) {
   const T* q_ = static_cast<const T*>(q);
   const T* k_ = static_cast<const T*>(k);
   const T* v_ = static_cast<const T*>(v);
   const T* do_ = static_cast<const T*>(dout);
 
   const long long rows = (long long)p.B * p.Tq * p.KVH * p.G;
-  const long long nb = (rows + kThreads / 32 - 1) / (kThreads / 32);
-  bwd_preprocess<T><<<(unsigned)nb, kThreads, 0, stream>>>(
+  const long long nb = (rows + kPreThreads / 32 - 1) / (kPreThreads / 32);
+  bwd_preprocess<T><<<(unsigned)nb, kPreThreads, 0, stream>>>(
       static_cast<const T*>(o), do_, delta, rows, p.D);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
 
-  const size_t tiles = (size_t)(kRows + kBlockK) * 2 * (DP + 1);
-  const size_t smem_kv =
-      sizeof(float) * (tiles + 2 * (size_t)kRows * (kBlockK + 1) + 2 * kRows);
-  const size_t smem_q =
-      sizeof(float) * (tiles + (size_t)kRows * (kBlockK + 1) + 2 * kRows);
-  // above 48 KB only after opting in (per device, so on every launch)
-  e = cudaFuncSetAttribute(bwd_dkdv<T, DP>,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           (int)smem_kv);
+  int dev = 0, n_sm = 0;
+  e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return e;
-  e = cudaFuncSetAttribute(bwd_dq<T, DP>,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           (int)smem_q);
+  e = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return e;
+  const int BH = p.B * p.KVH;
+
+  constexpr int MINB = Tiles<T, DP>::MINB;
+  const int nkt = (p.Tk + kBK - 1) / kBK;
+  int most = 0;
+  long long total = 0;
+  for (int kt = 0; kt < nkt; ++kt) {
+    int lo, hi;
+    dkdv_tiles(p, kt * kBK, Tiles<T, DP>::BR, lo, hi);
+    most = std::max(most, hi - lo);
+    total += (long long)(hi - lo) * BH;
+  }
+  Params pk = p;
+  pk.split = choose_split(total, most, MINB, n_sm);
+  e = launch_cluster(bwd_dkdv<T, DP>, (unsigned)(nkt * BH * pk.split),
+                     pk.split, smem_dkdv<T, DP>(), stream, q_, k_, v_, do_,
+                     lse, static_cast<const float*>(delta),
+                     static_cast<T*>(dk), static_cast<T*>(dv), pk);
   if (e != cudaSuccess) return e;
 
-  const dim3 grid_kv((p.Tk + kBlockK - 1) / kBlockK, p.KVH, p.B);
-  bwd_dkdv<T, DP><<<grid_kv, kThreads, smem_kv, stream>>>(
-      q_, k_, v_, do_, lse, delta, static_cast<T*>(dk), static_cast<T*>(dv),
-      p);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return e;
-
-  const int bq = kRows / p.G;
-  const dim3 grid_q((p.Tq + bq - 1) / bq, p.KVH, p.B);
-  bwd_dq<T, DP><<<grid_q, kThreads, smem_q, stream>>>(
-      q_, k_, v_, do_, lse, delta, static_cast<T*>(dq), p);
-  return cudaGetLastError();
+  const int nr = p.Tq * p.G, nqt = (nr + kBQ - 1) / kBQ;
+  most = 0;
+  total = 0;
+  for (int qt = 0; qt < nqt; ++qt) {
+    int lo, hi;
+    dq_tiles(p, qt * kBQ, std::min(qt * kBQ + kBQ, nr), Tiles<T, DP>::BKQ, lo,
+             hi);
+    most = std::max(most, hi - lo);
+    total += (long long)(hi - lo) * BH;
+  }
+  Params pq = p;
+  pq.split = choose_split(total, most, MINB, n_sm);
+  return launch_cluster(bwd_dq<T, DP>, (unsigned)(nqt * BH * pq.split),
+                        pq.split, smem_dq<T, DP>(), stream, q_, k_, v_, do_,
+                        lse, static_cast<const float*>(delta),
+                        static_cast<T*>(dq), pq);
 }
 
 template <typename T>
@@ -425,25 +906,32 @@ cudaError_t dispatch_d(const void* q, const void* k, const void* v,
   return launch<T, 128>(q, k, v, o, dout, lse, delta, dq, dk, dv, p, s);
 }
 
+bool aligned16(const void* x) { return ((uintptr_t)x & 15) == 0; }
+
 }  // namespace
 
 // Plain C entry point (loaded with ctypes).  dtype: 0 = fp32, 1 = bf16.
 // lse: the forward's fp32 row log-sum-exp; delta: fp32 scratch of the same
-// (B, Tq, KVH, G) shape.  Three launches on `stream`: delta, dK/dV, dQ.
-// Returns the first failing cudaError_t (0 = cudaSuccess); shapes the kernel
-// does not take return cudaErrorInvalidValue without launching.
+// (B, Tq, KVH, G) shape.  Three kernels on `stream`: delta, then dK/dV and
+// dQ, each a cluster launch.  Returns the first failing cudaError_t (0 =
+// cudaSuccess); shapes the kernel does not take return
+// cudaErrorInvalidValue without launching.
 extern "C" int repro_flash_attention_bwd(
     const void* q, const void* k, const void* v, const void* o,
     const void* dout, const void* lse, void* delta, void* dq, void* dk,
     void* dv, int dtype, int B, int Tq, int Tk, int KVH, int G, int D,
     int causal, int has_window, int window, int has_prefix, int prefix_len,
     int has_cap, float cap, float scale, void* stream) {
-  if (B < 1 || Tq < 1 || Tk < 1 || KVH < 1 || G < 1 || G > kRows || D < 1 ||
-      D > 128 || KVH > 65535 || B > 65535 || (dtype != 0 && dtype != 1))
+  if (B < 1 || Tq < 1 || Tk < 1 || KVH < 1 || G < 1 || G > 64 || D < 1 ||
+      D > 128 || (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
-  const Params p{B,          Tq,     Tk,         KVH,     G,   D,     causal,
-                 has_window, window, has_prefix, prefix_len, has_cap, cap,
-                 scale};
+  const size_t row_bytes = (size_t)D * (dtype == 0 ? 4 : 2);
+  const int vec = row_bytes % 16 == 0 && aligned16(q) && aligned16(k) &&
+                  aligned16(v) && aligned16(dout);
+  const Params p{B,       Tq,         Tk,     KVH,        G,
+                 D,       causal,     has_window, window, has_prefix,
+                 prefix_len, has_cap, cap,    scale,      vec,
+                 1};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* l = static_cast<const float*>(lse);
   float* dl = static_cast<float*>(delta);

@@ -13,6 +13,7 @@ two as a ``torch.autograd.Function``.  The kernels' plain version is
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 
 import torch
 
@@ -27,6 +28,103 @@ _BWD_ARGTYPES = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 13
 MAX_HEAD_DIM = 256
 MAX_BWD_HEAD_DIM = 128  # the backward's K, V, Q and dO tiles fit shared memory
 MAX_GROUP = 64          # query heads per KV head: one CTA holds them all
+# the backward's work split (csrc/flash_attention_bwd.cu): keys per dK/dV
+# CTA, query rows per dQ CTA, the largest cluster
+BWD_KEYS, BWD_ROWS, BWD_MAX_SPLIT = 64, 64, 8
+H100_SMS = 132
+
+
+def _bwd_tiles(D: int, dtype: torch.dtype) -> tuple[int, int, int]:
+    """(query rows per dK/dV step, keys per dQ step, CTAs an SM): the
+    kernel's ``Tiles``."""
+    br = 32 if D <= 64 or dtype == torch.bfloat16 else 16
+    return br, 32, 3 if D <= 64 else 1
+
+
+@dataclasses.dataclass(frozen=True)
+class BwdPlan:
+    """How the backward kernel splits its work for one (batch, kv head).
+
+    ``dkdv``: (key tile, cluster rank, first row, end row) per dK/dV CTA in
+    launch order: the CTA sums keys [64 tile, 64 tile + 64) against query
+    rows [first, end) (a row is ``t * G + g``).  ``dq``: (query tile,
+    cluster rank, first key, end key) per dQ CTA in launch order, for rows
+    [64 tile, 64 tile + 64).  A cluster's CTAs split one tile's range and
+    sum their partial gradients in rank order.  Rows and keys past the
+    tensors' ends, and pairs the mask hides, are masked in the kernel.
+    """
+    split_dkdv: int
+    split_dq: int
+    dkdv: tuple[tuple[int, int, int, int], ...]
+    dq: tuple[tuple[int, int, int, int], ...]
+
+
+def _split(total: int, most: int, minb: int, n_sm: int) -> int:
+    s = 1
+    while s < BWD_MAX_SPLIT and -(-most // s) * n_sm * minb > total:
+        s *= 2
+    return s
+
+
+def _share(lo: int, hi: int, split: int) -> list[tuple[int, int]]:
+    chunk = -(-(hi - lo) // split)
+    out = []
+    for rank in range(split):
+        first = min(hi, lo + rank * chunk)
+        out.append((first, min(hi, first + chunk)))
+    return out
+
+
+def bwd_plan(B: int, Tq: int, Tk: int, KVH: int, G: int, D: int, *,
+             causal: bool = True, window: int | None = None,
+             prefix_len: int | None = None, dtype: torch.dtype = torch.float32,
+             n_sm: int = H100_SMS) -> BwdPlan:
+    """The backward kernel's work split, computed as ``dkdv_tiles``,
+    ``dq_tiles``, ``share`` and ``choose_split`` in
+    ``csrc/flash_attention_bwd.cu`` compute it on the card (the CPU tests
+    check that it covers every visible pair once)."""
+    br, bkq, minb = _bwd_tiles(D, dtype)
+    n_kt = -(-Tk // BWD_KEYS)
+    nr = Tq * G
+    n_qt = -(-nr // BWD_ROWS)
+
+    def dkdv_tiles(kt: int) -> tuple[int, int]:
+        k0 = kt * BWD_KEYS
+        kmax = min(k0 + BWD_KEYS, Tk) - 1
+        qlo, qhi = 0, Tq
+        if causal and not (prefix_len is not None and k0 < prefix_len):
+            qlo = k0
+        if window is not None:
+            qhi = min(qhi, kmax + window)
+        if qlo >= qhi:
+            return 0, 0
+        return qlo * G // br, -(-qhi * G // br)
+
+    def dq_tiles(qt: int) -> tuple[int, int]:
+        r0, r1 = qt * BWD_ROWS, min(qt * BWD_ROWS + BWD_ROWS, nr)
+        khi = Tk
+        if causal:
+            lim = (r1 - 1) // G + 1
+            if prefix_len is not None:
+                lim = max(lim, prefix_len)
+            khi = min(khi, lim)
+        klo = max(0, r0 // G - window + 1) if window is not None else 0
+        return klo // bkq, (-(-khi // bkq) if klo < khi else klo // bkq)
+
+    kv_spans = [dkdv_tiles(kt) for kt in range(n_kt)]
+    split_kv = _split(sum(hi - lo for lo, hi in kv_spans) * B * KVH,
+                      max(hi - lo for lo, hi in kv_spans), minb, n_sm)
+    dkdv = tuple((kt, rank, first * br, end * br)
+                 for kt, (lo, hi) in enumerate(kv_spans)
+                 for rank, (first, end) in enumerate(_share(lo, hi, split_kv)))
+    order = range(n_qt - 1, -1, -1) if causal else range(n_qt)
+    q_spans = {qt: dq_tiles(qt) for qt in order}
+    split_q = _split(sum(hi - lo for lo, hi in q_spans.values()) * B * KVH,
+                     max(hi - lo for lo, hi in q_spans.values()), minb, n_sm)
+    dq = tuple((qt, rank, first * bkq, end * bkq)
+               for qt, (lo, hi) in q_spans.items()
+               for rank, (first, end) in enumerate(_share(lo, hi, split_q)))
+    return BwdPlan(split_kv, split_q, dkdv, dq)
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
@@ -119,7 +217,8 @@ def flash_attention_bwd_cuda(
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(dq, dk, dv) from the backward kernel, on PyTorch's current stream.
 
-    One call launches three kernels (delta = rowsum(dO * O), dK/dV, dQ) and
+    One call launches three kernels (delta = rowsum(dO * O), then dK/dV
+    and dQ, each a cluster launch split as :func:`bwd_plan` says) and
     counts once in ``flash_attention_bwd_cuda.launches``.  Raises on inputs
     the kernel does not take (head_dim above 128) and when a
     launch is refused.

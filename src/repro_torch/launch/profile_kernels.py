@@ -1,0 +1,136 @@
+"""Time the training path's two kernels against the PyTorch call that
+computes the same function, on the card:
+
+  PYTHONPATH=src python -m repro_torch.launch.profile_kernels [--label L]
+
+* the flash-attention backward at the smollm-360m training shape (B=2,
+  T=512, KVH=5, G=3, D=64, fp32, causal) and at paper-7b's heads (2, 256,
+  256, 32, 1, 128, bf16), against SDPA's backward;
+* ``chunk_combine`` at the largest merge of the training phase ((3,
+  13426888) bf16, every row seg=1 acc=1, in place) against in-place
+  ``torch.add``.
+
+Each is timed three ways: CUDA events around 20 back-to-back calls, the
+device time of each kernel from ``torch.profiler``, and the host's time per
+call while the card is kept busy.  It uses only the wrappers' public
+signatures, so the same file times an older checkout's package when that
+checkout's ``src`` comes first on ``PYTHONPATH`` (run it by path then).
+Prints one JSON line, with the card's name and power limit.  Needs a CUDA
+device.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import time
+
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+TRAIN_SHAPE = (2, 512, 512, 5, 3, 64)
+PAPER_7B_SHAPE = (2, 256, 256, 32, 1, 128)
+LARGEST_MERGE = (3, 13426888)
+
+
+def events_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, calls: int = 10) -> dict[str, float]:
+    """Mean device ms per call of each kernel ``fn`` launches, by name."""
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = getattr(e, "self_cuda_time_total", 0.0)
+        if us > 0:
+            out[e.key[:80]] = us / calls / 1e3
+    return out
+
+
+def host_ms(fn, calls: int = 20) -> float:
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    t = (time.perf_counter() - t0) / calls * 1e3
+    torch.cuda.synchronize()
+    return t
+
+
+def three_ways(fn) -> dict:
+    return dict(events_ms=events_ms(fn), device_ms=device_ms(fn), host_ms=host_ms(fn))
+
+
+def attention_backward(shape, dtype, gen) -> dict:
+    from repro_torch.kernels.flash_attention import flash_attention_bwd_cuda, flash_attention_cuda
+    B, Tq, Tk, KVH, G, D = shape
+    q, do = (torch.randn(B, Tq, KVH, G, D, device="cuda", generator=gen).to(dtype)
+             for _ in range(2))
+    k, v = (torch.randn(B, Tk, KVH, D, device="cuda", generator=gen).to(dtype)
+            for _ in range(2))
+    lse = torch.empty(B, Tq, KVH, G, device="cuda")
+    out = flash_attention_cuda(q, k, v, lse=lse)
+    qr, kr, vr = (t.detach().requires_grad_() for t in (q, k, v))
+    sdpa = torch.nn.functional.scaled_dot_product_attention(
+        qr.reshape(B, Tq, KVH * G, D).transpose(1, 2), kr.transpose(1, 2),
+        vr.transpose(1, 2), is_causal=True, enable_gqa=True)
+    dos = do.reshape(B, Tq, KVH * G, D).transpose(1, 2)
+    kernel = lambda: flash_attention_bwd_cuda(q, k, v, out, do, lse)
+    library = lambda: torch.autograd.grad(sdpa, (qr, kr, vr), dos, retain_graph=True)
+    return dict(shape=shape, dtype=str(dtype)[6:], kernel=three_ways(kernel),
+                sdpa_backward=three_ways(library), kernel_again=events_ms(kernel))
+
+
+def chunk_combine(gen) -> dict:
+    from repro_torch.kernels.chunk_combine import chunk_combine_cuda
+    rows, M = LARGEST_MERGE
+    local = torch.randn(rows, M, device="cuda", generator=gen).to(torch.bfloat16)
+    recv = torch.randn(rows, M, device="cuda", generator=gen).to(torch.bfloat16)
+    seg = acc = [1] * rows
+    kernel = lambda: chunk_combine_cuda(local, recv, seg, acc, out=local)
+    library = lambda: torch.add(local, recv, out=local)
+    return dict(shape=LARGEST_MERGE, kernel=three_ways(kernel), torch_add=three_ways(library),
+                kernel_again=events_ms(kernel), torch_add_again=events_ms(library))
+
+
+def main(argv=None) -> dict:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--label", default="")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_kernels: needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True, text=True,
+                          check=True).stdout.strip().splitlines()[0]
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    res = dict(label=args.label, card=card,
+               backward_train=attention_backward(TRAIN_SHAPE, torch.float32, gen),
+               backward_paper_7b=attention_backward(PAPER_7B_SHAPE, torch.bfloat16, gen),
+               chunk_combine=chunk_combine(gen))
+    print(json.dumps(res))
+    return res
+
+
+if __name__ == "__main__":
+    main()

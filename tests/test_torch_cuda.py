@@ -49,12 +49,20 @@ def test_flash_attention_kernel_matches_plain(cuda_device, shape, dtype, kw):
     torch.testing.assert_close(out.float(), want.float(), rtol=0, atol=atol)
 
 
+# the largest merge of the smollm-360m training phase (chip_smoke.py's
+# largest_merges(): 3 rows of a whole-buffer step of the embedding's leaf)
+LARGEST_MERGE = (3, 13426888)
+
+
 @pytest.mark.requires_cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("c,m,offset", [(1, 1, 0), (4, 513, 1), (12, 700, 0), (3, 7, 1)])
+@pytest.mark.parametrize("c,m,offset", [(1, 1, 0), (4, 513, 1), (12, 700, 0), (3, 7, 1),
+                                        (1024, 37, 0), (1024, 130, 1),
+                                        (*LARGEST_MERGE, 0), (*LARGEST_MERGE, 1)])
 def test_chunk_combine_kernel_matches_plain(cuda_device, dtype, c, m, offset):
     """Exact: the kernel and the plain version both add in fp32 and round
-    once.  ``offset`` starts every row off the 16-byte grid."""
+    once.  ``offset`` starts every row off the 16-byte grid; C = 1024 is
+    the most rows the kernel's masks take."""
     rng = np.random.default_rng(c * m)
     flat = torch.from_numpy(rng.standard_normal(2 * c * m + offset, np.float32))
     flat = flat.to(cuda_device, dtype)
@@ -70,14 +78,33 @@ def test_chunk_combine_kernel_matches_plain(cuda_device, dtype, c, m, offset):
     torch.testing.assert_close(out, want, rtol=0, atol=0)
 
 
+def _bwd_cases():
+    """(shape, dtype, kw) for the backward: the main paths' shapes, then
+    lengths at and around the 64-row / 64-key tiles, ragged Tq != Tk, every
+    head_dim tile and group size up to 64, each mask kind, both dtypes."""
+    cases = [((2, 512, 512, 5, 3, 64), torch.float32, {}),
+             ((2, 256, 256, 32, 1, 128), torch.bfloat16, {}),
+             ((1, 96, 160, 2, 2, 20), torch.float32, dict(causal=False)),
+             ((1, 128, 128, 2, 1, 16), torch.float32, dict(window=32, logit_cap=50.0)),
+             ((1, 128, 128, 2, 1, 16), torch.float32, dict(prefix_len=8))]
+    masks = [{}, dict(causal=False), dict(window=16), dict(prefix_len=8),
+             dict(logit_cap=20.0)]
+    for i, t in enumerate((1, 63, 64, 65, 129)):
+        for dtype in (torch.float32, torch.bfloat16):
+            cases.append(((1, t, t, 2, 3, 64), dtype, masks[i % len(masks)]))
+    for tq, tk in ((65, 129), (129, 63), (1, 70)):
+        for kw in ({}, dict(causal=False)):
+            cases.append(((2, tq, tk, 1, 2, 20), torch.float32, kw))
+    for D in (16, 20, 64, 128):
+        for G in (1, 3, 16, 64):
+            for dtype in (torch.float32, torch.bfloat16):
+                kw = masks[(D + G) % len(masks)]
+                cases.append(((1, 33 if G >= 16 else 97, 97, 2, G, D), dtype, kw))
+    return cases
+
+
 @pytest.mark.requires_cuda
-@pytest.mark.parametrize("shape,dtype,kw", [
-    ((2, 512, 512, 5, 3, 64), torch.float32, {}),
-    ((2, 256, 256, 32, 1, 128), torch.bfloat16, {}),
-    ((1, 96, 160, 2, 2, 20), torch.float32, dict(causal=False)),
-    ((1, 128, 128, 2, 1, 16), torch.float32, dict(window=32, logit_cap=50.0)),
-    ((1, 128, 128, 2, 1, 16), torch.float32, dict(prefix_len=8)),
-])
+@pytest.mark.parametrize("shape,dtype,kw", _bwd_cases())
 def test_flash_attention_backward_matches_plain(cuda_device, shape, dtype, kw):
     """Gradients through ``ops.flash_attention`` (the backward kernel)
     against autograd through the plain version.  Tolerance relative to
@@ -98,8 +125,34 @@ def test_flash_attention_backward_matches_plain(cuda_device, shape, dtype, kw):
     torch.cuda.synchronize()
     rtol = 3e-2 if dtype == torch.bfloat16 else 1e-3
     for a, b in zip(grads["auto"], grads["reference"]):
+        assert torch.isfinite(a).all()
         scale = max(1.0, b.float().abs().max().item())
         assert (a.float() - b.float()).abs().max().item() <= rtol * scale
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("shape,dtype", [((2, 512, 512, 5, 3, 64), torch.float32),
+                                         ((2, 256, 256, 32, 1, 128), torch.bfloat16),
+                                         ((1, 200, 200, 2, 16, 20), torch.float32)])
+def test_flash_attention_backward_is_deterministic(cuda_device, shape, dtype):
+    """No atomics on gradients: two calls of the backward kernel on the same
+    inputs give identical bits, and so does the autograd path through
+    ``ops.flash_attention``."""
+    from repro_torch.kernels.flash_attention import flash_attention_bwd_cuda, flash_attention_cuda
+    B, tq, tk, KVH, G, D = shape
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    q, do = (torch.randn(B, tq, KVH, G, D, device=cuda_device, generator=gen).to(dtype)
+             for _ in range(2))
+    k, v = (torch.randn(B, tk, KVH, D, device=cuda_device, generator=gen).to(dtype)
+            for _ in range(2))
+    lse = torch.empty(B, tq, KVH, G, device=cuda_device)
+    out = flash_attention_cuda(q, k, v, lse=lse)
+    first = flash_attention_bwd_cuda(q, k, v, out, do, lse)
+    second = flash_attention_bwd_cuda(q, k, v, out, do, lse)
+    qa, ka, va = (t.detach().requires_grad_() for t in (q, k, v))
+    via = torch.autograd.grad(ops.flash_attention(qa, ka, va), (qa, ka, va), do)
+    for a, b, c in zip(first, second, via):
+        assert torch.equal(a, b) and torch.equal(a, c)
 
 
 def _scan_inputs(shapes, seed, device):

@@ -15,7 +15,8 @@ from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro.models.layers import blockwise_attention as jax_blockwise
 from repro_torch.kernels import ops, ref
-from repro_torch.kernels.flash_attention import flash_attention_cuda
+from repro_torch.kernels.flash_attention import (BWD_KEYS, BWD_MAX_SPLIT, BWD_ROWS, bwd_plan,
+                                                 flash_attention_cuda)
 from repro_torch.models.layers import blockwise_attention
 
 
@@ -179,3 +180,59 @@ def test_backward_refuses_decode_arguments():
                               k_valid_len=6)
     out.sum().backward()
     assert torch.isfinite(qc.grad).all()
+
+
+_PLAN_MASKS = [dict(), dict(causal=False), dict(window=16), dict(prefix_len=8),
+               dict(window=32, causal=False), dict(window=40, prefix_len=24)]
+
+
+@pytest.mark.parametrize("kw", _PLAN_MASKS, ids=lambda kw: "-".join(f"{k}={v}" for k, v in kw.items()) or "causal")
+@pytest.mark.parametrize("tq,tk,G,D,dtype,n_sm", [
+    (512, 512, 3, 64, torch.float32, 132),       # the training shape
+    (1, 1, 1, 16, torch.float32, 132), (63, 63, 2, 20, torch.float32, 132),
+    (65, 65, 1, 128, torch.float32, 1000), (129, 129, 16, 64, torch.float32, 1000),
+    (96, 160, 2, 20, torch.bfloat16, 1000), (160, 96, 4, 128, torch.bfloat16, 132),
+    (70, 70, 64, 16, torch.float32, 1000),
+])
+def test_backward_plan_covers_every_visible_pair_once(tq, tk, G, D, dtype, n_sm, kw):
+    """The backward kernel's work split (``bwd_plan``, the same arithmetic
+    as the kernel's): the dK/dV CTAs and, separately, the dQ CTAs meet every
+    (query row, key) pair that ``ref.attention_mask`` leaves visible exactly
+    once, for every mask kind, ragged lengths and cluster sizes 1 to 8."""
+    plan = bwd_plan(2, tq, tk, 5, G, D, dtype=dtype, n_sm=n_sm, **kw)
+    mask = ref.attention_mask(torch.arange(tq), torch.arange(tk), causal=kw.get("causal", True),
+                              window=kw.get("window"), prefix_len=kw.get("prefix_len"),
+                              k_valid_len=None, k_len=tk).numpy()
+    visible = np.repeat(np.broadcast_to(mask, (tq, tk)), G, axis=0)           # row t * G + g -> position t
+    nr = tq * G
+    assert plan.split_dkdv in (1, 2, 4, 8) and plan.split_dq in (1, 2, 4, 8)
+    assert len(plan.dkdv) == -(-tk // BWD_KEYS) * plan.split_dkdv
+    assert len(plan.dq) == -(-nr // BWD_ROWS) * plan.split_dq
+    seen = np.zeros((nr, tk), np.int64)
+    for kt, rank, first, end in plan.dkdv:
+        assert 0 <= rank < plan.split_dkdv and 0 <= first <= end
+        seen[first:min(end, nr), kt * BWD_KEYS:(kt + 1) * BWD_KEYS] += 1
+    assert (seen[visible] == 1).all()
+    seen[:] = 0
+    for qt, rank, lo, hi in plan.dq:
+        assert 0 <= rank < plan.split_dq and 0 <= lo <= hi
+        seen[qt * BWD_ROWS:(qt + 1) * BWD_ROWS, lo:hi] += 1
+    assert (seen[visible] == 1).all()
+
+
+def test_backward_plan_fills_the_card_longest_first():
+    """At the training shape (B=2, T=512, KVH=5, G=3, D=64, causal) the
+    dK/dV pass runs 640 CTAs in clusters of 8 and the dQ pass 960 in
+    clusters of 4, both starting with their longest CTAs, and no CTA has
+    more 32-wide steps than an even share of the pass over 3 CTAs on each
+    of 132 SMs unless its cluster is at the largest size, 8; at paper-7b's
+    heads in bf16 the passes need no split."""
+    plan = bwd_plan(2, 512, 512, 5, 3, 64)
+    assert (plan.split_dkdv, len(plan.dkdv) * 2 * 5) == (8, 640)
+    assert (plan.split_dq, len(plan.dq) * 2 * 5) == (4, 960)
+    for split, steps in ((plan.split_dkdv, [(end - first) // 32 for _, _, first, end in plan.dkdv]),
+                         (plan.split_dq, [(hi - lo) // 32 for _, _, lo, hi in plan.dq])):
+        assert steps[0] == max(steps)
+        assert max(steps) <= sum(steps) * 10 / (3 * 132) or split == BWD_MAX_SPLIT
+    plan = bwd_plan(2, 256, 256, 32, 1, 128, dtype=torch.bfloat16)
+    assert (plan.split_dkdv, plan.split_dq) == (1, 1)
