@@ -262,6 +262,18 @@ def check_flash_attention(gen) -> dict:
         ("glm4-heads", (1, 64, 64, 2, 16, 128), torch.bfloat16, {}),
         ("recurrentgemma-local", RG_ATTN, torch.float32, dict(window=RG_WINDOW)),
         ("D=256 ragged", (1, 70, 70, 1, 16, 256), torch.float32, dict(window=33)),
+        # the tiles' edges: one position a CTA (G = 64), hubert's head_dim 80,
+        # lengths off every row and key tile, window and prefix at both tile
+        # shapes, bf16 at head_dim 256
+        ("G=64", (2, 37, 53, 2, 64, 32), torch.float32, {}),
+        ("G=64 bf16", (1, 19, 19, 1, 64, 128), torch.bfloat16, dict(window=7)),
+        ("D=80", (2, 100, 100, 2, 4, 80), torch.float32, dict(causal=False)),
+        ("D=80 bf16", (2, 100, 100, 2, 4, 80), torch.bfloat16, {}),
+        ("off the tiles", (1, 97, 131, 3, 3, 64), torch.float32, dict(window=50)),
+        ("off the tiles", (2, 131, 97, 1, 5, 128), torch.float32, dict(prefix_len=40)),
+        ("D=256 window+prefix", (1, 300, 300, 1, 16, 256), torch.float32,
+         dict(window=64, prefix_len=20)),
+        ("D=256 bf16", (1, 300, 300, 1, 16, 256), torch.bfloat16, dict(window=200)),
     ]
     smollm_err = rg_err = None
     for label, shape, dtype, kw in cases:
@@ -283,29 +295,69 @@ def check_flash_attention(gen) -> dict:
         if label == "recurrentgemma-local":
             rg_err = err
         del q, k, v, out, want
+
+    # two calls on the same inputs give the same bits, output and lse (no
+    # cross-CTA sums)
+    for shape, dtype, kw in (((BATCH, PROMPT, PROMPT, 5, 3, 64), torch.float32, {}),
+                             ((1, 300, 300, 1, 16, 256), torch.float32, dict(window=64))):
+        q, k, v = inputs(*shape, dtype)
+        lse = [torch.empty(shape[0], shape[1], shape[3], shape[4], device="cuda")
+               for _ in range(2)]
+        outs = [flash_attention_cuda(q, k, v, lse=lse[i], **kw) for i in range(2)]
+        if not (torch.equal(outs[0], outs[1]) and torch.equal(lse[0], lse[1])):
+            raise RuntimeError(f"flash_attention {shape}: two calls on the same inputs differ")
+    log("kernels", "flash_attention: two calls on the same inputs give the same output "
+        "and lse, bit for bit")
+    del q, k, v, outs, lse
+
     rg = time_local_attention(gen, ref, flash_attention_cuda)
 
-    # timing at the serving prefill shape (one layer's attention)
-    q, k, v = inputs(BATCH, PROMPT, PROMPT, 5, 3, 64, torch.float32)
-    B, T, KVH, G, D = q.shape
-    qs = q.reshape(B, T, KVH * G, D).transpose(1, 2)        # (B, H, T, D)
-    ks, vs = k.transpose(1, 2), v.transpose(1, 2)            # (B, KVH, T, D)
-    sdpa = torch.nn.functional.scaled_dot_product_attention
-    got = sdpa(qs, ks, vs, is_causal=True, enable_gqa=True)
-    lib_err = (got.transpose(1, 2).reshape(q.shape)
-               - ref.reference_attention(q, k, v)).abs().max().item()
-    t_kernel = time_ms(lambda: flash_attention_cuda(q, k, v))
-    t_plain = time_ms(lambda: ref.reference_attention(q, k, v))
-    t_lib = time_ms(lambda: sdpa(qs, ks, vs, is_causal=True, enable_gqa=True))
-    t_kernel2 = time_ms(lambda: flash_attention_cuda(q, k, v))
-    bound = attention_bound(q, k, ref, {})
-    log("kernels", f"flash_attention smollm-prefill fp32: kernel {t_kernel:.4f} / "
-        f"{t_kernel2:.4f} ms, plain {t_plain:.4f} ms, sdpa {t_lib:.4f} ms "
-        f"(sdpa max_abs_err {lib_err:.2e}), {bound_text(bound)}")
+    # timing at the serving prefill shape (one layer's attention), fp32, and
+    # at paper-7b's heads in bf16, each against SDPA (causal, GQA)
+    timed = {}
+    for label, shape, dtype in (("smollm-prefill", (BATCH, PROMPT, PROMPT, 5, 3, 64),
+                                 torch.float32),
+                                ("paper-7b-heads", (2, 256, 256, 32, 1, 128), torch.bfloat16)):
+        q, k, v = inputs(*shape, dtype)
+        timed[label] = time_forward(q, k, v, ref, flash_attention_cuda, {}, iters=20)
+        t = timed[label]
+        log("kernels", f"flash_attention {label} {shape} {str(dtype)[6:]}: kernel "
+            f"{t['ms']:.4f} / {t['ms_again']:.4f} ms, plain {t['plain_ms']:.4f} ms, sdpa "
+            f"{t['library_ms']:.4f} ms (sdpa max_abs_err vs the plain version "
+            f"{t['library_err']:.2e}), {bound_text(t)}")
+        log("kernels", f"flash_attention {label}, device time per call (torch.profiler): "
+            f"kernel {fmt_ms(t['device_ms'])}, sdpa's kernels {fmt_ms(t['library_device_ms'])}")
+    main = timed["smollm-prefill"]
     return dict(name="flash_attention", **KERNELS["flash_attention"],
-                launches=0, max_abs_err=smollm_err, ms=min(t_kernel, t_kernel2),
-                plain_ms=t_plain, **bound, library_ms=t_lib, recurrentgemma=dict(shape=RG_ATTN, max_abs_err=rg_err,
-                                                      **rg))
+                launches=0, max_abs_err=smollm_err, **main,
+                recurrentgemma=dict(shape=RG_ATTN, max_abs_err=rg_err, **rg),
+                paper_7b_bf16=timed["paper-7b-heads"])
+
+
+def fmt_ms(t: float | None) -> str:
+    return "not measured (no device time in the profile)" if t is None else f"{t:.4f} ms"
+
+
+def time_forward(q, k, v, ref, flash_attention_cuda, kw, iters, plain_iters=None) -> dict:
+    """One attention forward at (q, k, v): the kernel (twice, around the
+    others), the plain version and SDPA (causal with GQA; a window as a
+    boolean mask) by CUDA events, the kernel's and SDPA's device time per
+    call (torch.profiler), and the bound."""
+    from repro_torch.launch.profile_kernels import device_ms, sdpa_forward
+    library = sdpa_forward(q, k, v, kw.get("window"))
+    kernel = lambda: flash_attention_cuda(q, k, v, **kw)
+    lib_err = (library().transpose(1, 2).reshape(q.shape).float()
+               - ref.reference_attention(q, k, v, **kw).float()).abs().max().item()
+    t_kernel = time_ms(kernel, iters=iters)
+    t_plain = time_ms(lambda: ref.reference_attention(q, k, v, **kw),
+                      iters=plain_iters or iters, warmup=1 if plain_iters else 3)
+    t_lib = time_ms(library, iters=iters)
+    t_kernel2 = time_ms(kernel, iters=iters)
+    dev = sum(device_ms(kernel).values()) or None
+    lib_dev = sum(device_ms(library).values()) or None
+    return dict(ms=min(t_kernel, t_kernel2), ms_again=max(t_kernel, t_kernel2),
+                plain_ms=t_plain, **attention_bound(q, k, ref, kw), library_ms=t_lib,
+                library_err=lib_err, device_ms=dev, library_device_ms=lib_dev)
 
 
 def time_local_attention(gen, ref, flash_attention_cuda) -> dict:
@@ -316,26 +368,16 @@ def time_local_attention(gen, ref, flash_attention_cuda) -> dict:
     q = torch.randn(B, T, KVH, G, D, device="cuda", generator=gen)
     k = torch.randn(B, T, KVH, D, device="cuda", generator=gen)
     v = torch.randn(B, T, KVH, D, device="cuda", generator=gen)
-    kw = dict(window=RG_WINDOW)
-    pos = torch.arange(T, device="cuda")
-    mask = (pos[None, :] <= pos[:, None]) & (pos[:, None] - pos[None, :] < RG_WINDOW)
-    qs = q.reshape(B, T, KVH * G, D).transpose(1, 2)
-    ks, vs = k.transpose(1, 2), v.transpose(1, 2)
-    sdpa = torch.nn.functional.scaled_dot_product_attention
-    got = sdpa(qs, ks, vs, attn_mask=mask, enable_gqa=True)
-    lib_err = (got.transpose(1, 2).reshape(q.shape)
-               - flash_attention_cuda(q, k, v, **kw)).abs().max().item()
-    del got
-    t_kernel = time_ms(lambda: flash_attention_cuda(q, k, v, **kw), iters=5)
-    t_plain = time_ms(lambda: ref.reference_attention(q, k, v, **kw), iters=3, warmup=1)
-    t_lib = time_ms(lambda: sdpa(qs, ks, vs, attn_mask=mask, enable_gqa=True), iters=5)
-    t_kernel2 = time_ms(lambda: flash_attention_cuda(q, k, v, **kw), iters=5)
-    bound = attention_bound(q, k, ref, kw)
+    t = time_forward(q, k, v, ref, flash_attention_cuda, dict(window=RG_WINDOW), iters=5,
+                     plain_iters=3)
     log("kernels", f"flash_attention recurrentgemma-local {RG_ATTN} fp32 window "
-        f"{RG_WINDOW}: kernel {t_kernel:.4f} / {t_kernel2:.4f} ms, plain {t_plain:.4f} ms, "
-        f"sdpa (boolean mask) {t_lib:.4f} ms (its max_abs_err vs the kernel {lib_err:.2e}), "
-        f"{bound_text(bound)}")
-    return dict(ms=min(t_kernel, t_kernel2), plain_ms=t_plain, **bound, library_ms=t_lib)
+        f"{RG_WINDOW}: kernel {t['ms']:.4f} / {t['ms_again']:.4f} ms, plain {t['plain_ms']:.4f} "
+        f"ms, sdpa (boolean mask) {t['library_ms']:.4f} ms (its max_abs_err vs the plain "
+        f"version {t['library_err']:.2e}), {bound_text(t)}")
+    log("kernels", f"flash_attention recurrentgemma-local, device time per call "
+        f"(torch.profiler): kernel {fmt_ms(t['device_ms'])}, sdpa's kernels "
+        f"{fmt_ms(t['library_device_ms'])}")
+    return t
 
 
 def check_flash_attention_bwd(gen) -> dict:
@@ -699,13 +741,20 @@ def check_lru_scan(gen) -> dict:
 def check_wkv_scan(gen) -> dict:
     from repro_torch.kernels import ref
     from repro_torch.kernels.wkv_scan import wkv_scan_cuda
+    from repro_torch.launch.profile_kernels import device_ms
 
-    def inputs(B, T, H, K):
+    def inputs(B, T, H, K, hard=False):
         r, k, v = (torch.randn(B, T, H, K, device="cuda", generator=gen) for _ in range(3))
         # w = exp(-exp(dec)) as rwkv_block makes it, dec around the
-        # decay_base of -6 moved by the low-rank term
-        dec = -6.0 + 2.0 * torch.randn(B, T, H, K, device="cuda", generator=gen)
+        # decay_base of -6 moved by the low-rank term; `hard`: dec up to +3
+        # (w down to exp(-e^3) ~ 2e-9) and every fifth step's rows w = 1
+        if hard:
+            dec = torch.rand(B, T, H, K, device="cuda", generator=gen) * 12.0 - 9.0
+        else:
+            dec = -6.0 + 2.0 * torch.randn(B, T, H, K, device="cuda", generator=gen)
         w = torch.exp(-torch.exp(dec))
+        if hard:
+            w[:, 2::5] = 1.0
         u = 0.1 * torch.randn(H, K, device="cuda", generator=gen)
         s0 = torch.randn(B, H, K, K, device="cuda", generator=gen)
         return r, k, v, w, u, s0
@@ -713,23 +762,29 @@ def check_wkv_scan(gen) -> dict:
     arch, B, T, _, _ = RECURRENT["serve_rwkv6"]
     serve_shape = (B, T, 32, 64)                  # rwkv6-1.6b: d 2048 = 32 heads of 64
     worst = 0.0
-    for shape in (serve_shape, (3, 37, 5, 32), (1, 1, 2, 16), (2, 100, 3, 64)):
-        ins = inputs(*shape)
+    # B * H and T off the kernel's 16-step chunk and its CTAs per (b, h)
+    for shape, hard in ((serve_shape, False), ((3, 37, 5, 32), False), ((1, 1, 2, 16), False),
+                        ((2, 100, 3, 64), False), (serve_shape, True), ((3, 37, 5, 64), True),
+                        ((1, 77, 3, 32), True), ((5, 19, 1, 16), True)):
+        ins = inputs(*shape, hard=hard)
         got, want = wkv_scan_cuda(*ins), ref.reference_wkv(*ins)
         errs = [scan_err(g, w) for g, w in zip(got, want)]
         abs_err, err = max(e[0] for e in errs), max(e[1] for e in errs)
         worst = max(worst, err)
-        log("kernels", f"wkv_scan {shape} fp32, w = exp(-exp(dec)), nonzero s0, out and "
+        decays = ("hard decays, dec up to +3 and rows of w = 1" if hard
+                  else "w = exp(-exp(dec))")
+        log("kernels", f"wkv_scan {shape} fp32, {decays}, nonzero s0, out and "
             f"s_T: max_abs_err={abs_err:.3e}, {err:.3e} of max(1, max|value|) (tol "
             f"{SCAN_RTOL:g}) "
             f"{'ok' if err <= SCAN_RTOL else 'FAIL'}")
         if err > SCAN_RTOL:
-            raise RuntimeError(f"wkv_scan {shape}: max_err {err} > {SCAN_RTOL}")
-        if shape == serve_shape:
+            raise RuntimeError(f"wkv_scan {shape} ({decays}): max_err {err} > {SCAN_RTOL}")
+        if shape == serve_shape and not hard:
             serve_err, timed = (abs_err, err), ins
     t_kernel = time_ms(lambda: wkv_scan_cuda(*timed))
     t_plain = time_ms(lambda: ref.reference_wkv(*timed), iters=3, warmup=1)
     t_kernel2 = time_ms(lambda: wkv_scan_cuda(*timed))
+    dev = sum(device_ms(lambda: wkv_scan_cuda(*timed)).values()) or None
     B, T, H, K = serve_shape
     V = K
     # what the function needs per (b, t, h): out_t[j] = sum_k r_k S[k,j]
@@ -743,10 +798,11 @@ def check_wkv_scan(gen) -> dict:
         f"{t_kernel2:.4f} ms, plain {t_plain:.4f} ms, bound {bound:.4f} ms ({bound_by}: "
         f"{flops / 1e9:.2f} GFLOP -> {t_ops * 1e3:.4f} ms, {nbytes / 1e6:.1f} MB -> "
         f"{t_bytes * 1e3:.4f} ms), {bound / min(t_kernel, t_kernel2):.1%} of it; library: "
-        f"none ({NO_LIBRARY}); worst case err {worst:.3e}")
+        f"none ({NO_LIBRARY}); worst case err {worst:.3e}; device time per call "
+        f"(torch.profiler) {fmt_ms(dev)}")
     return dict(name="wkv_scan", **KERNELS["wkv_scan"], launches=0,
                 max_abs_err=serve_err[0], max_rel_err=serve_err[1], ms=min(t_kernel, t_kernel2), plain_ms=t_plain, bound_ms=bound,
-                bound_by=bound_by, library_ms=None, library_note=NO_LIBRARY)
+                bound_by=bound_by, library_ms=None, library_note=NO_LIBRARY, device_ms=dev)
 
 
 def serve(card: str, phase: str, arch: str, batch: int, prompt: int, context: int,

@@ -3,8 +3,8 @@
 Each source is compiled by ``nvcc`` for ``sm_90a`` into a shared library
 with a plain C interface and loaded with ``ctypes``.  Libraries go to
 ``build/repro_torch_kernels/`` at the root of the checkout, named by a hash
-of the source and the flags, so an edited source is rebuilt and an
-unchanged one is reused.  Nothing here runs at import time: a machine
+of the source, every header beside it (``csrc/*.cuh``) and the flags, so an
+edited source or header is rebuilt and an unchanged one is reused.  Nothing here runs at import time: a machine
 without ``nvcc`` can import every module of the port.
 """
 
@@ -48,14 +48,22 @@ def find_nvcc() -> str:
     return nvcc
 
 
+def library_path(name: str) -> Path:
+    """Where ``csrc/<name>.cu`` is built: named by a hash of the source, of
+    every ``csrc/*.cuh`` (any of them may be included) and of the flags."""
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
+
+
 def load_library(name: str) -> Library:
     """Build ``csrc/<name>.cu`` if needed and load it (once per process)."""
     if name in _LOADED:
         return _LOADED[name]
     src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    out = BUILD_DIR / f"lib{name}_{digest}.so"
+    out = library_path(name)
     seconds, log = 0.0, ""
     if not out.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)

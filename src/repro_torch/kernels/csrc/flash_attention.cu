@@ -9,40 +9,63 @@
 //
 // Layout (the JAX package's): q (B, Tq, KVH, G, D), k and v (B, Tk, KVH, D),
 // all contiguous, fp32 or bf16 (template), output like q.  D <= 256, G <= 64.
-//
-// What bounds it on the card: at the serving prefill shape (smollm-360m,
-// B=4, T=512, KVH=5, G=3, D=64, fp32) the causal work is ~2.0 GFLOP against
-// ~21 MB of q/k/v/o traffic, i.e. ~95 FLOP per byte, far above the H100's
-// 67 TFLOP/s / 3.35 TB/s = 20 FLOP/byte for fp32 outside the tensor cores.
-// So it is bounded by arithmetic, and the design spends its shared memory on
-// reusing operands, not on streaming:
-//   * one CTA per (batch, kv head, q tile) holds ALL G query heads of that
-//     kv head (64 rows = q positions x G), so every K/V tile it stages in
-//     shared memory feeds G heads instead of one;
-//   * the KV dimension, a sequential grid axis on the TPU, is a loop inside
-//     the CTA with the online-softmax state in registers and shared memory;
-//   * under `causal` the loop stops at the q tile's last position (or the
-//     prefix, if larger), under `window` it starts at the first key the
-//     tile's first row can see: tiles wholly masked are never loaded.
-// This first version uses fp32 FMAs on the CUDA cores (4x4 register tiles
-// over padded, bank-conflict-free shared memory); wgmma and TMA come later.
+// A "row" is one (position, query head) pair of a kv head, r = t * G + g:
+// the G heads of a kv head share its K and V, so a CTA takes a run of rows
+// of one (batch, kv head) and every K/V tile it stages feeds all of them.
 //
 // For training, the kernel also writes each row's log-sum-exp of the scaled
 // (and capped) scores, lse = m + log(l), -inf for a row that sees no key, to
 // an optional fp32 array laid out like q without D: (B, Tq, KVH, G).  The
 // backward kernel (flash_attention_bwd.cu) recomputes P = exp(S - lse) from
 // it.  Prefill passes no array and writes nothing more.
+//
+// What bounds it on the card: 4 D operations per visible (row, key) pair.
+// At the serving prefill shape (smollm-360m, B=4, T=512, KVH=5, G=3, D=64,
+// fp32) that is 2.0 GFLOP against 21 MB of q/k/v/o, and at recurrentgemma-9b's
+// local attention (B=2, T=2304, KVH=1, G=16, D=256, window 2048) 86 GFLOP
+// against 160 MB: far above the card's ridge, so bound by the tensor cores,
+// fp32-accurate work as 3xTF32 (0.0122 and 0.5208 ms).
+//
+// The design (FlashAttention-2's, on mma.sync):
+//   * Products on the tensor cores: S = Q K^T and O += P V with mma.sync,
+//     fp32 as 3xTF32 (hi/lo split, three m16n8k8 products, small terms
+//     first), bf16 as m16n8k16 with fp32 sums; P goes from the S accumulator
+//     registers straight into the A fragment of P V (hopper_mma.cuh), rounded
+//     to bf16 only there for bf16 inputs.
+//   * The online softmax in registers: each warp owns 16 rows, a thread two
+//     of them; a row's max and sum reduce over the four lanes of a quad with
+//     shuffles (the sum only once, at the end: the lanes' partial sums are
+//     rescaled alike), and the rescale is applied to the output accumulators
+//     in place.  A masked score is -inf and gives p = 0, the running max
+//     starts at -1e30, so a row that sees no key gives 0 and lse -inf.
+//   * K and V tiles asynchronous with cp.async, one buffer each, staggered:
+//     V of tile j loads while S = Q K_j^T multiplies, K of tile j + 1 while
+//     the softmax and P V_j run.  At head_dim 256 fp32 a 128-row Q tile and a
+//     double buffer of 32-key K and V tiles would need 266 KB; the staggered
+//     buffers need 200 KB, one CTA of 8 warps an SM.
+//   * Tiles (`Tiles`): 64 rows (4 warps) and 64-key tiles up to head_dim
+//     128, three or two CTAs an SM; 128 rows (8 warps) and 32-key tiles at
+//     256, so that 128 rows (8 positions of recurrentgemma's 16 heads, not
+//     the first version's 4) share every K/V tile streamed from L2.
+//   * Per tile and warp, the kernel visits only key tiles that hold a
+//     visible key for some row of the CTA, skips the products of a warp
+//     none of whose rows sees a key of the tile, and evaluates the mask pair
+//     by pair only where some pair of the warp's block is hidden
+//     (`key_tiles`, `classify`; kernels/flash_attention.py::fwd_plan computes
+//     the same, and the CPU tests check it).  CTAs go out longest first (the
+//     last query tiles under the causal mask).
+//   * No cross-CTA sum: two calls on the same inputs give the same bits.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <math.h>
+
+#include "hopper_mma.cuh"
 
 namespace {
 
-constexpr int kRows = 64;        // query rows per CTA: (position, head) pairs
-constexpr int kBlockK = 64;      // keys per KV tile
-constexpr int kThreads = 256;    // 16 x 16 threads, 4 x 4 outputs each
-constexpr float kNegInit = -1e30f;  // reference's running-max init / mask
+using namespace hopper;
+
+constexpr float kNegInit = -1e30f;  // reference's running-max init
+constexpr float kLog2e = 1.4426950408889634f;
 
 struct Params {
   int B, Tq, Tk, KVH, G, D;
@@ -54,223 +77,275 @@ struct Params {
   float scale;
   int q_offset;
   int has_kvl, k_valid_len;
+  int vec;     // rows start on the 16-byte grid: cp.async 16 bytes at a time
 };
 
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
-  return __bfloat162float(x);
+// warps of 16 query rows per CTA, keys per K/V tile, and the CTAs an SM the
+// kernel is built for; kernels/flash_attention.py::fwd_tiles mirrors it
+template <typename T, int DP>
+struct Tiles {
+  static constexpr int WARPS = DP == 256 ? 8 : 4;
+  static constexpr int BK = DP == 256 ? 32 : 64;
+  static constexpr int MINB = DP <= 64 ? 3 : (DP == 128 ? 2 : 1);
+};
+
+// ---- the per-tile plan (mirrored by flash_attention.py::fwd_plan) ----------
+
+// keys past the tensor or past the cache's fill level are never visible
+__host__ __device__ inline int key_end(const Params& p) {
+  return p.has_kvl && p.k_valid_len < p.Tk ? p.k_valid_len : p.Tk;
 }
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16(x);
+
+// Key tiles [lo, hi) (of `bk` keys) holding a visible key for some row of
+// [r0, r1): up to the last row's position (or the prefix) under the causal
+// mask, from the first row's position - window + 1 with a window.
+__host__ __device__ inline void key_tiles(const Params& p, int r0, int r1,
+                                          int bk, int& lo, int& hi) {
+  const int qa = p.q_offset + r0 / p.G, qb = p.q_offset + (r1 - 1) / p.G;
+  int khi = key_end(p);
+  if (p.causal) {
+    int lim = qb + 1;
+    if (p.has_prefix && p.prefix_len > lim) lim = p.prefix_len;
+    if (lim < khi) khi = lim;
+  }
+  int klo = 0;
+  if (p.has_window && qa - p.window + 1 > 0) klo = qa - p.window + 1;
+  lo = klo / bk;
+  hi = klo < khi ? (khi + bk - 1) / bk : lo;
+}
+
+enum { kSkip = 0, kMasked = 1, kFull = 2 };
+
+// What a warp does with key tile [k0, k0 + bk) for its rows [r0, r1) (r1
+// clipped to the last row): kSkip if no pair is visible, kFull if every
+// pair is, else kMasked.
+__host__ __device__ inline int classify(const Params& p, int r0, int r1,
+                                        int k0, int bk) {
+  if (r0 >= r1) return kSkip;
+  const int qa = p.q_offset + r0 / p.G, qb = p.q_offset + (r1 - 1) / p.G;
+  const int kb = k0 + bk - 1, kend = key_end(p);
+  const bool in_prefix = p.has_prefix && k0 < p.prefix_len;
+  if (k0 >= kend || (p.causal && k0 > qb && !in_prefix) ||
+      (p.has_window && qa - kb >= p.window))
+    return kSkip;
+  bool full = kb < kend;
+  if (p.causal) full = full && (kb <= qa || (p.has_prefix && kb < p.prefix_len));
+  if (p.has_window) full = full && (qb - k0 < p.window);
+  return full ? kFull : kMasked;
+}
+
+__device__ __forceinline__ bool visible(const Params& p, int qp, int kp,
+                                        int kend) {
+  bool ok = kp < kend;
+  if (p.causal) ok = ok && (kp <= qp || (p.has_prefix && kp < p.prefix_len));
+  if (p.has_window) ok = ok && (qp - kp < p.window);
+  return ok;
+}
+
+// element offset / D of row r (= t * G + g) of (batch b, kv head h)
+__device__ __forceinline__ size_t row_off(const Params& p, int b, int h,
+                                          int r) {
+  return (((size_t)b * p.Tq + r / p.G) * p.KVH + h) * (size_t)p.G +
+         (size_t)(r % p.G);
+}
+
+// rows r0 .. r0 + n - 1 of q into a shared tile; zero past the last row
+template <typename T, int DP, int NT>
+__device__ __forceinline__ void load_q(const Params& p, const T* q, int b,
+                                       int h, int r0, int n, T* s) {
+  constexpr int LD = ld_of<T>(DP);
+  const int nr = p.Tq * p.G;
+  if (p.vec) {
+    constexpr int V = 16 / sizeof(T);
+    const int cpr = p.D / V;
+    for (int i = threadIdx.x; i < n * cpr; i += NT) {
+      const int r = i / cpr, col = (i % cpr) * V;
+      const bool ok = r0 + r < nr;
+      const size_t off = ok ? row_off(p, b, h, r0 + r) * p.D + col : 0;
+      cp16(s + r * LD + col, q + off, ok);
+    }
+  } else {
+    for (int i = threadIdx.x; i < n * p.D; i += NT) {
+      const int r = i / p.D, col = i % p.D;
+      const bool ok = r0 + r < nr;
+      const size_t off = ok ? row_off(p, b, h, r0 + r) * p.D + col : 0;
+      s[r * LD + col] = ok ? q[off] : from_float<T>(0.f);
+    }
+  }
 }
 
 template <typename T, int DP>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(32 * Tiles<T, DP>::WARPS, Tiles<T, DP>::MINB)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ o,
                  float* __restrict__ lse, Params p) {
-  extern __shared__ float smem[];
-  constexpr int LD = DP + 1;          // odd stride: column reads hit 16 banks
-  constexpr int LDS = kBlockK + 1;
-  constexpr int DJ = DP / 16;         // output columns per thread
-  float* q_s = smem;                  // kRows x LD, pre-scaled
-  float* k_s = q_s + kRows * LD;      // kBlockK x LD
-  float* v_s = k_s + kBlockK * LD;    // kBlockK x LD
-  float* s_s = v_s + kBlockK * LD;    // kRows x LDS: scores, then P
-  float* m_s = s_s + kRows * LDS;     // running max per row
-  float* l_s = m_s + kRows;           // running sum per row
-  float* c_s = l_s + kRows;           // this tile's rescale factor per row
+  using M = Mma<T>;
+  constexpr int NT = 32 * Tiles<T, DP>::WARPS;
+  constexpr int BM = 16 * Tiles<T, DP>::WARPS;   // query rows per CTA
+  constexpr int BK = Tiles<T, DP>::BK;           // keys per K/V tile
+  constexpr int LD = ld_of<T>(DP);
+  constexpr int NK = BK / 8;                     // 8-key blocks of S
+  constexpr int ND = DP / 8;                     // 8-column blocks of O
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* q_s = reinterpret_cast<T*>(smem);           // BM x LD
+  T* k_s = q_s + BM * LD;                        // BK x LD
+  T* v_s = k_s + BK * LD;                        // BK x LD
 
-  const int tid = threadIdx.x;
-  const int qt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int G = p.G, D = p.D;
-  const int bq = kRows / G;                  // q positions per CTA
-  const int t0 = qt * bq;
-  const int n_pos = min(bq, p.Tq - t0);
-  const int n_rows = n_pos * G;              // row r <-> (t0 + r / G, r % G)
+  const int nr = p.Tq * p.G;
+  const int nqt = (nr + BM - 1) / BM;
+  const int BH = p.B * p.KVH;
+  const int item = blockIdx.x;                   // (query tile, b, h)
+  const int qt = p.causal ? nqt - 1 - item / BH : item / BH;  // longest first
+  const int b = (item % BH) / p.KVH, h = (item % BH) % p.KVH;
+  const int r0 = qt * BM;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane >> 2, t = lane & 3;
+  const int wr0 = r0 + warp * 16, wr1 = min(wr0 + 16, nr);  // this warp's rows
+  const int kend = key_end(p);
 
-  for (int idx = tid; idx < kRows * DP; idx += kThreads) {
-    const int r = idx / DP, d = idx % DP;
-    float x = 0.f;
-    if (r < n_rows && d < D) {
-      const size_t off =
-          (((size_t)b * p.Tq + t0 + r / G) * p.KVH + h) * (size_t)G * D +
-          (size_t)(r % G) * D + d;
-      x = to_float(q[off]) * p.scale;
-    }
-    q_s[r * LD + d] = x;
-  }
-  if (tid < kRows) {
-    m_s[tid] = kNegInit;
-    l_s[tid] = 0.f;
-  }
+  int lo, hi;
+  key_tiles(p, r0, min(r0 + BM, nr), BK, lo, hi);
+  const int n = hi - lo;
 
-  // KV tiles that hold at least one visible key for some row of this CTA.
-  const int qp_min = p.q_offset + t0;
-  const int qp_max = p.q_offset + t0 + n_pos - 1;
-  int hi = p.Tk;
-  if (p.has_kvl) hi = min(hi, p.k_valid_len);
-  if (p.causal) {
-    int lim = qp_max + 1;
-    if (p.has_prefix) lim = max(lim, p.prefix_len);
-    hi = min(hi, lim);
-  }
-  int lo = 0;
-  if (p.has_window) lo = max(0, qp_min - p.window + 1);
-  lo = (lo / kBlockK) * kBlockK;
+  zero_pad<T, DP, NT>(p.D, q_s, BM + 2 * BK);
+  load_q<T, DP, NT>(p, q, b, h, r0, BM, q_s);
+  cp_commit();
+  if (n > 0)
+    load_kv_rows<T, DP, NT>(k, b, h, lo * BK, BK, p.Tk, p.KVH, p.D, p.vec, k_s);
+  cp_commit();
 
-  const int ty = tid / 16, tx = tid % 16;    // rows ty + 16 i, cols tx + 16 j
-  const int warp = tid / 32, lane = tid % 32;
-  int qpos[4];
+  float acc[ND][4];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) qpos[i] = p.q_offset + t0 + (ty + 16 * i) / G;
-  float acc[4][DJ];
+  for (int j = 0; j < ND; ++j)
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+  // this thread's rows wr0 + g and wr0 + g + 8: position, running max, and
+  // the thread's partial running sum (over its columns 2t, 2t + 1 of each
+  // 8-key block; the quad's four partials are summed at the end)
+  int qp[2];
+  float m[2] = {kNegInit, kNegInit}, l[2] = {0.f, 0.f};
 #pragma unroll
-    for (int j = 0; j < DJ; ++j) acc[i][j] = 0.f;
+  for (int i = 0; i < 2; ++i) qp[i] = p.q_offset + (wr0 + g + 8 * i) / p.G;
 
-  for (int k0 = lo; k0 < hi; k0 += kBlockK) {
-    __syncthreads();   // the previous tile's P.V is done with k_s/v_s/s_s
-    for (int idx = tid; idx < kBlockK * DP; idx += kThreads) {
-      const int c = idx / DP, d = idx % DP;
-      float kx = 0.f, vx = 0.f;
-      if (k0 + c < p.Tk && d < D) {
-        const size_t off =
-            (((size_t)b * p.Tk + k0 + c) * p.KVH + h) * (size_t)D + d;
-        kx = to_float(k[off]);
-        vx = to_float(v[off]);
-      }
-      k_s[c * LD + d] = kx;
-      v_s[c * LD + d] = vx;
-    }
+  for (int it = 0; it < n; ++it) {
+    const int k0 = (lo + it) * BK;
+    // V_j into its buffer (the last tile's P V is done with it)
+    load_kv_rows<T, DP, NT>(v, b, h, k0, BK, p.Tk, p.KVH, p.D, p.vec, v_s);
+    cp_commit();
+    cp_wait<1>();        // Q and K_j have landed
     __syncthreads();
 
-    // S = (scale Q) K^T on a 4 x 4 register tile per thread.
-    float s[4][4];
+    const int cls = classify(p, wr0, wr1, k0, BK);
+    float s[NK][4];
+    if (cls != kSkip) {
+      // S = Q K_j^T: this warp's 16 rows x BK keys
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+      for (int j = 0; j < NK; ++j)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-#pragma unroll 8
-    for (int d = 0; d < DP; ++d) {
-      float qa[4], kb[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) qa[i] = q_s[(ty + 16 * i) * LD + d];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) kb[j] = k_s[(tx + 16 * j) * LD + d];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(qa[i], kb[j], s[i][j]);
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int c = tx + 16 * j;
-        const int kp = k0 + c, qp = qpos[i];
-        float x = s[i][j];
-        if (p.has_cap) x = tanhf(x / p.cap) * p.cap;
-        bool ok = kp < p.Tk;
-        if (p.has_kvl) ok = ok && kp < p.k_valid_len;
-        if (p.causal)
-          ok = ok && (kp <= qp || (p.has_prefix && kp < p.prefix_len));
-        if (p.has_window) ok = ok && (qp - kp < p.window);
-        s_s[(ty + 16 * i) * LDS + c] = ok ? x : -INFINITY;
-      }
-    }
-    __syncthreads();
-
-    // Online softmax: warp w owns rows 8w .. 8w+7, two columns per lane.
-    // A masked score is -inf here and contributes p = 0, as the reference's
-    // where(mask, exp(s - m_new), 0) does.
-#pragma unroll
-    for (int rr = 0; rr < kRows / 8; ++rr) {
-      const int r = warp * (kRows / 8) + rr;
-      const float s0 = s_s[r * LDS + lane], s1 = s_s[r * LDS + lane + 32];
-      const float m_prev = m_s[r];
-      float mx = fmaxf(s0, s1);
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_new = fmaxf(m_prev, mx);
-      const float p0 = (s0 == -INFINITY) ? 0.f : expf(s0 - m_new);
-      const float p1 = (s1 == -INFINITY) ? 0.f : expf(s1 - m_new);
-      float sum = p0 + p1;
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        sum += __shfl_xor_sync(0xffffffffu, sum, off);
-      s_s[r * LDS + lane] = p0;
-      s_s[r * LDS + lane + 32] = p1;
-      if (lane == 0) {
-        const float corr = expf(m_prev - m_new);
-        m_s[r] = m_new;
-        l_s[r] = l_s[r] * corr + sum;
-        c_s[r] = corr;
-      }
-    }
-    __syncthreads();
-
-    // acc = acc * corr + P V
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float corr = c_s[ty + 16 * i];
-#pragma unroll
-      for (int j = 0; j < DJ; ++j) acc[i][j] *= corr;
-    }
+        for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
 #pragma unroll 4
-    for (int c = 0; c < kBlockK; ++c) {
-      float pa[4], vb[DJ];
+      for (int kc = 0; kc < DP / M::K; ++kc) {
+        const typename M::A qa = M::load_a(q_s, LD, warp * 16, kc * M::K);
 #pragma unroll
-      for (int i = 0; i < 4; ++i) pa[i] = s_s[(ty + 16 * i) * LDS + c];
-#pragma unroll
-      for (int j = 0; j < DJ; ++j) vb[j] = v_s[c * LD + tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < DJ; ++j) acc[i][j] = fmaf(pa[i], vb[j], acc[i][j]);
+        for (int j = 0; j < NK; ++j)
+          M::mma(s[j], qa, M::load_b_nt(k_s, LD, j * 8, kc * M::K));
+      }
     }
+    cp_wait<0>();        // V_j has landed
+    __syncthreads();     // every warp is done with K_j
+    if (it + 1 < n)
+      load_kv_rows<T, DP, NT>(k, b, h, k0 + BK, BK, p.Tk, p.KVH, p.D, p.vec,
+                              k_s);
+    cp_commit();
+
+    if (cls != kSkip) {
+      // scale, cap, mask; element e of block j is (row, key) =
+      // (wr0 + g + 8 (e >> 1), k0 + 8 j + 2 t + (e & 1))
+      float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+      for (int j = 0; j < NK; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float x = s[j][e] * p.scale;
+          if (p.has_cap) x = tanhf(x / p.cap) * p.cap;
+          if (cls == kMasked &&
+              !visible(p, qp[e >> 1], k0 + 8 * j + 2 * t + (e & 1), kend))
+            x = -INFINITY;
+          s[j][e] = x;
+          mx[e >> 1] = fmaxf(mx[e >> 1], x);
+        }
+      float corr[2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+        mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+        const float m_new = fmaxf(m[i], mx[i]);
+        corr[i] = exp2f((m[i] - m_new) * kLog2e);
+        m[i] = m_new;
+        l[i] *= corr[i];
+      }
+#pragma unroll
+      for (int j = 0; j < NK; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float x = s[j][e];
+          const float pr =
+              x == -INFINITY ? 0.f : exp2f((x - m[e >> 1]) * kLog2e);
+          s[j][e] = pr;
+          l[e >> 1] += pr;
+        }
+#pragma unroll
+      for (int j = 0; j < ND; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[j][e] *= corr[e >> 1];
+      // O += P V_j, P from the S accumulators
+#pragma unroll
+      for (int kc = 0; kc < BK / M::K; ++kc) {
+        const typename M::A pa = M::from_c(s, kc);
+#pragma unroll
+        for (int nd = 0; nd < ND; ++nd)
+          M::mma(acc[nd], pa, M::load_b_nn(v_s, LD, kc * M::K, nd * 8));
+      }
+    }
+    __syncthreads();     // every warp is done with V_j
   }
-  __syncthreads();   // l_s is final (also when no tile was visible)
+  cp_wait<0>();
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = ty + 16 * i;
-    if (r >= n_rows) continue;
-    const float l = fmaxf(l_s[r], 1e-30f);   // fully masked rows give 0
-    const size_t row =
-        (((size_t)b * p.Tq + t0 + r / G) * p.KVH + h) * (size_t)G * D +
-        (size_t)(r % G) * D;
+  for (int i = 0; i < 2; ++i) {
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+    const int r = wr0 + g + 8 * i;
+    if (r >= nr) continue;
+    const float inv = 1.f / fmaxf(l[i], 1e-30f);   // fully masked rows give 0
+    T* row = o + row_off(p, b, h, r) * p.D;
 #pragma unroll
-    for (int j = 0; j < DJ; ++j) {
-      const int d = tx + 16 * j;
-      if (d < D) store(o + row + d, acc[i][j] / l);
-    }
-  }
-  if (lse != nullptr && tid < n_rows) {
-    const float l = l_s[tid];
-    const size_t row =
-        (((size_t)b * p.Tq + t0 + tid / G) * p.KVH + h) * (size_t)G + tid % G;
-    lse[row] = l > 0.f ? m_s[tid] + logf(l) : -INFINITY;
+    for (int nd = 0; nd < ND; ++nd)
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const int d = nd * 8 + 2 * t + c;
+        if (d < p.D) store(row + d, acc[nd][2 * i + c] * inv);
+      }
+    if (lse != nullptr && t == 0)
+      lse[row_off(p, b, h, r)] = l[i] > 0.f ? m[i] + logf(l[i]) : -INFINITY;
   }
 }
 
 template <typename T, int DP>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                    float* lse, const Params& p, cudaStream_t stream) {
-  const size_t smem =
-      sizeof(float) * ((size_t)(kRows + 2 * kBlockK) * (DP + 1) +
-                       (size_t)kRows * (kBlockK + 1) + 3 * kRows);
+  constexpr int BM = 16 * Tiles<T, DP>::WARPS, BK = Tiles<T, DP>::BK;
+  const size_t smem = sizeof(T) * (size_t)(BM + 2 * BK) * ld_of<T>(DP);
   // above 48 KB only after opting in (per device, so on every launch)
   const cudaError_t e = cudaFuncSetAttribute(
       flash_fwd_kernel<T, DP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (e != cudaSuccess) return e;
-  const int bq = kRows / p.G;
-  const dim3 grid((p.Tq + bq - 1) / bq, p.KVH, p.B);
-  flash_fwd_kernel<T, DP><<<grid, kThreads, smem, stream>>>(
+  const long long nqt = ((long long)p.Tq * p.G + BM - 1) / BM;
+  const long long grid = nqt * p.B * p.KVH;
+  if (grid > 2147483647LL) return cudaErrorInvalidValue;
+  flash_fwd_kernel<T, DP><<<(unsigned)grid, 32 * Tiles<T, DP>::WARPS, smem,
+                            stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(o), lse, p);
   return cudaGetLastError();
@@ -289,21 +364,26 @@ cudaError_t dispatch_d(const void* q, const void* k, const void* v, void* o,
 }  // namespace
 
 // Plain C entry point (loaded with ctypes).  dtype: 0 = fp32, 1 = bf16.
-// lse: fp32 (B, Tq, KVH, G) array for the row log-sum-exp, or null.  Returns the cudaError_t of the launch (0 = cudaSuccess); shapes the kernel
-// does not take return cudaErrorInvalidValue without launching.
+// lse: fp32 (B, Tq, KVH, G) array for the row log-sum-exp, or null.  Returns
+// the cudaError_t of the launch (0 = cudaSuccess); shapes the kernel does not
+// take return cudaErrorInvalidValue without launching.
 extern "C" int repro_flash_attention_fwd(
     const void* q, const void* k, const void* v, void* o, int dtype, int B,
     int Tq, int Tk, int KVH, int G, int D, int causal, int has_window,
     int window, int has_prefix, int prefix_len, int has_cap, float cap,
     float scale, int q_offset, int has_kvl, int k_valid_len, void* lse,
     void* stream) {
-  if (B < 1 || Tq < 1 || Tk < 1 || KVH < 1 || G < 1 || G > kRows || D < 1 ||
-      D > 256 || KVH > 65535 || B > 65535 || (dtype != 0 && dtype != 1))
+  if (B < 1 || Tq < 1 || Tk < 1 || KVH < 1 || G < 1 || G > 64 || D < 1 ||
+      D > 256 || (long long)Tq * G > 2147483647LL ||
+      (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
+  const size_t row_bytes = (size_t)D * (dtype == 0 ? 4 : 2);
+  const int vec =
+      row_bytes % 16 == 0 && aligned16(q) && aligned16(k) && aligned16(v);
   const Params p{B,        Tq,         Tk,      KVH,   G,     D,
                  causal,   has_window, window,  has_prefix,   prefix_len,
                  has_cap,  cap,        scale,   q_offset,     has_kvl,
-                 k_valid_len};
+                 k_valid_len, vec};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* l = static_cast<float*>(lse);
   const cudaError_t e = dtype == 0

@@ -81,16 +81,17 @@
 // pass.
 
 #include <cooperative_groups.h>
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <math.h>
-#include <stdint.h>
 
 #include <algorithm>
+
+#include "hopper_mma.cuh"
 
 namespace cg = cooperative_groups;
 
 namespace {
+
+using namespace hopper;
 
 constexpr int kWarps = 4;
 constexpr int kThreads = 32 * kWarps;
@@ -123,23 +124,6 @@ struct Params {
   int split;   // CTAs (a cluster) per tile of the pass
 };
 
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16(x);
-}
-template <typename T>
-__device__ __forceinline__ T from_float(float x);
-template <>
-__device__ __forceinline__ float from_float<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-
 __device__ __forceinline__ bool visible(const Params& p, int qp, int kp) {
   bool ok = kp < p.Tk;
   if (p.causal) ok = ok && (kp <= qp || (p.has_prefix && kp < p.prefix_len));
@@ -154,173 +138,7 @@ __device__ __forceinline__ size_t row_off(const Params& p, int b, int h,
          (size_t)(r % p.G);
 }
 
-// ---- cp.async ---------------------------------------------------------------
-
-__device__ __forceinline__ void cp16(void* dst, const void* src, bool ok) {
-  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
-               "l"(src), "r"(ok ? 16 : 0));
-}
-__device__ __forceinline__ void cp4(void* dst, const void* src, bool ok) {
-  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
-               "l"(src), "r"(ok ? 4 : 0));
-}
-__device__ __forceinline__ void cp_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// ---- tensor-core fragments --------------------------------------------------
-//
-// m16n8k8 tf32 (A 16x8 row, B 8x8 col, C 16x8), lane = 4 g + t:
-//   A: (g, t) (g+8, t) (g, t+4) (g+8, t+4);  B: (k=t, n=g) (k=t+4, n=g);
-//   C: (g, 2t) (g, 2t+1) (g+8, 2t) (g+8, 2t+1).
-// m16n8k16 bf16: A pairs (g, 2t..) (g+8, 2t..) (g, 2t+8..) (g+8, 2t+8..);
-//   B pairs (k=2t.., n=g) (k=2t+8.., n=g); C as above.
-
-template <typename T>
-struct Mma;
-
-// hi = x with its low 13 bits cleared (a tf32, exactly), lo = x - hi (exact
-// in fp32; the tensor core reads only its top 19 bits): |x - hi - lo| is
-// below 2^-21 |x|
-__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
-  hi = __float_as_uint(x) & 0xffffe000u;
-  lo = __float_as_uint(x - __uint_as_float(hi));
-}
-__device__ __forceinline__ void mma_tf32(float* c, const uint32_t* a,
-                                         const uint32_t* b) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
-                                         const uint32_t* b) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-template <>
-struct Mma<float> {
-  static constexpr int K = 8;
-  struct A { uint32_t h[4], l[4]; };
-  struct B { uint32_t h[2], l[2]; };
-
-  // A = X[m0 + i][k0 + j] from a row-major shared tile
-  static __device__ __forceinline__ A load_a(const float* s, int ld, int m0,
-                                             int k0) {
-    const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
-    const float* r0 = s + (m0 + g) * ld + k0 + t;
-    const float* r8 = r0 + 8 * ld;
-    A a;
-    split(r0[0], a.h[0], a.l[0]);
-    split(r8[0], a.h[1], a.l[1]);
-    split(r0[4], a.h[2], a.l[2]);
-    split(r8[4], a.h[3], a.l[3]);
-    return a;
-  }
-  // A = chunk kc of a 16 x (8 n) accumulator, k permuted (2t, 2t+1 -> t, t+4)
-  static __device__ __forceinline__ A from_c(float (*c)[4], int kc) {
-    A a;
-    split(c[kc][0], a.h[0], a.l[0]);
-    split(c[kc][2], a.h[1], a.l[1]);
-    split(c[kc][1], a.h[2], a.l[2]);
-    split(c[kc][3], a.h[3], a.l[3]);
-    return a;
-  }
-  // B[k][n] = X[n0 + n][k0 + k]  (X row-major: S = Q K^T takes K so)
-  static __device__ __forceinline__ B load_b_nt(const float* s, int ld, int n0,
-                                                int k0) {
-    const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
-    const float* r = s + (n0 + g) * ld + k0 + t;
-    B b;
-    split(r[0], b.h[0], b.l[0]);
-    split(r[4], b.h[1], b.l[1]);
-    return b;
-  }
-  // B[k][n] = X[k0 + k][n0 + n], k permuted as in from_c
-  static __device__ __forceinline__ B load_b_nn(const float* s, int ld, int k0,
-                                                int n0) {
-    const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
-    const float* r = s + (k0 + 2 * t) * ld + n0 + g;
-    B b;
-    split(r[0], b.h[0], b.l[0]);
-    split(r[ld], b.h[1], b.l[1]);
-    return b;
-  }
-  // c += a b in 3xTF32: the small terms first
-  static __device__ __forceinline__ void mma(float* c, const A& a, const B& b) {
-    mma_tf32(c, a.l, b.h);
-    mma_tf32(c, a.h, b.l);
-    mma_tf32(c, a.h, b.h);
-  }
-};
-
-__device__ __forceinline__ uint32_t pack(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-__device__ __forceinline__ uint32_t pack(__nv_bfloat16 lo, __nv_bfloat16 hi) {
-  __nv_bfloat162 v;
-  v.x = lo;
-  v.y = hi;
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-template <>
-struct Mma<__nv_bfloat16> {
-  using T = __nv_bfloat16;
-  static constexpr int K = 16;
-  struct A { uint32_t x[4]; };
-  struct B { uint32_t x[2]; };
-
-  static __device__ __forceinline__ uint32_t word(const T* p) {
-    return *reinterpret_cast<const uint32_t*>(p);
-  }
-  static __device__ __forceinline__ A load_a(const T* s, int ld, int m0,
-                                             int k0) {
-    const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
-    const T* r0 = s + (m0 + g) * ld + k0 + 2 * t;
-    const T* r8 = r0 + 8 * ld;
-    return A{{word(r0), word(r8), word(r0 + 8), word(r8 + 8)}};
-  }
-  // A = columns 16 kc .. 16 kc + 15 of the accumulator: tiles 2 kc, 2 kc + 1
-  static __device__ __forceinline__ A from_c(float (*c)[4], int kc) {
-    const float* lo = c[2 * kc];
-    const float* hi = c[2 * kc + 1];
-    return A{{pack(lo[0], lo[1]), pack(lo[2], lo[3]), pack(hi[0], hi[1]),
-              pack(hi[2], hi[3])}};
-  }
-  static __device__ __forceinline__ B load_b_nt(const T* s, int ld, int n0,
-                                                int k0) {
-    const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
-    const T* r = s + (n0 + g) * ld + k0 + 2 * t;
-    return B{{word(r), word(r + 8)}};
-  }
-  static __device__ __forceinline__ B load_b_nn(const T* s, int ld, int k0,
-                                                int n0) {
-    const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
-    const T* r = s + (k0 + 2 * t) * ld + n0 + g;
-    return B{{pack(r[0], r[ld]), pack(r[8 * ld], r[9 * ld])}};
-  }
-  static __device__ __forceinline__ void mma(float* c, const A& a, const B& b) {
-    mma_bf16(c, a.x, b.x);
-  }
-};
-
 // ---- tile loads -------------------------------------------------------------
-
-template <typename T>
-__host__ __device__ constexpr int ld_of(int DP) {
-  return DP + 16 / (int)sizeof(T);
-}
 
 // rows r0 .. r0 + n - 1 of q-like tensors (and lse * log2(e), delta, the
 // rows' positions) into shared tiles; zero past the last row.  Columns
@@ -389,16 +207,6 @@ __device__ __forceinline__ void load_keys(const Params& p, const T* k,
       v_s[r * LD + col] = ok ? v[off] : from_float<T>(0.f);
     }
   }
-}
-
-// zero columns D .. DP-1 of `rows` rows (cp.async never writes them)
-template <typename T, int DP>
-__device__ __forceinline__ void zero_pad(const Params& p, T* s, int rows) {
-  constexpr int LD = ld_of<T>(DP);
-  const int w = DP - p.D;
-  if (w <= 0) return;
-  for (int i = threadIdx.x; i < rows * w; i += kThreads)
-    s[(i / w) * LD + p.D + i % w] = from_float<T>(0.f);
 }
 
 // ---- probabilities ----------------------------------------------------------
@@ -556,7 +364,7 @@ bwd_dkdv(const T* __restrict__ q, const T* __restrict__ k,
   dkdv_tiles(p, k0, BR, lo, hi);
   share(lo, hi, first, n);
 
-  zero_pad<T, DP>(p, k_s, 2 * kBK + 4 * BR);
+  zero_pad<T, DP, kThreads>(p.D, k_s, 2 * kBK + 4 * BR);
   load_keys<T, DP>(p, k, v, b, h, k0, kBK, k_s, v_s);
   if (n > 0)
     load_rows<T, DP>(p, q, dout, lse, delta, b, h, first * BR, BR, q_s, do_s,
@@ -685,7 +493,7 @@ bwd_dq(const T* __restrict__ q, const T* __restrict__ k,
   dq_tiles(p, r0, r1, BKQ, lo, hi);
   share(lo, hi, first, n);
 
-  zero_pad<T, DP>(p, q_s, 2 * kBQ + 4 * BKQ);
+  zero_pad<T, DP, kThreads>(p.D, q_s, 2 * kBQ + 4 * BKQ);
   load_rows<T, DP>(p, q, dout, lse, delta, b, h, r0, kBQ, q_s, do_s, lse_s,
                    dl_s, pos_s);
   if (n > 0) load_keys<T, DP>(p, k, v, b, h, first * BKQ, BKQ, k_s, v_s);
@@ -905,8 +713,6 @@ cudaError_t dispatch_d(const void* q, const void* k, const void* v,
     return launch<T, 64>(q, k, v, o, dout, lse, delta, dq, dk, dv, p, s);
   return launch<T, 128>(q, k, v, o, dout, lse, delta, dq, dk, dv, p, s);
 }
-
-bool aligned16(const void* x) { return ((uintptr_t)x & 15) == 0; }
 
 }  // namespace
 

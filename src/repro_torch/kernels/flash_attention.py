@@ -34,6 +34,75 @@ BWD_KEYS, BWD_ROWS, BWD_MAX_SPLIT = 64, 64, 8
 H100_SMS = 132
 
 
+def fwd_tiles(D: int) -> tuple[int, int]:
+    """(query rows per CTA, keys per K/V tile) of the forward kernel at
+    head_dim D: its ``Tiles`` (16 rows a warp)."""
+    return (128, 32) if D > 128 else (64, 64)
+
+
+@dataclasses.dataclass(frozen=True)
+class FwdPlan:
+    """How the forward kernel walks one (batch, kv head).
+
+    ``rows`` query rows per CTA (16 a warp, a row is ``t * G + g``),
+    ``keys`` keys per K/V tile.  ``ctas``: (query tile, first key tile,
+    classes) per CTA in launch order, where ``classes[i][w]`` is what warp
+    ``w`` does with key tile ``first + i``: ``"skip"`` (none of its pairs
+    visible: no products), ``"full"`` (all visible: no mask) or
+    ``"masked"`` (the mask pair by pair).
+    """
+    rows: int
+    keys: int
+    ctas: tuple[tuple[int, int, tuple[tuple[str, ...], ...]], ...]
+
+
+def fwd_plan(Tq: int, Tk: int, G: int, D: int, *, causal: bool = True,
+             window: int | None = None, prefix_len: int | None = None,
+             q_offset: int = 0, k_valid_len: int | None = None) -> FwdPlan:
+    """The forward kernel's walk over the key tiles, computed as
+    ``key_tiles`` and ``classify`` in ``csrc/flash_attention.cu`` compute
+    it on the card (the CPU tests check that it meets every visible pair
+    once and masks every hidden pair it meets)."""
+    bm, bk = fwd_tiles(D)
+    nr = Tq * G
+    kend = min(Tk, k_valid_len) if k_valid_len is not None else Tk
+    in_prefix = lambda key: prefix_len is not None and key < prefix_len
+
+    def key_tiles(r0: int, r1: int) -> tuple[int, int]:
+        qa, qb = q_offset + r0 // G, q_offset + (r1 - 1) // G
+        khi = kend
+        if causal:
+            khi = min(khi, max(qb + 1, prefix_len or 0))
+        klo = max(0, qa - window + 1) if window is not None else 0
+        return klo // bk, (-(-khi // bk) if klo < khi else klo // bk)
+
+    def classify(r0: int, r1: int, k0: int) -> str:
+        if r0 >= r1:
+            return "skip"
+        qa, qb = q_offset + r0 // G, q_offset + (r1 - 1) // G
+        kb = k0 + bk - 1
+        if (k0 >= kend or (causal and k0 > qb and not in_prefix(k0))
+                or (window is not None and qa - kb >= window)):
+            return "skip"
+        full = kb < kend
+        if causal:
+            full = full and (kb <= qa or in_prefix(kb))
+        if window is not None:
+            full = full and qb - k0 < window
+        return "full" if full else "masked"
+
+    nqt = -(-nr // bm)
+    ctas = []
+    for qt in (range(nqt - 1, -1, -1) if causal else range(nqt)):
+        r0 = qt * bm
+        lo, hi = key_tiles(r0, min(r0 + bm, nr))
+        ctas.append((qt, lo, tuple(
+            tuple(classify(w0, min(w0 + 16, nr), kt * bk)
+                  for w0 in range(r0, r0 + bm, 16))
+            for kt in range(lo, hi))))
+    return FwdPlan(bm, bk, tuple(ctas))
+
+
 def _bwd_tiles(D: int, dtype: torch.dtype) -> tuple[int, int, int]:
     """(query rows per dK/dV step, keys per dQ step, CTAs an SM): the
     kernel's ``Tiles``."""

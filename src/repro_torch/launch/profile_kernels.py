@@ -1,22 +1,29 @@
-"""Time the training path's two kernels against the PyTorch call that
+"""Time the port's redesigned kernels against the PyTorch call that
 computes the same function, on the card:
 
   PYTHONPATH=src python -m repro_torch.launch.profile_kernels [--label L]
 
+* the flash-attention forward at the smollm-360m prefill shape (B=4, T=512,
+  KVH=5, G=3, D=64, fp32, causal) and at recurrentgemma-9b's local attention
+  (2, 2304, 2304, 1, 16, 256, fp32, window 2048), and at paper-7b's heads
+  (2, 256, 256, 32, 1, 128, bf16, causal), against SDPA (the window as a
+  boolean mask);
 * the flash-attention backward at the smollm-360m training shape (B=2,
-  T=512, KVH=5, G=3, D=64, fp32, causal) and at paper-7b's heads (2, 256,
-  256, 32, 1, 128, bf16), against SDPA's backward;
+  T=512, KVH=5, G=3, D=64, fp32, causal) and at paper-7b's heads (bf16),
+  against SDPA's backward;
 * ``chunk_combine`` at the largest merge of the training phase ((3,
   13426888) bf16, every row seg=1 acc=1, in place) against in-place
-  ``torch.add``.
+  ``torch.add``;
+* ``wkv_scan`` at rwkv6-1.6b's prefill shape (4, 512, 32, 64), which no
+  single PyTorch call computes.
 
-Each is timed three ways: CUDA events around 20 back-to-back calls, the
-device time of each kernel from ``torch.profiler``, and the host's time per
-call while the card is kept busy.  It uses only the wrappers' public
-signatures, so the same file times an older checkout's package when that
-checkout's ``src`` comes first on ``PYTHONPATH`` (run it by path then).
-Prints one JSON line, with the card's name and power limit.  Needs a CUDA
-device.
+Each is timed three ways: CUDA events around 20 back-to-back calls (5 at
+recurrentgemma's shape), the device time of each kernel from
+``torch.profiler``, and the host's time per call while the card is kept
+busy.  It uses only the wrappers' public signatures, so the same file times
+an older checkout's package when that checkout's ``src`` comes first on
+``PYTHONPATH`` (run it by path then).  Prints one JSON line, with the card's
+name and power limit.  Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -30,8 +37,11 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 TRAIN_SHAPE = (2, 512, 512, 5, 3, 64)
+PREFILL_SHAPE = (4, 512, 512, 5, 3, 64)
+LOCAL_ATTN_SHAPE, LOCAL_WINDOW = (2, 2304, 2304, 1, 16, 256), 2048
 PAPER_7B_SHAPE = (2, 256, 256, 32, 1, 128)
 LARGEST_MERGE = (3, 13426888)
+WKV_SHAPE = (4, 512, 32, 64)
 
 
 def events_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -76,8 +86,49 @@ def host_ms(fn, calls: int = 20) -> float:
     return t
 
 
-def three_ways(fn) -> dict:
-    return dict(events_ms=events_ms(fn), device_ms=device_ms(fn), host_ms=host_ms(fn))
+def three_ways(fn, iters: int = 20) -> dict:
+    return dict(events_ms=events_ms(fn, iters), device_ms=device_ms(fn), host_ms=host_ms(fn))
+
+
+def sdpa_forward(q, k, v, window=None):
+    """SDPA's forward on the kernel's layout, q (B, T, KVH, G, D) and k, v
+    (B, T, KVH, D): causal with GQA, a window as a boolean mask.  Returns a
+    callable giving (B, KVH * G, T, D)."""
+    B, T, KVH, G, D = q.shape
+    qs = q.reshape(B, T, KVH * G, D).transpose(1, 2)
+    ks, vs = k.transpose(1, 2), v.transpose(1, 2)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    if window is None:
+        return lambda: sdpa(qs, ks, vs, is_causal=True, enable_gqa=True)
+    pos = torch.arange(T, device=q.device)
+    mask = (pos[None, :] <= pos[:, None]) & (pos[:, None] - pos[None, :] < window)
+    return lambda: sdpa(qs, ks, vs, attn_mask=mask, enable_gqa=True)
+
+
+def attention_forward(shape, dtype, gen, window=None, iters=20) -> dict:
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    B, Tq, Tk, KVH, G, D = shape
+    q = torch.randn(B, Tq, KVH, G, D, device="cuda", generator=gen).to(dtype)
+    k, v = (torch.randn(B, Tk, KVH, D, device="cuda", generator=gen).to(dtype)
+            for _ in range(2))
+    kw = {} if window is None else dict(window=window)
+    library = sdpa_forward(q, k, v, window)
+    kernel = lambda: flash_attention_cuda(q, k, v, **kw)
+    return dict(shape=shape, dtype=str(dtype)[6:], window=window,
+                kernel=three_ways(kernel, iters), sdpa=three_ways(library, iters),
+                kernel_again=events_ms(kernel, iters))
+
+
+def wkv_scan(gen) -> dict:
+    from repro_torch.kernels.wkv_scan import wkv_scan_cuda
+    B, T, H, K = WKV_SHAPE
+    r, k, v = (torch.randn(B, T, H, K, device="cuda", generator=gen) for _ in range(3))
+    w = torch.exp(-torch.exp(-6.0 + 2.0 * torch.randn(B, T, H, K, device="cuda",
+                                                      generator=gen)))
+    u = 0.1 * torch.randn(H, K, device="cuda", generator=gen)
+    s0 = torch.randn(B, H, K, K, device="cuda", generator=gen)
+    kernel = lambda: wkv_scan_cuda(r, k, v, w, u, s0)
+    return dict(shape=WKV_SHAPE, kernel=three_ways(kernel), kernel_again=events_ms(kernel))
 
 
 def attention_backward(shape, dtype, gen) -> dict:
@@ -125,6 +176,11 @@ def main(argv=None) -> dict:
                           check=True).stdout.strip().splitlines()[0]
     gen = torch.Generator(device="cuda").manual_seed(0)
     res = dict(label=args.label, card=card,
+               forward_prefill=attention_forward(PREFILL_SHAPE, torch.float32, gen),
+               forward_local=attention_forward(LOCAL_ATTN_SHAPE, torch.float32, gen,
+                                               window=LOCAL_WINDOW, iters=5),
+               forward_paper_7b=attention_forward(PAPER_7B_SHAPE, torch.bfloat16, gen),
+               wkv_scan=wkv_scan(gen),
                backward_train=attention_backward(TRAIN_SHAPE, torch.float32, gen),
                backward_paper_7b=attention_backward(PAPER_7B_SHAPE, torch.bfloat16, gen),
                chunk_combine=chunk_combine(gen))

@@ -31,6 +31,19 @@ def cuda_device():
     ((2, 16, 200, 2, 4, 32), torch.float32, dict(q_offset=100, k_valid_len=150)),
     ((2, 2304, 2304, 1, 16, 256), torch.float32, dict(window=2048)),
     ((1, 70, 70, 1, 16, 256), torch.float32, dict(window=33)),
+    # the forward's tile edges: one position a CTA (G = 64), hubert's
+    # head_dim 80, Tq and Tk off the 64- and 128-row and 32- and 64-key
+    # tiles, windowed and prefix, both dtypes
+    ((2, 37, 53, 2, 64, 32), torch.float32, {}),
+    ((1, 19, 19, 1, 64, 256), torch.bfloat16, dict(window=7)),
+    ((2, 100, 100, 2, 4, 80), torch.float32, dict(causal=False)),
+    ((2, 100, 100, 2, 4, 80), torch.bfloat16, dict(prefix_len=30)),
+    ((1, 97, 131, 3, 3, 64), torch.float32, dict(window=50)),
+    ((2, 131, 97, 1, 5, 128), torch.float32, dict(prefix_len=40)),
+    ((1, 65, 129, 2, 2, 16), torch.bfloat16, dict(causal=False, window=20)),
+    ((1, 300, 300, 1, 16, 256), torch.float32, dict(window=64, prefix_len=20)),
+    ((1, 129, 33, 1, 1, 256), torch.float32, dict(logit_cap=30.0)),
+    ((2, 8, 300, 2, 8, 128), torch.bfloat16, dict(q_offset=250, k_valid_len=258)),
 ])
 def test_flash_attention_kernel_matches_plain(cuda_device, shape, dtype, kw):
     """Tolerance: fp32 atol 1e-4 (summation order), bf16 atol 2e-2."""
@@ -47,6 +60,25 @@ def test_flash_attention_kernel_matches_plain(cuda_device, shape, dtype, kw):
     want = ref.reference_attention(q, k, v, **kw)
     atol = 2e-2 if dtype == torch.bfloat16 else 1e-4
     torch.testing.assert_close(out.float(), want.float(), rtol=0, atol=atol)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("shape,dtype,kw", [((4, 512, 512, 5, 3, 64), torch.float32, {}),
+                                            ((1, 300, 300, 1, 16, 256), torch.float32,
+                                             dict(window=64)),
+                                            ((2, 256, 256, 32, 1, 128), torch.bfloat16, {})])
+def test_flash_attention_forward_is_deterministic(cuda_device, shape, dtype, kw):
+    """No cross-CTA sums in the forward: two calls on the same inputs give
+    identical output and row log-sum-exp, bit for bit."""
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    B, tq, tk, KVH, G, D = shape
+    gen = torch.Generator(device=cuda_device).manual_seed(5)
+    q = torch.randn(B, tq, KVH, G, D, device=cuda_device, generator=gen).to(dtype)
+    k, v = (torch.randn(B, tk, KVH, D, device=cuda_device, generator=gen).to(dtype)
+            for _ in range(2))
+    lse = [torch.empty(B, tq, KVH, G, device=cuda_device) for _ in range(2)]
+    first, second = (flash_attention_cuda(q, k, v, lse=lse[i], **kw) for i in range(2))
+    assert torch.equal(first, second) and torch.equal(lse[0], lse[1])
 
 
 # the largest merge of the smollm-360m training phase (chip_smoke.py's
@@ -192,6 +224,25 @@ def test_wkv_scan_kernel_matches_plain(cuda_device, b, t, h, k):
     out, s_t = ops.wkv_scan(r, kk, v, w, u, s0)
     torch.cuda.synchronize()
     assert ops.launch_counts()["wkv_scan"] == before + 1
+    for got, want in zip((out, s_t), ref.reference_wkv(r, kk, v, w, u, s0)):
+        tol = 1e-5 * max(1.0, want.abs().max().item())
+        torch.testing.assert_close(got, want, rtol=0, atol=tol)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("b,t,h,k", [(4, 512, 32, 64), (3, 37, 5, 64), (1, 77, 3, 32),
+                                     (5, 19, 1, 16), (2, 33, 7, 64)])
+def test_wkv_scan_kernel_matches_plain_at_hard_decays(cuda_device, b, t, h, k):
+    """The decays at the ends of what the model makes: dec up to +3, so w
+    down to exp(-e^3) ~ 2e-9, and every fifth step's rows w = 1 exactly;
+    B * H and T off the kernel's 16-step chunks and its CTAs per (b, h).
+    Same tolerance, 1e-5 of max(1, |value|)."""
+    r, kk, v, dec, u, s0 = _scan_inputs(
+        [(b, t, h, k)] * 4 + [(h, k), (b, h, k, k)], t * h + k + 1, cuda_device)
+    w = torch.exp(-torch.exp(torch.clamp(3.0 * dec, -9.0, 3.0)))
+    w[:, 2::5] = 1.0
+    out, s_t = ops.wkv_scan(r, kk, v, w, u, s0)
+    torch.cuda.synchronize()
     for got, want in zip((out, s_t), ref.reference_wkv(r, kk, v, w, u, s0)):
         tol = 1e-5 * max(1.0, want.abs().max().item())
         torch.testing.assert_close(got, want, rtol=0, atol=tol)

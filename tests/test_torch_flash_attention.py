@@ -16,7 +16,7 @@ from repro.kernels import ref as jref
 from repro.models.layers import blockwise_attention as jax_blockwise
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.flash_attention import (BWD_KEYS, BWD_MAX_SPLIT, BWD_ROWS, bwd_plan,
-                                                 flash_attention_cuda)
+                                                 flash_attention_cuda, fwd_plan, fwd_tiles)
 from repro_torch.models.layers import blockwise_attention
 
 
@@ -236,3 +236,67 @@ def test_backward_plan_fills_the_card_longest_first():
         assert max(steps) <= sum(steps) * 10 / (3 * 132) or split == BWD_MAX_SPLIT
     plan = bwd_plan(2, 256, 256, 32, 1, 128, dtype=torch.bfloat16)
     assert (plan.split_dkdv, plan.split_dq) == (1, 1)
+
+
+_FWD_MASKS = _PLAN_MASKS + [dict(q_offset=100, k_valid_len=150), dict(k_valid_len=40, causal=False),
+                            dict(window=2048), dict(prefix_len=70)]
+
+
+@pytest.mark.parametrize("kw", _FWD_MASKS, ids=lambda kw: "-".join(f"{k}={v}" for k, v in kw.items()) or "causal")
+@pytest.mark.parametrize("tq,tk,G,D", [
+    (512, 512, 3, 64),                       # smollm-360m prefill
+    (1, 1, 1, 16), (63, 63, 2, 20), (65, 129, 1, 128), (129, 65, 16, 80),
+    (70, 70, 16, 256), (33, 200, 64, 32), (97, 97, 64, 256), (16, 200, 4, 32),
+])
+def test_forward_plan_covers_every_visible_pair_once(tq, tk, G, D, kw):
+    """The forward kernel's walk (``fwd_plan``, the same arithmetic as the
+    kernel's ``key_tiles`` and ``classify``): its CTAs meet every (query row,
+    key) pair that ``ref.attention_mask`` leaves visible exactly once, a warp
+    skips a key tile only where none of its pairs is visible, and it leaves
+    the mask out only where every pair of the block is visible; for every
+    mask kind, ragged lengths, G up to 64 and both tile shapes."""
+    kw = dict(kw)
+    tq = tq if "q_offset" not in kw else min(tq, 16)
+    plan = fwd_plan(tq, tk, G, D, **kw)
+    assert (plan.rows, plan.keys) == fwd_tiles(D)
+    q_off = kw.pop("q_offset", 0)
+    mask = ref.attention_mask(q_off + torch.arange(tq), torch.arange(tk),
+                              causal=kw.get("causal", True), window=kw.get("window"),
+                              prefix_len=kw.get("prefix_len"),
+                              k_valid_len=kw.get("k_valid_len"), k_len=tk).numpy()
+    visible = np.repeat(np.broadcast_to(mask, (tq, tk)), G, axis=0)   # row t * G + g -> position t
+    nr = tq * G
+    seen = np.zeros((nr, tk), np.int64)
+    assert sorted(qt for qt, _, _ in plan.ctas) == list(range(-(-nr // plan.rows)))
+    for qt, first, classes in plan.ctas:
+        for i, per_warp in enumerate(classes):
+            k0 = (first + i) * plan.keys
+            assert len(per_warp) == plan.rows // 16
+            for w, cls in enumerate(per_warp):
+                r0 = qt * plan.rows + 16 * w
+                block = visible[r0:r0 + 16, k0:k0 + plan.keys]
+                if cls == "skip":
+                    assert not block.any()
+                    continue
+                if cls == "full":
+                    assert block.all() and block.shape[1] == plan.keys
+                seen[r0:r0 + 16, k0:k0 + plan.keys] += 1
+    assert (seen[visible] == 1).all()
+    assert seen.max() <= 1
+
+
+def test_forward_plan_shares_key_tiles_and_goes_longest_first():
+    """At recurrentgemma-9b's local attention (T=2304, G=16, D=256, window
+    2048) a CTA holds 128 rows, 8 positions of all 16 heads, and 32-key
+    tiles; at smollm-360m's prefill (G=3, D=64) 64 rows and 64-key tiles.
+    Under the causal mask the CTAs go out longest first, and most blocks
+    of a long row need no mask."""
+    plan = fwd_plan(2304, 2304, 16, 256, window=2048)
+    assert (plan.rows, plan.keys, len(plan.ctas)) == (128, 32, 288)
+    walks = [len(classes) for _, _, classes in plan.ctas]
+    assert walks[0] == max(walks) == 2048 // 32 + 1 and walks == sorted(walks, reverse=True)
+    plan = fwd_plan(512, 512, 3, 64)
+    assert (plan.rows, plan.keys, len(plan.ctas)) == (64, 64, 24)
+    _, _, classes = plan.ctas[0]
+    flat = [c for per_warp in classes for c in per_warp]
+    assert flat.count("full") > flat.count("masked") > 0
