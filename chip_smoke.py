@@ -692,7 +692,8 @@ def scan_err(got, want) -> tuple[float, float]:
 
 def check_lru_scan(gen) -> dict:
     from repro_torch.kernels import ref
-    from repro_torch.kernels.lru_scan import lru_scan_cuda
+    from repro_torch.kernels.lru_scan import TILE, WARPS, lru_scan_cuda
+    from repro_torch.launch.profile_kernels import device_ms
     from repro_torch.models import get_config
     from repro_torch.models.rglru import _gates, init_rglru_block
 
@@ -703,39 +704,63 @@ def check_lru_scan(gen) -> dict:
     gates = {k: v for k, v in init_rglru_block(gen, 8, W, cfg.rglru.conv_width).items()
              if k in ("w_rg", "b_rg", "w_ig", "b_ig", "lam")}
 
-    def inputs(B, T, W):
+    def inputs(B, T, W, decay):
+        """decay "gates": a, x from _gates; "zero": a = 0; "one": a = 1 and
+        x = |u|, so h is a running sum that grows with t."""
         u = torch.randn(B, T, W, device="cuda", generator=gen)
+        h0 = torch.randn(B, W, device="cuda", generator=gen)
+        if decay != "gates":
+            a = torch.full_like(u, 0.0 if decay == "zero" else 1.0)
+            return a, (u.abs() if decay == "one" else u), h0
         a, x = _gates({k: v[..., :W, :W] if k.startswith("w_") else v[..., :W]
                        for k, v in gates.items()}, u)
-        h0 = torch.randn(B, W, device="cuda", generator=gen)
         return a.contiguous(), x.contiguous(), h0
 
+    decays = {"gates": "from _gates", "zero": "= 0", "one": "= 1, x = |u|"}
     serve_shape = (RECURRENT["serve_recurrentgemma"][1], RECURRENT["serve_recurrentgemma"][2], W)
+    sub = TILE // WARPS
     worst = 0.0
-    for shape in (serve_shape, (3, 37, 100), (1, 1, 5), (2, 129, W - 3)):
-        a, x, h0 = inputs(*shape)
-        abs_err, err = scan_err(lru_scan_cuda(a, x, h0), ref.reference_lru_scan(a, x, h0))
+    # the kernel's tiles (TILE steps) and sub-chunks (TILE // WARPS) +-1, W - 3
+    # (off its 32 channels a CTA and its 16-byte copies), B = 1, hard decays
+    for shape, decay in ((serve_shape, "gates"), ((3, 37, 100), "gates"), ((1, 1, 5), "gates"),
+                         ((2, TILE + 1, W - 3), "gates"), ((2, TILE - 1, W), "gates"),
+                         ((1, TILE, W - 3), "gates"), ((2, sub - 1, W), "gates"),
+                         ((1, sub + 1, W - 3), "gates"), ((2, 2 * TILE + 1, W), "zero"),
+                         ((1, TILE + 1, W - 3), "zero"), (serve_shape, "one"),
+                         ((1, TILE - 1, W - 3), "one")):
+        a, x, h0 = inputs(*shape, decay)
+        got = lru_scan_cuda(a, x, h0)
+        abs_err, err = scan_err(got, ref.reference_lru_scan(a, x, h0))
         worst = max(worst, err)
-        log("kernels", f"lru_scan {shape} fp32, a from _gates, nonzero h0: max_abs_err="
+        log("kernels", f"lru_scan {shape} fp32, a {decays[decay]}, nonzero h0: max_abs_err="
             f"{abs_err:.3e}, {err:.3e} of max(1, max|h|) (tol {SCAN_RTOL:g}) "
             f"{'ok' if err <= SCAN_RTOL else 'FAIL'}")
         if err > SCAN_RTOL:
-            raise RuntimeError(f"lru_scan {shape}: max_err {err} > {SCAN_RTOL}")
-        if shape == serve_shape:
+            raise RuntimeError(f"lru_scan {shape} ({decay}): max_err {err} > {SCAN_RTOL}")
+        # two calls on the same inputs give the same bits (no cross-CTA sums)
+        if not torch.equal(got, lru_scan_cuda(a, x, h0)):
+            raise RuntimeError(f"lru_scan {shape} ({decay}): two calls on the same "
+                               "inputs differ")
+        if shape == serve_shape and decay == "gates":
             serve_err, timed = (abs_err, err), (a, x, h0)
+        del a, x, h0, got
+    log("kernels", "lru_scan: two calls on the same inputs give the same output, bit for "
+        "bit, in every case above")
     a, x, h0 = timed
     t_kernel = time_ms(lambda: lru_scan_cuda(a, x, h0))
     t_plain = time_ms(lambda: ref.reference_lru_scan(a, x, h0), iters=3, warmup=1)
     t_kernel2 = time_ms(lambda: lru_scan_cuda(a, x, h0))
+    dev = sum(device_ms(lambda: lru_scan_cuda(a, x, h0)).values()) or None
     nbytes = 12 * a.numel() + 4 * h0.numel()      # a, x in, h out; h0 in
     bound = nbytes / PEAK_BYTES * 1e3
     log("kernels", f"lru_scan serve shape {serve_shape} fp32: kernel {t_kernel:.4f} / "
         f"{t_kernel2:.4f} ms, plain {t_plain:.4f} ms, bound {bound:.4f} ms (bytes, "
         f"{nbytes / 1e6:.1f} MB), {bound / min(t_kernel, t_kernel2):.1%} of it; "
-        f"library: none ({NO_LIBRARY}); worst case err {worst:.3e}")
+        f"library: none ({NO_LIBRARY}); worst case err {worst:.3e}; device time per call "
+        f"(torch.profiler) {fmt_ms(dev)}")
     return dict(name="lru_scan", **KERNELS["lru_scan"], launches=0,
                 max_abs_err=serve_err[0], max_rel_err=serve_err[1], ms=min(t_kernel, t_kernel2), plain_ms=t_plain, bound_ms=bound,
-                bound_by="bytes", library_ms=None, library_note=NO_LIBRARY)
+                bound_by="bytes", library_ms=None, library_note=NO_LIBRARY, device_ms=dev)
 
 
 def check_wkv_scan(gen) -> dict:

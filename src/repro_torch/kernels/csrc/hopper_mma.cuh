@@ -1,8 +1,8 @@
 // Helpers shared by the port's Hopper (sm_90a) kernels: element conversion,
 // cp.async, and mma.sync tensor-core fragments for fp32 (as 3xTF32) and
-// bf16.  Included by flash_attention.cu, flash_attention_bwd.cu and
-// wkv_scan.cu; kernels/build.py hashes this file into every library's name,
-// so an edit here rebuilds them all.
+// bf16.  Included by flash_attention.cu, flash_attention_bwd.cu,
+// wkv_scan.cu and lru_scan.cu; kernels/build.py hashes this file into every
+// library's name, so an edit here rebuilds them all.
 
 #pragma once
 

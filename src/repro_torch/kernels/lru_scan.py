@@ -5,7 +5,9 @@ Replaces the TPU kernel ``lru_scan_pallas`` of the JAX package
 The kernel's plain version is ``ref.reference_lru_scan``; ``ops.lru_scan``
 picks between them by the tensors' device.  :class:`LRUScan` puts the
 kernel under autograd with a backward that raises: the recurrent families
-are served, not trained, on the card (ROADMAP.md, queue 2, item 3).
+are served, not trained, on the card (ROADMAP.md, queue 2, "Backward
+kernels with no Pallas counterpart").  :func:`lru_scan_tiled` is the
+kernel's tiled walk in plain torch, for the CPU tests.
 """
 
 from __future__ import annotations
@@ -17,6 +19,8 @@ import torch
 from .build import entry
 
 _ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+# the kernel's walk (csrc/lru_scan.cu): time steps a tile, warps a CTA
+TILE, WARPS = 128, 8
 
 
 def lru_scan_cuda(a: torch.Tensor, x: torch.Tensor, h0: torch.Tensor) -> torch.Tensor:
@@ -56,6 +60,47 @@ def lru_scan_cuda(a: torch.Tensor, x: torch.Tensor, h0: torch.Tensor) -> torch.T
 lru_scan_cuda.launches = 0
 
 
+def lru_scan_tiled(a: torch.Tensor, x: torch.Tensor, h0: torch.Tensor, *,
+                   tile: int = TILE, warps: int = WARPS) -> torch.Tensor:
+    """The kernel's arithmetic in plain torch, on any device: T in tiles of
+    ``tile`` steps padded with a = 1 and x = 0, each tile split into
+    ``warps`` sub-chunks of ``tile // warps`` steps.  A sub-chunk is scanned
+    from zero into the pair (A, X); sub-chunk j starts from the tile's
+    carry-in with the pairs of sub-chunks 0 .. j - 1 folded on in that
+    order; each sub-chunk's recurrence is run again from its start, and the
+    last sub-chunk's last h carries into the next tile.  The kernel fuses
+    each multiply-add; this adds after rounding the product.  On no path:
+    the CPU tests check the design's numerics with it.
+
+    a, x: (B, T, W); h0: (B, W).  Returns (B, T, W) float32.
+    """
+    if tile % warps:
+        raise ValueError(f"tile {tile} is not a multiple of warps {warps}")
+    B, T, W = a.shape
+    sub, tiles = tile // warps, -(-T // tile)
+    pad = tiles * tile - T
+    af = torch.cat([a.float(), a.new_ones(B, pad, W, dtype=torch.float32)], 1)
+    xf = torch.cat([x.float(), x.new_zeros(B, pad, W, dtype=torch.float32)], 1)
+    af, xf = (t.view(B, tiles, warps, sub, W) for t in (af, xf))
+    out = torch.empty_like(af)
+    carry = h0.float()
+    for k in range(tiles):
+        ak, xk = af[:, k], xf[:, k]                  # (B, warps, sub, W)
+        A, X = ak[:, :, 0], xk[:, :, 0]
+        for i in range(1, sub):
+            X = ak[:, :, i] * X + xk[:, :, i]
+            A = A * ak[:, :, i]
+        starts = [carry]
+        for j in range(warps - 1):
+            starts.append(A[:, j] * starts[-1] + X[:, j])
+        h = torch.stack(starts, 1)                   # (B, warps, W)
+        for i in range(sub):
+            h = ak[:, :, i] * h + xk[:, :, i]
+            out[:, k, :, i] = h
+        carry = h[:, -1]
+    return out.view(B, tiles * tile, W)[:, :T]
+
+
 class LRUScan(torch.autograd.Function):
     """The kernel under autograd: ``apply(a, x, h0)``.  Its backward raises,
     so that a training step on the card fails where it needs a backward
@@ -69,4 +114,5 @@ class LRUScan(torch.autograd.Function):
     def backward(ctx, grad):
         raise NotImplementedError(
             "lru_scan has no backward kernel: the recurrent families are "
-            "served, not trained, on the card (ROADMAP.md, queue 2, item 3)")
+            "served, not trained, on the card (ROADMAP.md, queue 2, 'Backward "
+            "kernels with no Pallas counterpart')")

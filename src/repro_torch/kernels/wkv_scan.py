@@ -5,7 +5,8 @@ Replaces the TPU kernel ``wkv_scan_pallas`` of the JAX package
 ``s0`` and the final state ``s_T`` that serving needs.  The kernel's plain
 version is ``ref.reference_wkv``; ``ops.wkv_scan`` picks between them by
 the tensors' device.  :class:`WKVScan` puts the kernel under autograd with
-a backward that raises (ROADMAP.md, queue 2, item 4).
+a backward that raises (ROADMAP.md, queue 2, "Backward kernels with no
+Pallas counterpart").
 """
 
 from __future__ import annotations
@@ -77,4 +78,5 @@ class WKVScan(torch.autograd.Function):
     def backward(ctx, grad_out, grad_s):
         raise NotImplementedError(
             "wkv_scan has no backward kernel: the recurrent families are "
-            "served, not trained, on the card (ROADMAP.md, queue 2, item 4)")
+            "served, not trained, on the card (ROADMAP.md, queue 2, 'Backward "
+            "kernels with no Pallas counterpart')")

@@ -14,8 +14,12 @@ computes the same function, on the card:
 * ``chunk_combine`` at the largest merge of the training phase ((3,
   13426888) bf16, every row seg=1 acc=1, in place) against in-place
   ``torch.add``;
-* ``wkv_scan`` at rwkv6-1.6b's prefill shape (4, 512, 32, 64), which no
-  single PyTorch call computes.
+* ``wkv_scan`` at rwkv6-1.6b's prefill shape (4, 512, 32, 64) and
+  ``lru_scan`` at recurrentgemma-9b's (2, 2304, 4096) fp32 with a nonzero
+  h0; no single PyTorch call computes either recurrence, so they have no
+  library call.  Beside ``lru_scan``, ``torch.mul(a, x, out=h)`` moves the
+  same bytes (two fp32 reads and one write an element, contiguous): the
+  rate the card reaches on that traffic, not the same function.
 
 Each is timed three ways: CUDA events around 20 back-to-back calls (5 at
 recurrentgemma's shape), the device time of each kernel from
@@ -42,6 +46,7 @@ LOCAL_ATTN_SHAPE, LOCAL_WINDOW = (2, 2304, 2304, 1, 16, 256), 2048
 PAPER_7B_SHAPE = (2, 256, 256, 32, 1, 128)
 LARGEST_MERGE = (3, 13426888)
 WKV_SHAPE = (4, 512, 32, 64)
+LRU_SHAPE = (2, 2304, 4096)
 
 
 def events_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -131,6 +136,21 @@ def wkv_scan(gen) -> dict:
     return dict(shape=WKV_SHAPE, kernel=three_ways(kernel), kernel_again=events_ms(kernel))
 
 
+def lru_scan(gen) -> dict:
+    from repro_torch.kernels.lru_scan import lru_scan_cuda
+    B, T, W = LRU_SHAPE
+    # decays in the model's range: a = u ** r, u in (0.9, 0.999), r in (0, 1)
+    a = (0.9 + 0.099 * torch.rand(W, device="cuda", generator=gen)) ** torch.rand(
+        B, T, W, device="cuda", generator=gen)
+    x = torch.randn(B, T, W, device="cuda", generator=gen)
+    h0 = torch.randn(B, W, device="cuda", generator=gen)
+    h = torch.empty_like(a)
+    kernel = lambda: lru_scan_cuda(a, x, h0)
+    same_bytes = lambda: torch.mul(a, x, out=h)
+    return dict(shape=LRU_SHAPE, kernel=three_ways(kernel), same_bytes_mul=three_ways(same_bytes),
+                kernel_again=events_ms(kernel))
+
+
 def attention_backward(shape, dtype, gen) -> dict:
     from repro_torch.kernels.flash_attention import flash_attention_bwd_cuda, flash_attention_cuda
     B, Tq, Tk, KVH, G, D = shape
@@ -181,6 +201,7 @@ def main(argv=None) -> dict:
                                                window=LOCAL_WINDOW, iters=5),
                forward_paper_7b=attention_forward(PAPER_7B_SHAPE, torch.bfloat16, gen),
                wkv_scan=wkv_scan(gen),
+               lru_scan=lru_scan(gen),
                backward_train=attention_backward(TRAIN_SHAPE, torch.float32, gen),
                backward_paper_7b=attention_backward(PAPER_7B_SHAPE, torch.bfloat16, gen),
                chunk_combine=chunk_combine(gen))

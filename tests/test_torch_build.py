@@ -44,7 +44,7 @@ def test_library_name_changes_with_what_it_is_built_from(csrc, monkeypatch, edit
 
 def test_every_kernel_source_includes_only_headers_of_csrc():
     """Each kernel source's quoted includes name headers in ``csrc/``, which
-    the name hashes: the three that use tensor-core or cp.async helpers
+    the name hashes: the four that use tensor-core or cp.async helpers
     share ``hopper_mma.cuh``."""
     users = set()
     for name in SOURCES:
@@ -54,4 +54,4 @@ def test_every_kernel_source_includes_only_headers_of_csrc():
         assert all((build.CSRC / h).is_file() and h.endswith(".cuh") for h in quoted)
         if "hopper_mma.cuh" in quoted:
             users.add(name)
-    assert users == {"flash_attention", "flash_attention_bwd", "wkv_scan"}
+    assert users == {"flash_attention", "flash_attention_bwd", "wkv_scan", "lru_scan"}

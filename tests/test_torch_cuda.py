@@ -194,14 +194,28 @@ def _scan_inputs(shapes, seed, device):
 
 
 @pytest.mark.requires_cuda
-@pytest.mark.parametrize("b,t,w", [(2, 2304, 4096), (3, 37, 100), (1, 1, 5)])
-def test_lru_scan_kernel_matches_plain(cuda_device, b, t, w):
-    """a from the model's gate distribution (exp of a negative), nonzero
-    h0; T and B * W off every tile.  Tolerance 1e-5 of max(1, |h|): both
-    run the same recurrence in fp32 in the same order, the kernel with a
-    fused multiply-add."""
+@pytest.mark.parametrize("b,t,w,decay", [
+    (2, 2304, 4096, "gates"), (3, 37, 100, "gates"), (1, 1, 5, "gates"),
+    # the kernel's 128-step tiles and 16-step sub-chunks +-1, W - 3 (off the
+    # 32 channels a CTA and the 16-byte copies), B = 1
+    (2, 127, 4096, "gates"), (1, 129, 4093, "gates"), (2, 15, 4096, "gates"),
+    (1, 17, 4093, "gates"),
+    # a = 0 (each h is its x), a = 1 (h a running sum of |x|, growing to ~1800)
+    (2, 257, 4096, "zero"), (1, 129, 4093, "zero"), (2, 2304, 4096, "one"),
+    (1, 127, 4093, "one"),
+])
+def test_lru_scan_kernel_matches_plain(cuda_device, b, t, w, decay):
+    """a from the model's gate distribution (exp of a negative), or exactly
+    0 or 1; nonzero h0; T and B * W off every tile.  Tolerance 1e-5 of
+    max(1, |h|): both run the recurrence in fp32 in time order, the kernel
+    with fused multiply-adds and each sub-chunk's start folded from the
+    sub-chunks before it.  Two calls give the same bits."""
     z, x, h0 = _scan_inputs([(b, t, w), (b, t, w), (b, w)], t + w, cuda_device)
-    a = torch.exp(-8.0 * torch.sigmoid(z) * 0.05)
+    if decay == "gates":
+        a = torch.exp(-8.0 * torch.sigmoid(z) * 0.05)
+    else:
+        a = torch.full_like(z, 0.0 if decay == "zero" else 1.0)
+        x = x.abs() if decay == "one" else x
     before = ops.launch_counts()["lru_scan"]
     out = ops.lru_scan(a, x, h0)
     torch.cuda.synchronize()
@@ -209,6 +223,7 @@ def test_lru_scan_kernel_matches_plain(cuda_device, b, t, w):
     want = ref.reference_lru_scan(a, x, h0)
     tol = 1e-5 * max(1.0, want.abs().max().item())
     torch.testing.assert_close(out, want, rtol=0, atol=tol)
+    assert torch.equal(out, ops.lru_scan(a, x, h0))
 
 
 @pytest.mark.requires_cuda

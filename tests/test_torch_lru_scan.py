@@ -5,13 +5,18 @@ in interpret mode through ``repro.kernels.ops.lru_scan`` (as
 ``models/rglru.py::lru_scan_ref``.
 
 On the CPU ``ops.lru_scan`` takes the kernel's plain version; the CUDA
-kernel itself is checked against it in ``test_torch_cuda.py``.  The Pallas
+kernel itself is checked against it in ``test_torch_cuda.py``, and its
+tiled walk (``lru_scan_tiled``, the kernel's arithmetic in plain torch) is
+held here to the same JAX functions.  The Pallas
 kernel starts from h0 = 0, so nonzero starting states are held to the two
 jnp scans.  Tolerances (fp32 throughout): against the sequential oracle,
 which adds in the same order, atol 1e-6; against the log-depth scans
 (the Pallas kernel's in-tile combine, the model's ``associative_scan``),
 which reassociate the products, 1e-5 of max(1, |h|).
 """
+
+import re
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -24,6 +29,8 @@ from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro.models.rglru import lru_scan_ref as jax_model_scan
 from repro_torch.kernels import ops
+from repro_torch.kernels.lru_scan import TILE, WARPS, lru_scan_tiled
+from repro_torch.launch import sweep_lru_scan
 
 SEQ_ATOL = 1e-6
 SCAN_TOL = 1e-5
@@ -106,3 +113,80 @@ def test_lru_scan_dispatch_and_gradient_on_cpu():
         *(jnp.asarray(t.numpy()) for t in (a, x, h0)))
     for g, j in zip(got, want):
         _close_to_scan(g.numpy(), j)
+
+
+#: decays at the ends of what the kernel may see, and the model's own:
+#: a = u ** sigmoid(z) with u in the Griffin init's (0.9, 0.999) per channel
+DECAYS = ["zero", "1e-30", "half", "gates", "one"]
+
+
+def _decayed_inputs(b, t, w, decay, seed):
+    rng = np.random.default_rng(seed)
+    if decay == "gates":
+        u = rng.uniform(0.9, 0.999, w)
+        r = 1.0 / (1.0 + np.exp(-rng.standard_normal((b, t, w))))
+        a = (u ** r).astype(np.float32)
+    else:
+        value = {"zero": 0.0, "1e-30": 1e-30, "half": 0.5, "one": 1.0}[decay]
+        a = np.full((b, t, w), value, np.float32)
+    x = rng.standard_normal((b, t, w)).astype(np.float32)
+    h0 = rng.standard_normal((b, w)).astype(np.float32)
+    return a, x, h0
+
+
+def _edge_lengths(tile, warps):
+    """T = 1, a sub-chunk and a tile each +-1, and three tiles and a bit."""
+    sub = tile // warps
+    return sorted({1, sub - 1, sub, sub + 1, tile - 1, tile, tile + 1,
+                   2 * tile + sub + 1} - {0})
+
+
+@pytest.mark.parametrize("decay", DECAYS)
+@pytest.mark.parametrize("tile,warps,t", [(TILE, WARPS, t) for t in _edge_lengths(TILE, WARPS)]
+                         + [(8, 4, t) for t in _edge_lengths(8, 4)])
+def test_lru_scan_tiled_matches_jax(tile, warps, t, decay):
+    """The kernel's tiled walk (its own tile and warps, and a small tile
+    that puts many tiles in a short T) against the Pallas kernel in
+    interpret mode from h0 = 0 and against the JAX oracle from a nonzero
+    h0; W = 50, off the kernel's 32 channels a CTA.  Tolerance 1e-5 of
+    max(1, |h|), at every decay: with a = 1, h is a running sum."""
+    a, x, h0 = _decayed_inputs(2, t, 50, decay, seed=t * 7 + DECAYS.index(decay))
+    tiled = lambda start: lru_scan_tiled(torch.from_numpy(a), torch.from_numpy(x),
+                                         torch.from_numpy(start), tile=tile,
+                                         warps=warps).numpy()
+    got = tiled(np.zeros_like(h0))
+    assert got.shape == (2, t, 50) and got.dtype == np.float32
+    _close_to_scan(got, jops.lru_scan(jnp.asarray(a), jnp.asarray(x), time_tile=32,
+                                      width_tile=32, batch_tile=2))
+    _close_to_scan(tiled(h0), jref.reference_lru_scan(a, x, h0))
+
+
+def test_lru_scan_tiled_walks_the_kernels_tiles():
+    """The mirror's default tile and warps are the CUDA kernel's, and a tile
+    that does not split into whole sub-chunks is refused."""
+    src = (Path(__file__).resolve().parents[1] / "src/repro_torch/kernels/csrc/lru_scan.cu"
+           ).read_text()
+    consts = dict(re.findall(r"constexpr int (k\w+) = (\d+);", src))
+    assert (int(consts["kTile"]), int(consts["kWarps"])) == (TILE, WARPS)
+    a = torch.ones(1, 4, 3)
+    with pytest.raises(ValueError, match="multiple"):
+        lru_scan_tiled(a, a, a[:, 0], tile=6, warps=4)
+
+
+@pytest.mark.parametrize("layout", sweep_lru_scan.LAYOUTS, ids=lambda l: "_".join(map(str, l)))
+def test_sweep_lru_scan_rewrites_the_kernels_layout(layout):
+    """Each layout the sweep times is the kernel's source with its tile,
+    warps, stages and shared-memory floor replaced; the first is the kernel
+    as committed."""
+    tile, warps, stages, floor_kb = layout
+    consts = dict(re.findall(r"constexpr int (k\w+) = (\d+);",
+                             sweep_lru_scan.variant_source(*layout)))
+    assert (int(consts["kTile"]), int(consts["kWarps"]), int(consts["kStages"])) == (
+        tile, warps, stages)
+    assert f"ring_bytes() > {floor_kb * 1024}" in sweep_lru_scan.variant_source(*layout)
+    assert sweep_lru_scan.smem_bytes(*layout) >= floor_kb * 1024
+    src = (Path(__file__).resolve().parents[1] / "src/repro_torch/kernels/csrc/lru_scan.cu"
+           ).read_text()
+    kept = dict(re.findall(r"constexpr int (k\w+) = (\d+);", src))
+    assert sweep_lru_scan.LAYOUTS[0] == (int(kept["kTile"]), int(kept["kWarps"]),
+                                         int(kept["kStages"]), 0)
