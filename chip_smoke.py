@@ -28,7 +28,18 @@ Phases, each printing its own lines and seconds, and raising on failure
                versions of all of them;
   6. serve_rwkv6 — the same for full-width rwkv6-1.6b: 4 requests of
                512-token prompts, 24 wkv_scan launches per prefill;
-  7. train   — full-width smollm-360m trained data-parallel on 4 ranks, all on
+  7. serve_gemma2, serve_deepseek67b, serve_dbrx — the same for the other
+               GQA families at full width and a cut depth (fp32 weights at
+               full depth do not fit the card): gemma2-27b, 12 of 46 layers
+               (6 local/global pairs, softcap 50), 2 requests of 4352-token
+               prompts that wrap the 4096-key window; deepseek-67b, 8 of 95
+               layers; dbrx-132b (16 experts, top 4), 4 of 40 layers; one
+               flash_attention launch per layer per prefill; for dbrx the
+               tokens whose expert set differs between the kernels' and the
+               plain versions' prefill are counted and held to a share
+               (ROUTE_FLIP_LIMIT), and the logits check pins the plain run
+               to the kernels' experts;
+  8. train   — full-width smollm-360m trained data-parallel on 4 ranks, all on
                this card (host-staged gloo wire): one rank's gradients through
                the attention kernels against plain attention; ``sync="xla"``
                against ``sync="r2ccl"`` (degraded rank 1, lost 0.5, g 2) for 4
@@ -48,8 +59,10 @@ cuDNN alike.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
+import os
 import subprocess
 import sys
 import time
@@ -98,6 +111,14 @@ KERNELS = {
         source="src/repro_torch/kernels/csrc/wkv_scan.cu",
         replaces="src/repro/kernels/wkv_scan.py:59"),
 }
+#: the other GQA families, full width at a cut depth: (arch, layers kept,
+#: batch, prompt, context, kernel launches per prefill).  gemma2's prompts
+#: (4352) exceed its 4096-key window, so its local and global layers differ.
+GQA = {
+    "serve_gemma2": ("gemma2-27b", 12, 2, 4352, 4608, dict(flash_attention=12)),
+    "serve_deepseek67b": ("deepseek-67b", 8, 4, 512, 1024, dict(flash_attention=8)),
+    "serve_dbrx": ("dbrx-132b", 4, 4, 512, 1024, dict(flash_attention=4)),
+}
 #: the path whose launches each kernel's row reports
 MAIN_PATH = {"flash_attention": "serve", "flash_attention_bwd": "train",
              "chunk_combine": "train", "lru_scan": "serve_recurrentgemma",
@@ -125,16 +146,39 @@ ATOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}   # kernel vs plain
 # recurrent phases this bf16 limit is only a guard on the rounding: it is
 # too loose to catch a kernel fault, and the float32 check (LOGIT_ATOL_F32)
 # is the one that holds the kernels.
-LOGIT_ATOL = {"serve": 5e-2, "serve_recurrentgemma": 0.25, "serve_rwkv6": 0.25}
+# The GQA phases: deepseek-67b (8 plain llama layers) like smollm, with
+# room for its wider rows; gemma2-27b's residual is scaled by sqrt(4608) at the embedding, so
+# its bf16 ulps are larger; dbrx-132b's router picks its top 4 of 16 experts
+# from bf16 activations, and a token whose 4th and 5th expert swap between
+# the two paths moves by a whole expert's share.  The float32 check holds
+# the kernels in all three.
+LOGIT_ATOL = {"serve": 5e-2, "serve_recurrentgemma": 0.25, "serve_rwkv6": 0.25,
+              "serve_gemma2": 0.25, "serve_deepseek67b": 0.1, "serve_dbrx": 0.25}
 # the same with a float32 residual stream, where the gap is the kernels' own
 # fp32 error (about 1e-6 relative) carried through the layers
 LOGIT_ATOL_F32 = 1e-3
+# MoE (dbrx): the share of (token, layer) pairs whose expert set differs
+# between the kernels' and the plain versions' prefill, by residual dtype.
+# On an H100 it measured 3 of 8192 (3.7e-4) in float32 and 71 of 8192
+# (8.7e-3) in bf16: ties within a rounding.  The limits are a few times
+# those, so routing that drifts broadly between the two paths fails the
+# phase although the logits check pins the plain run to the kernels' experts
+ROUTE_FLIP_LIMIT = {"float32": 1e-3, "bfloat16": 2e-2}
 # scans vs their plain versions, relative to max(1, max |value|): both run
 # the recurrence in fp32 in time order, the kernels with fused multiply-adds
 # and (wkv) the sum over k in another order
 SCAN_RTOL = 1e-5
 # one recurrentgemma-9b local_attn layer in prefill: (B, Tq, Tk, KVH, G, D)
 RG_ATTN, RG_WINDOW = (2, 2304, 2304, 1, 16, 256), 2048
+# one gemma2-27b layer in prefill: 16 KV heads of 2 queries at head_dim 128,
+# softcap 50; the local layers' window, the global layers' none
+G2_ATTN, G2_WINDOW, G2_CAP = (2, 4352, 4352, 16, 2, 128), 4096, 50.0
+# its library yardstick is flex_attention compiled (a softcap score_mod, a
+# causal window block mask, GQA): SDPA has no logit softcap.  Its error
+# against the plain version is held to FLEX_ATOL, a guard that it computes
+# the same function (a TF32 product would err by about 1e-3, a wrong mask or
+# cap by O(1))
+FLEX_ATOL = 1e-2
 # backward kernel vs autograd through the plain version, relative to
 # max(1, max |gradient|): a dK entry sums over up to Tq * G query rows
 BWD_RTOL = {torch.float32: 1e-3, torch.bfloat16: 3e-2}
@@ -261,6 +305,8 @@ def check_flash_attention(gen) -> dict:
          dict(q_offset=100, k_valid_len=150)),
         ("glm4-heads", (1, 64, 64, 2, 16, 128), torch.bfloat16, {}),
         ("recurrentgemma-local", RG_ATTN, torch.float32, dict(window=RG_WINDOW)),
+        ("gemma2-local", G2_ATTN, torch.float32, dict(window=G2_WINDOW, logit_cap=G2_CAP)),
+        ("gemma2-global", G2_ATTN, torch.float32, dict(logit_cap=G2_CAP)),
         ("D=256 ragged", (1, 70, 70, 1, 16, 256), torch.float32, dict(window=33)),
         # the tiles' edges: one position a CTA (G = 64), hubert's head_dim 80,
         # lengths off every row and key tile, window and prefix at both tile
@@ -275,7 +321,7 @@ def check_flash_attention(gen) -> dict:
          dict(window=64, prefix_len=20)),
         ("D=256 bf16", (1, 300, 300, 1, 16, 256), torch.bfloat16, dict(window=200)),
     ]
-    smollm_err = rg_err = None
+    smollm_err = rg_err = g2_err = None
     for label, shape, dtype, kw in cases:
         q, k, v = inputs(*shape, dtype)
         out = flash_attention_cuda(q, k, v, **kw)
@@ -294,6 +340,8 @@ def check_flash_attention(gen) -> dict:
             smollm_err = err
         if label == "recurrentgemma-local":
             rg_err = err
+        if label == "gemma2-local":
+            g2_err = err
         del q, k, v, out, want
 
     # two calls on the same inputs give the same bits, output and lse (no
@@ -311,6 +359,7 @@ def check_flash_attention(gen) -> dict:
     del q, k, v, outs, lse
 
     rg = time_local_attention(gen, ref, flash_attention_cuda)
+    g2 = time_gemma2_attention(gen, ref, flash_attention_cuda)
 
     # timing at the serving prefill shape (one layer's attention), fp32, and
     # at paper-7b's heads in bf16, each against SDPA (causal, GQA)
@@ -331,6 +380,7 @@ def check_flash_attention(gen) -> dict:
     return dict(name="flash_attention", **KERNELS["flash_attention"],
                 launches=0, max_abs_err=smollm_err, **main,
                 recurrentgemma=dict(shape=RG_ATTN, max_abs_err=rg_err, **rg),
+                gemma2=dict(shape=G2_ATTN, max_abs_err=g2_err, **g2),
                 paper_7b_bf16=timed["paper-7b-heads"])
 
 
@@ -376,6 +426,80 @@ def time_local_attention(gen, ref, flash_attention_cuda) -> dict:
         f"version {t['library_err']:.2e}), {bound_text(t)}")
     log("kernels", f"flash_attention recurrentgemma-local, device time per call "
         f"(torch.profiler): kernel {fmt_ms(t['device_ms'])}, sdpa's kernels "
+        f"{fmt_ms(t['library_device_ms'])}")
+    return t
+
+
+def flex_forward(q, k, v, window: int, cap: float):
+    """flex_attention's forward on the kernel's layout, q (B, T, KVH, G, D)
+    and k, v (B, T, KVH, D): causal within ``window`` keys, logits capped
+    at ``cap``, GQA, compiled by torch.compile.  Returns a callable giving
+    (B, KVH * G, T, D)."""
+    import torch._inductor.config as inductor_config
+    from torch.nn.attention.flex_attention import create_block_mask, flex_attention
+    # inductor's and Triton's caches in the checkout's build directory, and
+    # no compile worker processes
+    cache = REPO / "build" / "torch_compile"
+    os.environ.setdefault("TORCHINDUCTOR_CACHE_DIR", str(cache / "inductor"))
+    os.environ.setdefault("TRITON_CACHE_DIR", str(cache / "triton"))
+    inductor_config.compile_threads = 1
+    B, T, KVH, G, D = q.shape
+    qs = q.permute(0, 2, 3, 1, 4).reshape(B, KVH * G, T, D)
+    ks, vs = k.transpose(1, 2), v.transpose(1, 2)
+
+    def softcap(score, b, h, q_idx, k_idx):
+        return torch.tanh(score / cap) * cap
+
+    def local(b, h, q_idx, k_idx):
+        return (k_idx <= q_idx) & (q_idx - k_idx < window)
+
+    mask = create_block_mask(local, None, None, T, T, device=q.device)
+    flex = torch.compile(flex_attention, dynamic=False)
+    return lambda: flex(qs, ks, vs, score_mod=softcap, block_mask=mask, enable_gqa=True)
+
+
+def time_gemma2_attention(gen, ref, flash_attention_cuda) -> dict:
+    """One gemma2-27b local layer's prefill attention (16 KV heads of 2
+    queries at head_dim 128, window 4096, softcap 50, fp32): kernel by
+    events (twice, around the others), the plain version and compiled
+    flex_attention, the kernel's and flex's device time, against the
+    bound."""
+    from repro_torch.launch.profile_kernels import device_ms
+    B, T, KVH, G, D = G2_ATTN[0], G2_ATTN[1], *G2_ATTN[3:]
+    q = torch.randn(B, T, KVH, G, D, device="cuda", generator=gen)
+    k = torch.randn(B, T, KVH, D, device="cuda", generator=gen)
+    v = torch.randn(B, T, KVH, D, device="cuda", generator=gen)
+    kw = dict(window=G2_WINDOW, logit_cap=G2_CAP)
+    kernel = lambda: flash_attention_cuda(q, k, v, **kw)
+    t0 = time.perf_counter()
+    library = flex_forward(q, k, v, G2_WINDOW, G2_CAP)
+    got = library()
+    torch.cuda.synchronize()
+    compile_s = time.perf_counter() - t0
+    if not torch.isfinite(got).all():
+        raise RuntimeError("flex_attention gemma2-local: non-finite output")
+    lib_err = (got.reshape(B, KVH, G, T, D).permute(0, 3, 1, 2, 4)
+               - ref.reference_attention(q, k, v, **kw)).abs().max().item()
+    if lib_err > FLEX_ATOL:
+        raise RuntimeError(f"flex_attention gemma2-local: max_abs_err {lib_err} against "
+                           f"the plain version > {FLEX_ATOL}")
+    del got
+    t_kernel = time_ms(kernel, iters=10)
+    t_plain = time_ms(lambda: ref.reference_attention(q, k, v, **kw), iters=3, warmup=1)
+    t_lib = time_ms(library, iters=10)
+    t_kernel2 = time_ms(kernel, iters=10)
+    t = dict(ms=min(t_kernel, t_kernel2), ms_again=max(t_kernel, t_kernel2),
+             plain_ms=t_plain, **attention_bound(q, k, ref, kw), library_ms=t_lib,
+             library_err=lib_err, library_note="flex_attention, torch.compile",
+             device_ms=sum(device_ms(kernel).values()) or None,
+             library_device_ms=sum(device_ms(library).values()) or None)
+    log("kernels", f"flash_attention gemma2-local {G2_ATTN} fp32 window {G2_WINDOW} "
+        f"softcap {G2_CAP}: kernel {t['ms']:.4f} / {t['ms_again']:.4f} ms, plain "
+        f"{t_plain:.4f} ms, flex_attention compiled {t_lib:.4f} ms (compile and first "
+        f"call {compile_s:.1f} s; its max_abs_err vs the plain version {lib_err:.2e}; "
+        f"SDPA has no logit softcap), {bound_text(t)}")
+    log("kernels", f"flash_attention gemma2-local, device time per call (torch.profiler): "
+        f"kernel {fmt_ms(t['device_ms'])}, flex_attention's kernels "
         f"{fmt_ms(t['library_device_ms'])}")
     return t
 
@@ -830,12 +954,40 @@ def check_wkv_scan(gen) -> dict:
                 bound_by=bound_by, library_ms=None, library_note=NO_LIBRARY, device_ms=dev)
 
 
+@contextlib.contextmanager
+def recorded_routes(replay: list | None = None):
+    """Yields a list that collects each MoE layer's chosen experts (top_i,
+    in the router's order) while the block runs.  With ``replay``, the
+    routes another run collected, each layer takes that run's experts
+    instead, weighted by its own router's probabilities as ``moe._route``
+    weights its own choice."""
+    from repro_torch.models import moe
+    routes, route = [], moe._route
+    pinned = iter(replay) if replay is not None else None
+
+    def recording(params, xt, top_k):
+        probs, top_p, top_i = route(params, xt, top_k)
+        if pinned is not None:
+            top_i = next(pinned)
+            top_p = moe._renormalise(probs.gather(-1, top_i))
+        routes.append(top_i)
+        return probs, top_p, top_i
+
+    moe._route = recording
+    try:
+        yield routes
+    finally:
+        moe._route = route
+
+
 def serve(card: str, phase: str, arch: str, batch: int, prompt: int, context: int,
-          per_prefill: dict[str, int], logit_atol: float) -> dict[str, int]:
+          per_prefill: dict[str, int], logit_atol: float,
+          layers: int | None = None) -> dict[str, int]:
     """One serve phase: the engine healthy and with a NIC failure, launch
     counts held to ``per_prefill`` times the two prefills (every other
     kernel at 0), then the prefill logits through the kernels against the
-    plain versions of all of them.  Returns the launch counts."""
+    plain versions of all of them.  ``layers`` cuts the depth (full width).
+    Returns the launch counts."""
     from repro_torch.core.failures import Failure, FailureType
     from repro_torch.kernels import ops
     from repro_torch.models import apply_model, get_config, init_caches, init_model
@@ -843,14 +995,20 @@ def serve(card: str, phase: str, arch: str, batch: int, prompt: int, context: in
     from repro_torch.tree import leaves
 
     cfg = get_config(arch)
+    depth = f"{cfg.num_layers} layers"
+    if layers is not None:
+        depth = f"{layers} of {cfg.num_layers} layers (full width, depth cut)"
+        cfg = dataclasses.replace(cfg, num_layers=layers)
     t0 = time.perf_counter()
     params = init_model(cfg, seed=0, device="cuda")
     torch.cuda.synchronize()
     heads = (f"{cfg.attention.num_heads}/{cfg.attention.num_kv_heads} heads"
              if cfg.attention else f"{cfg.d_model // cfg.rwkv.head_size} wkv heads")
     n_params = sum(t.numel() for t in leaves(params))
-    log(phase, f"{arch}: {cfg.num_layers} layers {tuple(cfg.block_pattern)}, d_model "
-        f"{cfg.d_model}, {heads}, {n_params / 1e6:.1f}M fp32 params "
+    moe = (f", {cfg.moe.num_experts} experts top {cfg.moe.top_k} of d_ff "
+           f"{cfg.moe.expert_d_ff}" if cfg.moe else "")
+    log(phase, f"{arch}: {depth} {tuple(cfg.block_pattern)}, d_model "
+        f"{cfg.d_model}, {heads}{moe}, {n_params / 1e6:.1f}M fp32 params "
         f"({4 * n_params / 1e9:.1f} GB), init {time.perf_counter() - t0:.2f} s")
     rng = np.random.default_rng(0)
     prompts = [rng.integers(0, cfg.vocab_size, prompt) for _ in range(batch)]
@@ -895,18 +1053,41 @@ def serve(card: str, phase: str, arch: str, batch: int, prompt: int, context: in
 
     # prefill logits through the kernels vs the same model with the plain
     # version of every kernel: with a float32 residual stream, where the gap
-    # is the kernels' own error, and with the config's own dtype
+    # is the kernels' own error, and with the config's own dtype.  An MoE
+    # router's top-k is a step function of its input, so an error of one
+    # rounding can swap a token's k-th and (k+1)-th expert, and the token
+    # then moves by a whole expert's share: the swaps are counted and the
+    # logits without them printed, and the check holds the kernels with the
+    # plain run pinned to the experts the kernels' run chose
     toks = torch.as_tensor(np.stack(prompts), device="cuda")
+    runs = [("auto", "auto", None), ("reference", "reference", None)]
+    if cfg.moe:
+        runs.append(("pinned", "reference", "auto"))
     for dtype, tol in (("float32", LOGIT_ATOL_F32), (cfg.dtype, logit_atol)):
         c = dataclasses.replace(cfg, dtype=dtype)
-        with torch.no_grad():
-            logits = {impl: apply_model(params, c, {"tokens": toks}, mode="prefill",
-                                        caches=init_caches(c, batch, context,
-                                                           dtype=torch.float32,
-                                                           device="cuda"),
-                                        kernel_impl=impl)[0][:, -1].float()
-                      for impl in ("auto", "reference")}
-        a, b = logits["auto"], logits["reference"]
+        logits, routes = {}, {}
+        for name, impl, replay in runs:
+            with torch.no_grad(), recorded_routes(routes.get(replay)) as routes[name]:
+                logits[name] = apply_model(
+                    params, c, {"tokens": toks}, mode="prefill",
+                    caches=init_caches(c, batch, context, dtype=torch.float32,
+                                       device="cuda"),
+                    kernel_impl=impl)[0][:, -1].float()
+        if cfg.moe:
+            flips = sum(int((a.sort(-1).values != b.sort(-1).values).any(-1).sum())
+                        for a, b in zip(routes["auto"], routes["reference"], strict=True))
+            pairs = batch * prompt * cfg.num_layers
+            free = (logits["auto"] - logits["reference"]).abs().max().item()
+            log(phase, f"MoE routing, {dtype} residual stream: {flips} of {pairs} "
+                f"(token, layer) pairs ({flips / pairs:.2e}; limit "
+                f"{ROUTE_FLIP_LIMIT[dtype]:g}) choose another expert set through the "
+                f"kernels than through the plain versions; prefill logits with each "
+                f"run's own routing: max_abs_err={free:.3e}; the check below pins the "
+                f"plain run to the kernels' experts")
+            if flips > ROUTE_FLIP_LIMIT[dtype] * pairs:
+                raise RuntimeError(f"MoE routing, {dtype} residual: {flips} of {pairs} "
+                                   f"pairs flip, over {ROUTE_FLIP_LIMIT[dtype]:g}")
+        a, b = logits["auto"], logits["pinned" if cfg.moe else "reference"]
         if not (torch.isfinite(a).all() and a.shape == (batch, cfg.vocab_size)):
             raise RuntimeError(f"prefill logits: shape {tuple(a.shape)} or non-finite")
         err = (a - b).abs().max().item()
@@ -920,7 +1101,7 @@ def serve(card: str, phase: str, arch: str, batch: int, prompt: int, context: in
             raise RuntimeError(f"prefill logits kernel vs plain, {dtype} residual: "
                                f"max_abs_err {err}, top-1 equal {same.tolist()} "
                                f"(decided {decided.tolist()})")
-    del params, logits, a, b
+    del params, logits, routes, a, b
     torch.cuda.empty_cache()
     return launches
 
@@ -1182,6 +1363,11 @@ def main() -> int:
         t0 = time.perf_counter()
         by_path[phase] = serve(card, phase, arch, batch, prompt, context, per_prefill,
                                LOGIT_ATOL[phase])
+        log(phase, f"{time.perf_counter() - t0:.1f} s")
+    for phase, (arch, layers, batch, prompt, context, per_prefill) in GQA.items():
+        t0 = time.perf_counter()
+        by_path[phase] = serve(card, phase, arch, batch, prompt, context, per_prefill,
+                               LOGIT_ATOL[phase], layers=layers)
         log(phase, f"{time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     by_path["train"] = train(card)

@@ -2,21 +2,29 @@
 
 The port's copy of the part of the JAX package's ``core/comm_sim.py`` that
 the serving engine and the recovery control plane read: the testbed and
-recovery-cost constants, and :func:`strategy_rate` (all branches).  The
-iteration / inference simulators that build on them are not ported yet.
+recovery-cost constants, :func:`strategy_rate` (all branches), and
+:func:`_strategy_program`, the collective program a strategy runs under a
+failure state, which the control plane's replan stage swaps in.  The
+iteration / inference simulators that build on them, the event backend and
+``_strategy_capacities`` are not ported yet.
 """
 
 from __future__ import annotations
 
 from typing import Sequence
 
+from .allreduce import build_r2ccl_all_reduce
+from .failures import FailureState
 from .partition import (
     plan_partition,
     plan_partition_overlapped,
     ring_coeff,
 )
+from .recursive import build_recursive_all_reduce
 from .recursive import predict_time as recursive_predict_time
 from .recursive import spectrum_levels
+from .schedule import CollectiveProgram, ring_program
+from .topology import ClusterTopology
 
 # --- hardware constants for the paper's testbed (H100 + CX7) ---------------
 H100_BF16_FLOPS = 989e12
@@ -89,4 +97,41 @@ def strategy_rate(
         t = recursive_predict_time(levels, 1.0, g=g)
         healthy_t = ring_coeff(n_nodes * g) / max(bandwidth_spectrum)
         return healthy_t / t if t > 0 else 0.0
+    raise ValueError(strategy)
+
+
+def _strategy_program(
+    strategy: str,
+    cluster: ClusterTopology,
+    state: FailureState,
+    *,
+    g: int,
+) -> CollectiveProgram:
+    """The CollectiveProgram a strategy actually runs under ``state``.
+
+    Ranks are nodes.  Single dispatch site for strategy eligibility rules
+    (r2ccl needs exactly one degraded node and n >= 3, recursive needs a
+    spectrum).  The R2CCL/recursive paths emit the *real* decomposed
+    schedules.
+    """
+    n = cluster.num_nodes
+    degraded = state.degraded_nodes()
+    order = list(range(n))
+
+    if strategy in ("ring", "balance", "hot_repair") or not degraded:
+        return ring_program(order, n)
+    if strategy == "r2ccl":
+        lost = cluster.lost_fractions(state.failed_nics)
+        worst = max(range(n), key=lambda i: lost[i])
+        if len(degraded) > 1 or n < 3:
+            return ring_program(order, n)
+        prog, _plan = build_r2ccl_all_reduce(order, worst, x=lost[worst], g=g)
+        return prog
+    if strategy == "recursive":
+        # level structure depends only on bandwidth *ratios*, so raw node
+        # bandwidths and channel-scaled capacities give the same program
+        prog, _levels = build_recursive_all_reduce(
+            cluster.bandwidths(state.failed_nics),
+            rail_sets=cluster.rail_sets(state.failed_nics), g=g)
+        return prog
     raise ValueError(strategy)

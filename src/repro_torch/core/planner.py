@@ -222,9 +222,8 @@ class Planner:
         g: int,
     ) -> Plan:
         """``score="static"`` prices built collective programs with the JAX
-        package's static cost analyzer; the port has neither the schedule
-        IR nor the analyzer yet."""
+        package's static cost analyzer (``analysis/cost.py``), which the
+        port has not copied yet (ROADMAP queue 1, item 7)."""
         raise NotImplementedError(
-            "score='static' needs the schedule IR and the static cost "
-            "analyzer, which the port gains with its collective data plane "
-            "(ROADMAP queue 1)")
+            "score='static' needs the static cost analyzer (analysis/cost.py), "
+            "which the port has not copied yet (ROADMAP queue 1, item 7)")

@@ -5,10 +5,14 @@ step of the port's engine, timed on the host clock and traced with
   PYTHONPATH=src python -m repro_torch.launch.profile_serve \\
       --arch smollm-360m --batch 4 --prompt-len 512 --context-len 1024
 
+``--num-layers`` cuts the depth (full width) for models whose full depth
+does not fit the card, as ``chip_smoke.py``'s serve phases cut it.
+
 For each phase it prints the step's host-clock time (median of five
 untraced steps, each ending in a synchronize), the device's busy time (the
 sum of kernel times in one traced step), the idle share of the step, the
-kernel launches, and the kernels taking the most device time; then one JSON
+kernel launches, the flash-attention forward's device time and share, and
+the kernels taking the most device time; then one JSON
 line with the same numbers and the card's name and power limit.  Needs a
 CUDA device: a traced CPU run says nothing about the card.
 """
@@ -16,6 +20,7 @@ CUDA device: a traced CPU run says nothing about the card.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import statistics
 import subprocess
@@ -47,8 +52,11 @@ def trace(step) -> dict:
                       and e.self_cpu_time_total == 0),
                      key=_device_us, reverse=True)
     busy_us = sum(_device_us(e) for e in kernels)
+    flash_us = sum(_device_us(e) for e in kernels if "flash_fwd" in e.key)
     return {
         "device_busy_ms": busy_us / 1e3,
+        "flash_ms": flash_us / 1e3,
+        "flash_share": flash_us / busy_us if busy_us else 0.0,
         "launches": sum(e.count for e in events if e.key in LAUNCH_EVENTS),
         "top_kernels": [{"name": e.key[:90], "calls": e.count,
                          "ms": _device_us(e) / 1e3,
@@ -63,6 +71,8 @@ def main(argv: list[str] | None = None) -> None:
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=512)
     ap.add_argument("--context-len", type=int, default=1024)
+    ap.add_argument("--num-layers", type=int, default=None,
+                    help="layers to keep of the config's (default: all)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_serve needs a CUDA device")
@@ -70,6 +80,9 @@ def main(argv: list[str] | None = None) -> None:
     torch.backends.cudnn.allow_tf32 = False
 
     cfg = get_config(args.arch)
+    full_layers = cfg.num_layers
+    if args.num_layers:
+        cfg = dataclasses.replace(cfg, num_layers=args.num_layers)
     params = init_model(cfg, seed=0, device="cuda")
     prefill, decode = make_prefill_fn(cfg), make_decode_fn(cfg)
     rng = np.random.default_rng(0)
@@ -121,13 +134,15 @@ def main(argv: list[str] | None = None) -> None:
         out[phase] = traced
         print(f"{phase}: {wall:.3f} ms on the host clock, device busy "
               f"{traced['device_busy_ms']:.3f} ms (idle {traced['idle_share']:.1%}), "
-              f"{traced['launches']} kernel launches")
+              f"{traced['launches']} kernel launches; the flash-attention kernel "
+              f"{traced['flash_ms']:.3f} ms ({traced['flash_share']:.1%})")
         for k in traced["top_kernels"]:
             print(f"  {k['ms']:9.3f} ms {k['share']:6.1%} x{k['calls']:<5d} {k['name']}")
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60).stdout.strip()
-    print(json.dumps({"arch": args.arch, "batch": args.batch,
+    print(json.dumps({"arch": args.arch, "num_layers": cfg.num_layers,
+                      "full_layers": full_layers, "batch": args.batch,
                       "prompt_len": args.prompt_len,
                       "context_len": args.context_len, "card": card, **out}))
 

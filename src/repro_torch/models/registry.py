@@ -9,6 +9,9 @@ from repro_torch.configs.base import ModelConfig
 ARCHITECTURES: dict[str, str] = {
     "smollm-360m": "repro_torch.configs.smollm_360m",
     "glm4-9b": "repro_torch.configs.glm4_9b",
+    "deepseek-67b": "repro_torch.configs.deepseek_67b",
+    "gemma2-27b": "repro_torch.configs.gemma2_27b",
+    "dbrx-132b": "repro_torch.configs.dbrx_132b",
     "recurrentgemma-9b": "repro_torch.configs.recurrentgemma_9b",
     "rwkv6-1.6b": "repro_torch.configs.rwkv6_1_6b",
     # the paper's own simulated training model (Fig. 8)
@@ -18,12 +21,9 @@ ARCHITECTURES: dict[str, str] = {
 #: Architectures of the JAX package that the port does not run yet, with what
 #: each still needs.
 NOT_PORTED: dict[str, str] = {
-    "dbrx-132b": "the MoE feed-forward",
-    "deepseek-v3-671b": "MoE, MLA attention and the MTP head",
-    "gemma2-27b": "the local/global attention pattern",
+    "deepseek-v3-671b": "MLA attention and the MTP head",
     "paligemma-3b": "the vision_text frontend",
     "hubert-xlarge": "the audio_frames frontend and encoder-only mode",
-    "deepseek-67b": "its config copy (dense; runs on the ported path)",
 }
 
 

@@ -1,20 +1,25 @@
 """Model assembly: embedding -> pattern block stack -> final norm -> unembed.
 
-The port of the JAX package's ``models/transformer.py`` for dense GQA and
-the recurrent families: block patterns of ``attn``, ``local_attn``
-(sliding window), ``rglru`` (RecurrentGemma) and ``rwkv`` (RWKV-6).
+The port of the JAX package's ``models/transformer.py`` for GQA text
+models, dense or MoE, and the recurrent families: block patterns of
+``attn``, ``local_attn`` (the config's sliding window), ``global_attn``
+(full attention, or ``window_override``; Gemma-2 alternates it with
+``local_attn``), ``rglru`` (RecurrentGemma) and ``rwkv`` (RWKV-6), with a
+dense MLP or the MoE feed-forward (``models/moe.py``) after attention.
 Parameters keep its pytree layout: ``blocks`` is a tuple over the pattern
 of dicts whose tensors carry a leading ``n_groups`` axis (the axis
-``lax.scan`` runs over there; a Python loop runs over it here), ``tail``
-holds the remainder layers.  Caches are stacked the same way, one per
-layer kind: a ``KVCache`` for attention (a ``local_attn`` cache holds
-``min(window, context_len)`` slots, a ring buffer), an ``RGLRUState`` or an
-``RWKVState``.  Modes ``train`` (full sequence, logits everywhere, no
-caches), ``prefill`` (build caches, logits at the last position) and
-``decode`` (one token + caches).  With ``cfg.remat``, train mode recomputes
-each layer in the backward pass (``torch.utils.checkpoint``, the
-counterpart of ``jax.checkpoint``).  MoE, MLA, global/local attention
-patterns and the modality frontends raise ``NotImplementedError``.
+``lax.scan`` runs over there; a Python loop runs over it here), ``lead``
+holds the ``moe.first_k_dense`` leading dense-FFN layers and ``tail`` the
+remainder layers.  Caches are stacked the same way, one per layer kind: a
+``KVCache`` for attention (a ``local_attn`` cache holds
+``min(window, context_len)`` slots, a ring buffer, as does any attention
+cache under ``window_override``), an ``RGLRUState`` or an ``RWKVState``.
+Modes ``train`` (full sequence, logits everywhere, no caches), ``prefill``
+(build caches, logits at the last position) and ``decode`` (one token +
+caches).  With ``cfg.remat``, train mode recomputes each layer in the
+backward pass (``torch.utils.checkpoint``, the counterpart of
+``jax.checkpoint``).  MLA, the MTP head and the modality frontends raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -28,17 +33,16 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from . import layers as L
+from . import moe as MOE
 from . import rglru as RG
 from . import rwkv6 as RW
 
-ATTN_KINDS = ("attn", "local_attn")
+ATTN_KINDS = ("attn", "local_attn", "global_attn")
 KINDS = (*ATTN_KINDS, "rglru", "rwkv")
 
 
 def _check_supported(cfg: ModelConfig) -> None:
     missing = []
-    if cfg.moe is not None and cfg.moe.num_experts > 0:
-        missing.append("MoE feed-forward")
     unknown = sorted(set(cfg.block_pattern) - set(KINDS))
     if unknown:
         missing.append(f"block kinds {unknown}")
@@ -52,15 +56,32 @@ def _check_supported(cfg: ModelConfig) -> None:
         missing.append("MTP head")
     if missing:
         raise NotImplementedError(
-            f"{cfg.name}: the port runs dense GQA and recurrent text models; "
-            f"not yet ported: {', '.join(missing)} (ROADMAP.md, queue 1)")
+            f"{cfg.name}: the port runs GQA (dense or MoE) and recurrent text "
+            f"models; not yet ported: {', '.join(missing)} (ROADMAP.md, queue 1)")
 
 
 # ---------------------------------------------------------------------------
 # per-layer init / apply
 # ---------------------------------------------------------------------------
 
-def _init_layer(gen: torch.Generator, cfg: ModelConfig, kind: str, lead=()) -> dict:
+def _lead_layers(cfg: ModelConfig) -> int:
+    """Leading layers with a dense FFN (``moe.first_k_dense``), run unscanned."""
+    return cfg.moe.first_k_dense if (cfg.moe and cfg.moe.first_k_dense) else 0
+
+
+def _init_ffn(gen: torch.Generator, cfg: ModelConfig, layer_idx: int, lead=()):
+    """("moe", params) from layer ``first_k_dense`` on in an MoE config, else
+    ("mlp", params)."""
+    m = cfg.moe
+    if m is not None and m.num_experts > 0 and layer_idx >= _lead_layers(cfg):
+        return "moe", MOE.init_moe(gen, cfg.d_model, m.expert_d_ff or cfg.d_ff,
+                                   m.num_experts, m.num_shared_experts,
+                                   cfg.activation, lead)
+    return "mlp", L.init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.activation, lead)
+
+
+def _init_layer(gen: torch.Generator, cfg: ModelConfig, kind: str, layer_idx: int,
+                lead=()) -> dict:
     norm_init, _ = L.make_norm(cfg.norm)
     params: dict[str, Any] = {"norm1": norm_init(cfg.d_model, lead, gen.device)}
     if kind in ATTN_KINDS:
@@ -77,14 +98,27 @@ def _init_layer(gen: torch.Generator, cfg: ModelConfig, kind: str, lead=()) -> d
                                             rw.decay_lora, rw.tokenshift_lora, lead)
         return params                  # the rwkv block holds its channel-mix
     params["norm2"] = norm_init(cfg.d_model, lead, gen.device)
-    params["mlp"] = L.init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.activation, lead)
+    ftype, params[ftype] = _init_ffn(gen, cfg, layer_idx, lead)
     return params
 
 
+def _window(cfg: ModelConfig, kind: str, window_override):
+    """The attention window of a layer kind: ``local_attn`` the config's
+    sliding window, ``global_attn`` the override (None: full attention),
+    ``attn`` the override or else the config's window."""
+    if kind == "local_attn":
+        return cfg.attention.sliding_window
+    if kind == "global_attn":
+        return window_override
+    return window_override or cfg.attention.sliding_window
+
+
 def _apply_layer(params, cfg: ModelConfig, kind: str, x, *, cache, mode,
-                 kernel_impl="auto"):
-    """Returns (x_out, new_cache)."""
+                 kernel_impl="auto", window_override=None):
+    """Returns (x_out, new_cache, aux_loss); aux_loss is None for a layer
+    without MoE."""
     _, norm_fn = L.make_norm(cfg.norm)
+    aux = None
     h = norm_fn(params["norm1"], x)
     if kind in ATTN_KINDS:
         a = cfg.attention
@@ -92,8 +126,8 @@ def _apply_layer(params, cfg: ModelConfig, kind: str, x, *, cache, mode,
             params["attn"], h, num_heads=a.num_heads,
             num_kv_heads=a.num_kv_heads, head_dim=a.head_dim,
             rope_theta=a.rope_theta, use_rope=a.use_rope, causal=a.causal,
-            window=a.sliding_window, logit_cap=a.logit_softcap, cache=cache,
-            mode=mode, impl=kernel_impl)
+            window=_window(cfg, kind, window_override),
+            logit_cap=a.logit_softcap, cache=cache, mode=mode, impl=kernel_impl)
     elif kind == "rglru":
         y, new_cache = RG.rglru_block(params["rglru"], h,
                                       conv_width=cfg.rglru.conv_width,
@@ -102,11 +136,19 @@ def _apply_layer(params, cfg: ModelConfig, kind: str, x, *, cache, mode,
         y, new_cache = RW.rwkv_block(params["rwkv"], h,
                                      head_size=cfg.rwkv.head_size,
                                      state=cache, mode=mode, impl=kernel_impl)
-        return x + y.to(x.dtype), new_cache
+        return x + y.to(x.dtype), new_cache, aux
     x = x + y.to(x.dtype)
     h2 = norm_fn(params["norm2"], x)
-    y2 = L.mlp(params["mlp"], h2, cfg.activation)
-    return x + y2.to(x.dtype), new_cache
+    if "moe" in params:
+        m = cfg.moe
+        y2, aux = MOE.moe_ffn(params["moe"], h2, num_experts=m.num_experts,
+                              top_k=m.top_k, capacity_factor=m.capacity_factor,
+                              activation=cfg.activation,
+                              router_aux_weight=m.router_aux_weight,
+                              expert_sharding=m.expert_axis)
+    else:
+        y2 = L.mlp(params["mlp"], h2, cfg.activation)
+    return x + y2.to(x.dtype), new_cache, aux
 
 
 # ---------------------------------------------------------------------------
@@ -114,12 +156,15 @@ def _apply_layer(params, cfg: ModelConfig, kind: str, x, *, cache, mode,
 # ---------------------------------------------------------------------------
 
 def _pattern_split(cfg: ModelConfig) -> tuple[int, list[str], list[str]]:
-    """(num_groups, pattern, remainder_kinds)."""
+    """(num_groups, pattern, remainder_kinds).  The leading
+    ``first_k_dense`` layers run unscanned, so the groups cover
+    ``num_layers - first_k_dense``."""
     p = list(cfg.block_pattern)
+    lead = _lead_layers(cfg)
     if not cfg.scan_layers:
-        return 0, p, cfg.pattern_layers
-    n_groups = cfg.num_layers // len(p)
-    remainder = cfg.pattern_layers[n_groups * len(p):]
+        return 0, p, cfg.pattern_layers[lead:]
+    n_groups = (cfg.num_layers - lead) // len(p)
+    remainder = cfg.pattern_layers[lead + n_groups * len(p):]
     return n_groups, p, remainder
 
 
@@ -136,23 +181,32 @@ def init_model(cfg: ModelConfig, *, seed: int = 0,
         "embed": L.init_embedding(gen, cfg.vocab_size, cfg.d_model,
                                   cfg.tie_embeddings)}
     n_groups, pattern, remainder = _pattern_split(cfg)
+    # the scanned groups and the tail take the MoE FFN in an MoE config (the
+    # JAX package initialises them as layer 10**6); only ``lead`` is dense
     if n_groups > 0:
-        params["blocks"] = tuple(_init_layer(gen, cfg, kind, (n_groups,))
+        params["blocks"] = tuple(_init_layer(gen, cfg, kind, 10**6, (n_groups,))
                                  for kind in pattern)
+    lead = _lead_layers(cfg)
+    if lead:
+        params["lead"] = [_init_layer(gen, cfg, cfg.pattern_layers[i], i)
+                          for i in range(lead)]
     if remainder:
-        params["tail"] = [_init_layer(gen, cfg, kind) for kind in remainder]
+        params["tail"] = [_init_layer(gen, cfg, kind, 10**6) for kind in remainder]
     norm_init, _ = L.make_norm(cfg.norm)
     params["final_norm"] = norm_init(cfg.d_model, (), dev)
     return params
 
 
 def _layer_cache(cfg: ModelConfig, kind: str, batch: int, context_len: int,
-                 dtype, dev, lead=()):
+                 window_override, dtype, dev, lead=()):
     if kind in ATTN_KINDS:
         a = cfg.attention
-        size = context_len
         if kind == "local_attn" and a.sliding_window:
             size = min(a.sliding_window, context_len)
+        elif window_override:
+            size = min(window_override, context_len)
+        else:
+            size = context_len
         return L.init_kv_cache(batch, size, a.num_kv_heads, a.head_dim, dtype,
                                dev, lead)
     if kind == "rglru":
@@ -163,21 +217,28 @@ def _layer_cache(cfg: ModelConfig, kind: str, batch: int, context_len: int,
 
 
 def init_caches(cfg: ModelConfig, batch: int, context_len: int,
-                dtype=torch.bfloat16, device: str | torch.device = "cuda") -> dict:
+                window_override=None, dtype=torch.bfloat16,
+                device: str | torch.device = "cuda") -> dict:
     """Cache dict matching the model structure, one cache per layer by its
     kind; ``blocks`` caches carry the leading ``n_groups`` axis like the
-    params."""
+    params.  ``window_override`` sizes the caches of ``attn`` and
+    ``global_attn`` layers as ``apply_model``'s argument windows them."""
     _check_supported(cfg)
     dev = resolve_device(device)
     n_groups, pattern, remainder = _pattern_split(cfg)
+
+    def one(kind, lead=()):
+        return _layer_cache(cfg, kind, batch, context_len, window_override, dtype,
+                            dev, lead)
+
     caches: dict[str, Any] = {}
     if n_groups > 0:
-        caches["blocks"] = tuple(
-            _layer_cache(cfg, kind, batch, context_len, dtype, dev, (n_groups,))
-            for kind in pattern)
+        caches["blocks"] = tuple(one(kind, (n_groups,)) for kind in pattern)
+    lead = _lead_layers(cfg)
+    if lead:
+        caches["lead"] = [one(cfg.pattern_layers[i]) for i in range(lead)]
     if remainder:
-        caches["tail"] = [_layer_cache(cfg, kind, batch, context_len, dtype, dev)
-                          for kind in remainder]
+        caches["tail"] = [one(kind) for kind in remainder]
     return caches
 
 
@@ -210,13 +271,16 @@ def apply_model(
     mode: str = "prefill",          # train | prefill | decode
     caches: dict | None = None,
     kernel_impl: str = "auto",
+    window_override: int | None = None,
 ) -> tuple[torch.Tensor, dict | None, torch.Tensor]:
     """Forward pass over ``batch["tokens"]`` (B, T).
 
-    Returns (logits, new_caches, aux_loss) like the JAX package; these
-    families have no auxiliary loss, so aux is a zero.  ``train`` takes no
-    caches and returns None for them; prefill and decode update ``caches``
-    (from :func:`init_caches`) in place and return them.
+    Returns (logits, new_caches, aux_loss) like the JAX package; aux_loss
+    is the sum of the MoE layers' router losses (a zero without MoE).
+    ``train`` takes no caches and returns None for them; prefill and decode
+    update ``caches`` (from :func:`init_caches`, with the same
+    ``window_override``) in place and return them.  ``window_override``
+    windows ``global_attn`` and ``attn`` layers.
     ``kernel_impl="reference"`` runs every kernel of the model (attention,
     ``lru_scan``, ``wkv_scan``) through its plain version on any device.
     """
@@ -231,15 +295,30 @@ def apply_model(
     x = x.to(torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32)
 
     n_groups, pattern, remainder = _pattern_split(cfg)
-    kw = dict(mode=mode, kernel_impl=kernel_impl)
+    kw = dict(mode=mode, kernel_impl=kernel_impl, window_override=window_override)
+    total_aux = torch.zeros((), device=x.device)
 
     def layer(p, kind, x, cache):
+        nonlocal total_aux
         if train and cfg.remat:
-            return checkpoint(_apply_layer, p, cfg, kind, x, cache=None,
-                              use_reentrant=False, **kw)
-        return _apply_layer(p, cfg, kind, x, cache=cache, **kw)
+            x, c, aux = checkpoint(_apply_layer, p, cfg, kind, x, cache=None,
+                                   use_reentrant=False, **kw)
+        else:
+            x, c, aux = _apply_layer(p, cfg, kind, x, cache=cache, **kw)
+        if aux is not None:
+            total_aux = total_aux + aux
+        return x, c
 
     new_caches: dict[str, Any] = {}
+    lead = _lead_layers(cfg)
+    if lead:
+        lead_caches = []
+        for i in range(lead):
+            x, c2 = layer(params["lead"][i], cfg.pattern_layers[i], x,
+                          None if train else caches["lead"][i])
+            lead_caches.append(c2)
+        if not train:
+            new_caches["lead"] = lead_caches
     if n_groups > 0:
         groups = [_unstack(params["blocks"][i], n_groups) for i in range(len(pattern))]
         last = [None] * len(pattern)
@@ -269,5 +348,4 @@ def apply_model(
         xn = xn[:, -1:]                   # only the last position's logits
     cap = 30.0 if cfg.attention and cfg.attention.logit_softcap else None
     logits = L.unembed(params["embed"], xn, logit_cap=cap)
-    aux = torch.zeros((), device=logits.device)
-    return logits, (None if train else new_caches), aux
+    return logits, (None if train else new_caches), total_aux

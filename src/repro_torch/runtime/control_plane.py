@@ -1,8 +1,11 @@
 """Online recovery control plane (paper Sections 4-6 composed end-to-end).
 
-The port's copy of the JAX package's ``runtime/control_plane.py``.  The
-replan stage (``replan=True``) is not wired to the port's schedule IR yet
-and raises; the serving engine runs with ``replan=False``.
+The port's copy of the JAX package's ``runtime/control_plane.py``, every
+stage included: with ``replan=True`` the planner re-selects the algorithm
+and the replan stage builds its program from the port's schedule IR
+(``core.comm_sim._strategy_program``).  The serving engine runs with
+``replan=False``.  ``score="static"`` still raises at the replan, since the
+port has no static cost analyzer yet.
 
 R²CCL's headline claim is not any single mechanism but the *pipeline*:
 bilateral-awareness detection, probe triangulation, pre-registered
@@ -33,7 +36,7 @@ import enum
 from typing import Mapping
 
 from repro_torch.core.balance import BalancePlan, rebalance
-from repro_torch.core.comm_sim import DETOUR_EFFICIENCY
+from repro_torch.core.comm_sim import DETOUR_EFFICIENCY, _strategy_program
 from repro_torch.core.detection import (
     BROADCAST_LATENCY,
     PROBE_TIMEOUT,
@@ -46,7 +49,7 @@ from repro_torch.core.detection import (
 from repro_torch.core.telemetry import TraceLog
 from repro_torch.core.failures import OUT_OF_SCOPE, Failure, FailureState, FailureType
 from repro_torch.core.migration import ROLLBACK_CPU_COST, RegistrationTable
-from repro_torch.core.planner import Collective, Planner, collective_payload_factor
+from repro_torch.core.planner import Collective, Planner, Strategy, collective_payload_factor
 from repro_torch.core.schedule import CollectiveProgram
 from repro_torch.core.topology import ClusterTopology
 
@@ -370,10 +373,27 @@ class ControlPlane:
         full payload — a mid-collective replan prices the *residual*
         collective (the engine's chunk map says how much is genuinely
         missing), not the whole payload."""
-        raise NotImplementedError(
-            "replanning builds a collective program from the schedule IR, "
-            "which the port's control plane does not do yet (ROADMAP "
-            "queue 1); construct the control plane with replan=False")
+        payload = self.payload_bytes if payload_bytes is None else payload_bytes
+        try:
+            plan = self.planner.choose_strategy(
+                self.collective, payload, self.failure_state,
+                g=self.cluster.devices_per_node, score=self.score)
+            strat = {
+                Strategy.RING: "ring", Strategy.TREE: "ring",
+                Strategy.HOT_REPAIR: "hot_repair", Strategy.BALANCE: "balance",
+                Strategy.R2CCL_ALL_REDUCE: "r2ccl",
+                Strategy.RECURSIVE: "recursive",
+            }[plan.strategy]
+            name = plan.strategy.value
+        except ValueError:
+            # A fully dead node leaves the planner nothing to price (zero
+            # residual bandwidth everywhere it looks); fall back to the ring
+            # schedule — completing the collective then needs node-level
+            # recovery, which is out of R2CCL's NIC-failure scope.
+            strat = name = "ring"
+        prog = _strategy_program(strat, self.cluster, self.failure_state,
+                                 g=self.cluster.devices_per_node)
+        return prog, name
 
     # -- failure path --------------------------------------------------------
     def handle_failure(

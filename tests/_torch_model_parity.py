@@ -27,11 +27,22 @@ def _np(x):
     return np.asarray(x, np.float32)
 
 
+def smoke_configs(arch, first_k_dense=0):
+    """(JAX, port) smoke configs of ``arch``; ``first_k_dense`` > 0 gives an
+    MoE config that many leading dense-FFN layers on both sides."""
+    jcfg, tcfg = jax_smoke(arch), get_smoke_config(arch)
+    if first_k_dense:
+        jcfg, tcfg = (dataclasses.replace(
+            c, moe=dataclasses.replace(c.moe, first_k_dense=first_k_dense))
+            for c in (jcfg, tcfg))
+    return jcfg, tcfg
+
+
 @functools.lru_cache(maxsize=None)
-def converted_params(arch):
+def converted_params(arch, first_k_dense=0):
     """(jax cfg, jax params, port params) from JAX ``init_model``, once per
-    arch and process."""
-    cfg = jax_smoke(arch)
+    arch (and ``first_k_dense``) and process."""
+    cfg = smoke_configs(arch, first_k_dense)[0]
     jp = jax.jit(lambda key: jax_init_model(key, cfg)[0])(jax.random.PRNGKey(0))
     tp = params_from_jax(jax.tree_util.tree_map(np.asarray, jp), device="cpu")
     return cfg, jp, tp
@@ -67,22 +78,24 @@ def _cache_leaves(caches):
     return out
 
 
-def check_prefill_and_decode(arch, T=10):
-    """Prefill T tokens (a RecurrentGemma smoke prompt of 20 wraps its
-    16-slot local-attention ring buffer), then 4 decode steps; logits, and
-    at the end every cache and recurrent state, against the JAX model."""
-    cfg, jp, tp = converted_params(arch)
-    tcfg = get_smoke_config(arch)
+def check_prefill_and_decode(arch, T=10, first_k_dense=0, window_override=None):
+    """Prefill T tokens (a RecurrentGemma or Gemma-2 smoke prompt of 20 wraps
+    its 16-slot local-attention ring buffer), then 4 decode steps; logits,
+    and at the end every cache and recurrent state, against the JAX model,
+    both run with ``window_override``."""
+    cfg, jp, tp = converted_params(arch, first_k_dense)
+    tcfg = smoke_configs(arch, first_k_dense)[1]
     B, ctx = 2, 24
     tokens = np.random.default_rng(0).integers(0, cfg.vocab_size, (B, T))
 
-    jc = jax_init_caches(cfg, B, ctx, dtype=jnp.float32)
-    tc = init_caches(tcfg, B, ctx, dtype=torch.float32, device="cpu")
+    wo = dict(window_override=window_override)
+    jc = jax_init_caches(cfg, B, ctx, dtype=jnp.float32, **wo)
+    tc = init_caches(tcfg, B, ctx, dtype=torch.float32, device="cpu", **wo)
     with jax.disable_jit():
         jl, jc, _ = jax_apply(jp, cfg, {"tokens": jnp.asarray(tokens)},
-                              mode="prefill", caches=jc)
+                              mode="prefill", caches=jc, **wo)
     tl, tc, _ = apply_model(tp, tcfg, {"tokens": torch.from_numpy(tokens)},
-                            mode="prefill", caches=tc)
+                            mode="prefill", caches=tc, **wo)
     assert tl.shape == jl.shape == (B, 1, cfg.vocab_size)
     np.testing.assert_allclose(_np(tl), _np(jl), atol=ATOL)
     assert_tokens_match(tl[:, -1], jl[:, -1])
@@ -93,9 +106,9 @@ def check_prefill_and_decode(arch, T=10):
         nxt = np.asarray(jnp.argmax(jl[:, -1], axis=-1))
         with jax.disable_jit():
             jl, jc, _ = jax_apply(jp, cfg, {"tokens": jnp.asarray(nxt)[:, None]},
-                                  mode="decode", caches=jc)
+                                  mode="decode", caches=jc, **wo)
         tl, tc, _ = apply_model(tp, tcfg, {"tokens": torch.tensor(nxt)[:, None]},
-                                mode="decode", caches=tc)
+                                mode="decode", caches=tc, **wo)
         np.testing.assert_allclose(_np(tl), _np(jl), atol=ATOL)
         assert_tokens_match(tl[:, -1], jl[:, -1])
     for (name, got), (jname, want) in zip(_cache_leaves(tc), _cache_leaves(jc),

@@ -78,13 +78,110 @@ def test_control_plane_ledgers_match_jax(campaign, nodes, detected_by):
     assert len(tcp.failure_state.unsupported) == len(jcp.failure_state.unsupported)
 
 
-def test_replan_is_not_ported():
-    """A node losing every NIC warrants a replan, which needs the schedule
-    IR: the port raises instead of guessing."""
-    cp = ControlPlane(make_cluster(2, 2), replan=True)
+# Replan campaigns on clusters of 4 NICs a node: (ftype, node, rail, kwargs,
+# handled at virtual time, ChunkProgress fields or None).  A node losing its
+# last NIC and a NIC's third flap inside the window warrant a replan.
+REPLAN_CAMPAIGNS = {
+    "node_loses_every_nic": [("NIC_HARDWARE", 1, r, {}, 0.1 * (r + 1), None)
+                             for r in range(4)],
+    "flap_storm": [("LINK_FLAPPING", 0, 1, dict(recovers_at=0.2 * i + 0.15),
+                    0.2 * i + 0.1, None) for i in range(4)],
+    "mid_collective": [("NIC_HARDWARE", 1, r, {}, 0.1 * (r + 1),
+                        (float(1 << 26), 0.3 * (1 << 26), 0.1 * (1 << 26)))
+                       for r in range(4)],
+    "flap_storm_mid_collective": [
+        ("LINK_FLAPPING", 0, 2, dict(recovers_at=0.2 * i + 0.15), 0.2 * i + 0.1,
+         (float(1 << 20), 0.5 * (1 << 20), 0.0)) for i in range(4)],
+    # degraded NICs never recovered: the end-of-campaign replan (half a
+    # node lost gives the split ring + partial AllReduce on 3 and 4 nodes)
+    "one_nic_down": [("NIC_HARDWARE", 0, 0, {}, 0.1, None)],
+    "half_a_node_down": [("NIC_HARDWARE", 1, 0, {}, 0.1, None),
+                         ("NIC_HARDWARE", 1, 3, {}, 0.2, None)],
+    "nics_down_on_two_nodes": [("NIC_HARDWARE", 0, 0, {}, 0.1, None),
+                               ("NIC_HARDWARE", 1, 1, {}, 0.2, None),
+                               ("NIC_HARDWARE", 1, 2, {}, 0.3, None)],
+}
+
+
+@pytest.mark.parametrize("nodes", [2, 3, 4])
+@pytest.mark.parametrize("campaign", sorted(REPLAN_CAMPAIGNS))
+def test_replan_matches_jax(campaign, nodes):
+    """Both control planes with ``replan=True`` on the same failures: equal
+    ledgers (stages, strategy, residual fraction), decisions, chosen and
+    carried programs (every segment's steps: perm, send_chunk, recv_chunk,
+    accumulate, whole_buffer), transitions and end-of-campaign replans."""
+    from repro.core.event_sim import ChunkProgress as JChunkProgress
+    from repro_torch.runtime.control_plane import ChunkProgress
+
+    jcp = JControlPlane(jmake_cluster(nodes, 4), replan=True)
+    tcp = ControlPlane(make_cluster(nodes, 4), replan=True)
+    replans = 0
+    for ftype, node, rail, kw, now, prog in REPLAN_CAMPAIGNS[campaign]:
+        jo = jcp.handle_failure(_failure(jfail, ftype, node, rail, **kw), now,
+                                progress=prog and JChunkProgress(*prog))
+        to = tcp.handle_failure(_failure(failures, ftype, node, rail, **kw), now,
+                                progress=prog and ChunkProgress(*prog))
+        assert _entry_fields(to.entry) == _entry_fields(jo.entry)
+        assert dataclasses.asdict(to.decision) == dataclasses.asdict(jo.decision)
+        replans += to.decision.replan is not None
+        if kw.get("recovers_at") is not None:
+            t = kw["recovers_at"]
+            fj = _failure(jfail, ftype, node, rail, **kw)
+            ft = _failure(failures, ftype, node, rail, **kw)
+            jcp.failure_state.recover(fj.nic_key)
+            tcp.failure_state.recover(ft.nic_key)
+            assert tcp.handle_recovery(ft, t) == jcp.handle_recovery(fj, t)
+        assert (tcp.current_program is None) == (jcp.current_program is None)
+        if jcp.current_program is not None:
+            assert _as_data(tcp.current_program) == _as_data(jcp.current_program)
+    tprog, jprog = tcp.finalize(1.0), jcp.finalize(1.0)
+    assert (tprog is None) == (jprog is None)
+    if jprog is not None:
+        assert _as_data(tprog) == _as_data(jprog)
+        replans += 1
+    assert replans > 0, "the campaign must replan at least once"
+    assert [_entry_fields(e) for e in tcp.ledger.entries] == \
+        [_entry_fields(e) for e in jcp.ledger.entries]
+    assert tcp.ledger.stage_totals() == jcp.ledger.stage_totals()
+    assert [(t, s.value) for t, s in tcp.transitions] == \
+        [(t, s.value) for t, s in jcp.transitions]
+
+
+def test_replan_with_static_score_is_not_ported():
+    """``score="static"`` prices programs with the static cost analyzer,
+    which the port has not copied: the replan stage raises, naming it."""
+    cp = ControlPlane(make_cluster(2, 2), replan=True, score="static")
     cp.handle_failure(failures.Failure(failures.FailureType.NIC_HARDWARE, 0, 0), 0.1)
-    with pytest.raises(NotImplementedError, match="schedule IR"):
+    with pytest.raises(NotImplementedError, match="queue 1, item 7"):
         cp.handle_failure(failures.Failure(failures.FailureType.NIC_HARDWARE, 0, 1), 0.2)
+
+
+# failure states as failed (node, rail) NICs on 8-NIC nodes
+PROGRAM_STATES = [(), ((1, 0),), ((1, 0), (1, 1), (1, 2), (1, 3)), ((0, 0), (2, 5)),
+                  tuple((1, r) for r in range(8)), ((0, 1), (1, 1), (2, 3))]
+
+
+@pytest.mark.parametrize("nodes", [2, 3, 4, 6])
+@pytest.mark.parametrize("failed", PROGRAM_STATES)
+def test_strategy_program_matches_jax(failed, nodes):
+    failed = {(n, r) for n, r in failed if n < nodes}
+    def program(mod, cluster, state, strat):
+        """The program as data, or the message of the ValueError a fully
+        dead node raises in the r2ccl builder."""
+        try:
+            return _as_data(mod._strategy_program(strat, cluster, state, g=8))
+        except ValueError as e:
+            return str(e)
+
+    for strat in ("ring", "balance", "hot_repair", "r2ccl", "recursive"):
+        got = program(comm_sim, make_cluster(nodes, 8),
+                      failures.FailureState(set(failed)), strat)
+        want = program(jcomm, jmake_cluster(nodes, 8),
+                       jfail.FailureState(set(failed)), strat)
+        assert got == want, strat
+    with pytest.raises(ValueError):
+        comm_sim._strategy_program("bogus", make_cluster(nodes, 8),
+                                   failures.FailureState({(0, 0)}), g=8)
 
 
 @pytest.mark.parametrize("x", [0.0, 0.125, 0.5, 0.9])

@@ -180,12 +180,10 @@ def test_engine_matches_jax_engine(setup, strategy):
     assert teng.hiccup_attribution() == jeng.hiccup_attribution()
 
 
-@pytest.mark.parametrize("arch,prompt_len", [("recurrentgemma-9b", 24), ("rwkv6-1.6b", 12)])
-def test_recurrent_engine_matches_jax_engine(arch, prompt_len):
-    """The recurrent families through both engines under one fake clock:
+def _check_engine_parity(arch, prompt_len):
+    """``arch``'s smoke config through both engines under one fake clock:
     same tokens, virtual latencies, ledger and trace, with a NIC failure at
-    decode step 2.  recurrentgemma-smoke's 24-token prompts overrun its
-    16-slot local-attention window, so prefill wraps the ring buffer."""
+    decode step 2."""
     jcfg = jax_smoke(arch)
     jp = jax.jit(lambda key: jax_init_model(key, jcfg)[0])(jax.random.PRNGKey(0))
     tp = params_from_jax(jax.tree_util.tree_map(np.asarray, jp), device="cpu")
@@ -201,6 +199,23 @@ def test_recurrent_engine_matches_jax_engine(arch, prompt_len):
     assert got[0].failovers == 1 and len(got[0].tokens) == 6
     assert teng.last_recovery.stages == jeng.last_recovery.stages
     assert teng.trace.records == jeng.trace.records
+
+
+@pytest.mark.parametrize("arch,prompt_len", [("recurrentgemma-9b", 24), ("rwkv6-1.6b", 12)])
+def test_recurrent_engine_matches_jax_engine(arch, prompt_len):
+    """The recurrent families through both engines.  recurrentgemma-smoke's
+    24-token prompts overrun its 16-slot local-attention window, so prefill
+    wraps the ring buffer."""
+    _check_engine_parity(arch, prompt_len)
+
+
+@pytest.mark.parametrize("arch,prompt_len", [("gemma2-27b", 24), ("deepseek-67b", 12),
+                                             ("dbrx-132b", 12)])
+def test_gqa_engine_matches_jax_engine(arch, prompt_len):
+    """Gemma-2's local/global pattern (24-token prompts wrap its 16-slot
+    window), deepseek-67b and the MoE feed-forward of dbrx through both
+    engines."""
+    _check_engine_parity(arch, prompt_len)
 
 
 def test_serve_trace_matches_jax(setup):
@@ -225,10 +240,7 @@ def test_serve_cli_on_cpu(capsys):
     assert '"device": "cpu"' in out[-1]
 
 
-@pytest.mark.parametrize("arch", ["recurrentgemma-9b", "rwkv6-1.6b"])
-def test_recurrent_serve_cli_on_cpu(arch, capsys):
-    """``--arch`` takes the recurrent families; recurrentgemma-smoke's
-    24-token prompts wrap its 16-slot window."""
+def _serve_cli(arch, capsys):
     from repro_torch.launch import serve as serve_cli
     serve_cli.main(["--arch", arch, "--smoke", "--device", "cpu", "--requests", "2",
                     "--prompt-len", "24", "--max-new", "4", "--fail-at-step", "1",
@@ -236,3 +248,17 @@ def test_recurrent_serve_cli_on_cpu(arch, capsys):
     out = capsys.readouterr().out.strip().splitlines()
     assert "failovers=1" in out[0]
     assert '"device": "cpu"' in out[-1]
+
+
+@pytest.mark.parametrize("arch", ["recurrentgemma-9b", "rwkv6-1.6b"])
+def test_recurrent_serve_cli_on_cpu(arch, capsys):
+    """``--arch`` takes the recurrent families; recurrentgemma-smoke's
+    24-token prompts wrap its 16-slot window."""
+    _serve_cli(arch, capsys)
+
+
+@pytest.mark.parametrize("arch", ["gemma2-27b", "deepseek-67b", "dbrx-132b"])
+def test_gqa_serve_cli_on_cpu(arch, capsys):
+    """``--arch`` takes the other GQA families; gemma2-smoke's 24-token
+    prompts wrap its 16-slot window."""
+    _serve_cli(arch, capsys)
