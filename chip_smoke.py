@@ -39,7 +39,14 @@ Phases, each printing its own lines and seconds, and raising on failure
                plain versions' prefill are counted and held to a share
                (ROUTE_FLIP_LIMIT), and the logits check pins the plain run
                to the kernels' experts;
-  8. train   — full-width smollm-360m trained data-parallel on 4 ranks, all on
+  8. serve_deepseekv3 — the same for deepseek-v3-671b at full width and 4
+               of 61 layers (3 dense + 1 MoE of 256 experts, top 8, one
+               shared; 60.4 GB), its MTP head off (train-only): Multi-head
+               Latent Attention, whose prefill runs the flash kernel at head_dim
+               192 (128 KV heads of one query) and whose decode attends to the
+               latent cache in plain PyTorch; 4 requests of 512-token prompts,
+               4 flash_attention launches per prefill, routing flips counted;
+  9. train   — full-width smollm-360m trained data-parallel on 4 ranks, all on
                this card (host-staged gloo wire): one rank's gradients through
                the attention kernels against plain attention; ``sync="xla"``
                against ``sync="r2ccl"`` (degraded rank 1, lost 0.5, g 2) for 4
@@ -119,6 +126,15 @@ GQA = {
     "serve_deepseek67b": ("deepseek-67b", 8, 4, 512, 1024, dict(flash_attention=8)),
     "serve_dbrx": ("dbrx-132b", 4, 4, 512, 1024, dict(flash_attention=4)),
 }
+#: MLA, full width at a cut depth: as GQA, then the config's fields to
+#: override.  deepseek-v3-671b's 4 layers are its 3 dense lead layers and one
+#: MoE layer (60.4 GB of fp32 weights; a second MoE layer would need 106 GB).
+#: Its MTP head runs in train mode only, and its block, a whole MoE layer,
+#: would not fit beside them: mtp=False
+MLA_PHASES = {
+    "serve_deepseekv3": ("deepseek-v3-671b", 4, 4, 512, 1024, dict(flash_attention=4),
+                         dict(mtp=False)),
+}
 #: the path whose launches each kernel's row reports
 MAIN_PATH = {"flash_attention": "serve", "flash_attention_bwd": "train",
              "chunk_combine": "train", "lru_scan": "serve_recurrentgemma",
@@ -152,18 +168,31 @@ ATOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}   # kernel vs plain
 # from bf16 activations, and a token whose 4th and 5th expert swap between
 # the two paths moves by a whole expert's share.  The float32 check holds
 # the kernels in all three.
+# deepseek-v3-671b (4 layers, MLA, a top-8-of-256 router on bf16
+# activations) as dbrx-132b: the same depth of bf16 residual roundings, and
+# the pinned check (routing replayed) measured 2.2e-2 there; the float32
+# check holds the kernels.
 LOGIT_ATOL = {"serve": 5e-2, "serve_recurrentgemma": 0.25, "serve_rwkv6": 0.25,
-              "serve_gemma2": 0.25, "serve_deepseek67b": 0.1, "serve_dbrx": 0.25}
+              "serve_gemma2": 0.25, "serve_deepseek67b": 0.1, "serve_dbrx": 0.25,
+              "serve_deepseekv3": 0.25}
 # the same with a float32 residual stream, where the gap is the kernels' own
 # fp32 error (about 1e-6 relative) carried through the layers
 LOGIT_ATOL_F32 = 1e-3
-# MoE (dbrx): the share of (token, layer) pairs whose expert set differs
-# between the kernels' and the plain versions' prefill, by residual dtype.
-# On an H100 it measured 3 of 8192 (3.7e-4) in float32 and 71 of 8192
-# (8.7e-3) in bf16: ties within a rounding.  The limits are a few times
+# MoE: the share of (token, layer) pairs whose expert set differs between
+# the kernels' and the plain versions' prefill, by phase and residual dtype.
+# dbrx-132b: on an H100 it measured 3 of 8192 (3.7e-4) in float32 and 71 of
+# 8192 (8.7e-3) in bf16: ties within a rounding.  The limits are a few times
 # those, so routing that drifts broadly between the two paths fails the
-# phase although the logits check pins the plain run to the kernels' experts
-ROUTE_FLIP_LIMIT = {"float32": 1e-3, "bfloat16": 2e-2}
+# phase although the logits check pins the plain run to the kernels' experts.
+# deepseek-v3-671b, set before its first run: a flip needs the k-th and
+# (k+1)-th router logits closer than the rounding, and near the k-th of N
+# unit normals adjacent ones lie about 1 / (N phi(z)) apart, z the (1 - k/N)
+# quantile: 0.197 for dbrx (4 of 16, z = 0.67), 0.055 here (8 of 256,
+# z = 1.86), 3.5x narrower, so 3.5x the share: about 1.3e-3 in float32 and
+# 3e-2 in bf16, over 2048 pairs (one MoE layer).  The limits are a few times
+# those, as dbrx's
+ROUTE_FLIP_LIMIT = {"serve_dbrx": {"float32": 1e-3, "bfloat16": 2e-2},
+                    "serve_deepseekv3": {"float32": 5e-3, "bfloat16": 0.1}}
 # scans vs their plain versions, relative to max(1, max |value|): both run
 # the recurrence in fp32 in time order, the kernels with fused multiply-adds
 # and (wkv) the sum over k in another order
@@ -173,6 +202,11 @@ RG_ATTN, RG_WINDOW = (2, 2304, 2304, 1, 16, 256), 2048
 # one gemma2-27b layer in prefill: 16 KV heads of 2 queries at head_dim 128,
 # softcap 50; the local layers' window, the global layers' none
 G2_ATTN, G2_WINDOW, G2_CAP = (2, 4352, 4352, 16, 2, 128), 4096, 50.0
+# one deepseek-v3-671b MLA layer in prefill: 128 KV heads of one query at
+# head_dim 192 (qk_nope 128 + qk_rope 64), v padded from 128 to 192 as the
+# model pads it, scale 1/sqrt(192) passed explicitly
+MLA_ATTN, MLA_V = (BATCH, PROMPT, PROMPT, 128, 1, 192), 128
+MLA_SCALE = 192 ** -0.5
 # its library yardstick is flex_attention compiled (a softcap score_mod, a
 # causal window block mask, GQA): SDPA has no logit softcap.  Its error
 # against the plain version is held to FLEX_ATOL, a guard that it computes
@@ -320,8 +354,13 @@ def check_flash_attention(gen) -> dict:
         ("D=256 window+prefix", (1, 300, 300, 1, 16, 256), torch.float32,
          dict(window=64, prefix_len=20)),
         ("D=256 bf16", (1, 300, 300, 1, 16, 256), torch.bfloat16, dict(window=200)),
+        # deepseek-v3's MLA prefill at head_dim 192 on the 256-wide template,
+        # and off the row and key tiles
+        ("mla-prefill", MLA_ATTN, torch.float32, dict(scale=MLA_SCALE)),
+        ("mla-prefill", MLA_ATTN, torch.bfloat16, dict(scale=MLA_SCALE)),
+        ("D=192 off the tiles", (1, 97, 131, 3, 1, 192), torch.float32, {}),
     ]
-    smollm_err = rg_err = g2_err = None
+    smollm_err = rg_err = g2_err = mla_err = None
     for label, shape, dtype, kw in cases:
         q, k, v = inputs(*shape, dtype)
         out = flash_attention_cuda(q, k, v, **kw)
@@ -342,6 +381,8 @@ def check_flash_attention(gen) -> dict:
             rg_err = err
         if label == "gemma2-local":
             g2_err = err
+        if label == "mla-prefill" and dtype == torch.float32:
+            mla_err = err
         del q, k, v, out, want
 
     # two calls on the same inputs give the same bits, output and lse (no
@@ -360,6 +401,7 @@ def check_flash_attention(gen) -> dict:
 
     rg = time_local_attention(gen, ref, flash_attention_cuda)
     g2 = time_gemma2_attention(gen, ref, flash_attention_cuda)
+    mla = time_mla_attention(gen, ref, flash_attention_cuda)
 
     # timing at the serving prefill shape (one layer's attention), fp32, and
     # at paper-7b's heads in bf16, each against SDPA (causal, GQA)
@@ -381,6 +423,7 @@ def check_flash_attention(gen) -> dict:
                 launches=0, max_abs_err=smollm_err, **main,
                 recurrentgemma=dict(shape=RG_ATTN, max_abs_err=rg_err, **rg),
                 gemma2=dict(shape=G2_ATTN, max_abs_err=g2_err, **g2),
+                mla=dict(shape=MLA_ATTN, max_abs_err=mla_err, **mla),
                 paper_7b_bf16=timed["paper-7b-heads"])
 
 
@@ -394,7 +437,7 @@ def time_forward(q, k, v, ref, flash_attention_cuda, kw, iters, plain_iters=None
     boolean mask) by CUDA events, the kernel's and SDPA's device time per
     call (torch.profiler), and the bound."""
     from repro_torch.launch.profile_kernels import device_ms, sdpa_forward
-    library = sdpa_forward(q, k, v, kw.get("window"))
+    library = sdpa_forward(q, k, v, kw.get("window"), kw.get("scale"))
     kernel = lambda: flash_attention_cuda(q, k, v, **kw)
     lib_err = (library().transpose(1, 2).reshape(q.shape).float()
                - ref.reference_attention(q, k, v, **kw).float()).abs().max().item()
@@ -427,6 +470,28 @@ def time_local_attention(gen, ref, flash_attention_cuda) -> dict:
     log("kernels", f"flash_attention recurrentgemma-local, device time per call "
         f"(torch.profiler): kernel {fmt_ms(t['device_ms'])}, sdpa's kernels "
         f"{fmt_ms(t['library_device_ms'])}")
+    return t
+
+
+def time_mla_attention(gen, ref, flash_attention_cuda) -> dict:
+    """One deepseek-v3-671b MLA layer's prefill attention (128 KV heads of
+    one query at head_dim 192, v's last 64 columns zero as the model pads
+    them, scale 1/sqrt(192), fp32): kernel, plain version and SDPA on the
+    same q, k, v and scale, against the bound."""
+    B, T, KVH, G, D = MLA_ATTN[0], MLA_ATTN[1], *MLA_ATTN[3:]
+    q = torch.randn(B, T, KVH, G, D, device="cuda", generator=gen)
+    k = torch.randn(B, T, KVH, D, device="cuda", generator=gen)
+    v = torch.nn.functional.pad(
+        torch.randn(B, T, KVH, MLA_V, device="cuda", generator=gen), (0, D - MLA_V))
+    t = time_forward(q, k, v, ref, flash_attention_cuda, dict(scale=MLA_SCALE), iters=10,
+                     plain_iters=3)
+    log("kernels", f"flash_attention mla-prefill {MLA_ATTN} fp32 (v {MLA_V} padded to {D}, "
+        f"scale 1/sqrt({D})): kernel {t['ms']:.4f} / {t['ms_again']:.4f} ms, plain "
+        f"{t['plain_ms']:.4f} ms, sdpa {t['library_ms']:.4f} ms (its max_abs_err vs the "
+        f"plain version {t['library_err']:.2e}), {bound_text(t)}, "
+        f"{t['bound_ms'] / t['ms']:.1%} of it")
+    log("kernels", f"flash_attention mla-prefill, device time per call (torch.profiler): "
+        f"kernel {fmt_ms(t['device_ms'])}, sdpa's kernels {fmt_ms(t['library_device_ms'])}")
     return t
 
 
@@ -982,11 +1047,12 @@ def recorded_routes(replay: list | None = None):
 
 def serve(card: str, phase: str, arch: str, batch: int, prompt: int, context: int,
           per_prefill: dict[str, int], logit_atol: float,
-          layers: int | None = None) -> dict[str, int]:
+          layers: int | None = None, overrides: dict | None = None) -> dict[str, int]:
     """One serve phase: the engine healthy and with a NIC failure, launch
     counts held to ``per_prefill`` times the two prefills (every other
     kernel at 0), then the prefill logits through the kernels against the
-    plain versions of all of them.  ``layers`` cuts the depth (full width).
+    plain versions of all of them.  ``layers`` cuts the depth (full width);
+    ``overrides`` replaces config fields (deepseek-v3's ``mtp=False``).
     Returns the launch counts."""
     from repro_torch.core.failures import Failure, FailureType
     from repro_torch.kernels import ops
@@ -999,14 +1065,25 @@ def serve(card: str, phase: str, arch: str, batch: int, prompt: int, context: in
     if layers is not None:
         depth = f"{layers} of {cfg.num_layers} layers (full width, depth cut)"
         cfg = dataclasses.replace(cfg, num_layers=layers)
+    if overrides:
+        depth += f", {overrides}"
+        cfg = dataclasses.replace(cfg, **overrides)
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     params = init_model(cfg, seed=0, device="cuda")
     torch.cuda.synchronize()
-    heads = (f"{cfg.attention.num_heads}/{cfg.attention.num_kv_heads} heads"
-             if cfg.attention else f"{cfg.d_model // cfg.rwkv.head_size} wkv heads")
+    a = cfg.attention
+    heads = (f"{a.num_heads}/{a.num_kv_heads} heads" if a
+             else f"{cfg.d_model // cfg.rwkv.head_size} wkv heads")
+    if a and a.kind == "mla":
+        heads = (f"MLA, {a.num_heads} heads of {a.qk_nope_head_dim}+{a.qk_rope_head_dim} "
+                 f"(v {a.v_head_dim}), q_lora {a.q_lora_rank}, kv_lora {a.kv_lora_rank}")
     n_params = sum(t.numel() for t in leaves(params))
-    moe = (f", {cfg.moe.num_experts} experts top {cfg.moe.top_k} of d_ff "
-           f"{cfg.moe.expert_d_ff}" if cfg.moe else "")
+    m = cfg.moe
+    moe = (f", {m.num_experts} experts top {m.top_k} of d_ff {m.expert_d_ff}"
+           + (f" + {m.num_shared_experts} shared" if m.num_shared_experts else "")
+           + (f", {m.first_k_dense} dense lead layers" if m.first_k_dense else "")
+           if m else "")
     log(phase, f"{arch}: {depth} {tuple(cfg.block_pattern)}, d_model "
         f"{cfg.d_model}, {heads}{moe}, {n_params / 1e6:.1f}M fp32 params "
         f"({4 * n_params / 1e9:.1f} GB), init {time.perf_counter() - t0:.2f} s")
@@ -1076,17 +1153,18 @@ def serve(card: str, phase: str, arch: str, batch: int, prompt: int, context: in
         if cfg.moe:
             flips = sum(int((a.sort(-1).values != b.sort(-1).values).any(-1).sum())
                         for a, b in zip(routes["auto"], routes["reference"], strict=True))
-            pairs = batch * prompt * cfg.num_layers
+            pairs = batch * prompt * len(routes["auto"])   # (token, MoE layer)
+            limit = ROUTE_FLIP_LIMIT[phase][dtype]
             free = (logits["auto"] - logits["reference"]).abs().max().item()
             log(phase, f"MoE routing, {dtype} residual stream: {flips} of {pairs} "
                 f"(token, layer) pairs ({flips / pairs:.2e}; limit "
-                f"{ROUTE_FLIP_LIMIT[dtype]:g}) choose another expert set through the "
+                f"{limit:g}) choose another expert set through the "
                 f"kernels than through the plain versions; prefill logits with each "
                 f"run's own routing: max_abs_err={free:.3e}; the check below pins the "
                 f"plain run to the kernels' experts")
-            if flips > ROUTE_FLIP_LIMIT[dtype] * pairs:
+            if flips > limit * pairs:
                 raise RuntimeError(f"MoE routing, {dtype} residual: {flips} of {pairs} "
-                                   f"pairs flip, over {ROUTE_FLIP_LIMIT[dtype]:g}")
+                                   f"pairs flip, over {limit:g}")
         a, b = logits["auto"], logits["pinned" if cfg.moe else "reference"]
         if not (torch.isfinite(a).all() and a.shape == (batch, cfg.vocab_size)):
             raise RuntimeError(f"prefill logits: shape {tuple(a.shape)} or non-finite")
@@ -1101,7 +1179,9 @@ def serve(card: str, phase: str, arch: str, batch: int, prompt: int, context: in
             raise RuntimeError(f"prefill logits kernel vs plain, {dtype} residual: "
                                f"max_abs_err {err}, top-1 equal {same.tolist()} "
                                f"(decided {decided.tolist()})")
-    del params, logits, routes, a, b
+    log(phase, f"peak memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB "
+        f"(torch.cuda.max_memory_allocated)")
+    del params, failing, logits, routes, a, b
     torch.cuda.empty_cache()
     return launches
 
@@ -1368,6 +1448,12 @@ def main() -> int:
         t0 = time.perf_counter()
         by_path[phase] = serve(card, phase, arch, batch, prompt, context, per_prefill,
                                LOGIT_ATOL[phase], layers=layers)
+        log(phase, f"{time.perf_counter() - t0:.1f} s")
+    for phase, (arch, layers, batch, prompt, context, per_prefill,
+                overrides) in MLA_PHASES.items():
+        t0 = time.perf_counter()
+        by_path[phase] = serve(card, phase, arch, batch, prompt, context, per_prefill,
+                               LOGIT_ATOL[phase], layers=layers, overrides=overrides)
         log(phase, f"{time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     by_path["train"] = train(card)

@@ -103,19 +103,19 @@ def three_ways(fn, iters: int = 20) -> dict:
     return dict(events_ms=events_ms(fn, iters), device_ms=device_ms(fn), host_ms=host_ms(fn))
 
 
-def sdpa_forward(q, k, v, window=None):
+def sdpa_forward(q, k, v, window=None, scale=None):
     """SDPA's forward on the kernel's layout, q (B, T, KVH, G, D) and k, v
-    (B, T, KVH, D): causal with GQA, a window as a boolean mask.  Returns a
-    callable giving (B, KVH * G, T, D)."""
+    (B, T, KVH, D): causal with GQA, a window as a boolean mask, ``scale``
+    (None: 1/sqrt(D)).  Returns a callable giving (B, KVH * G, T, D)."""
     B, T, KVH, G, D = q.shape
     qs = q.reshape(B, T, KVH * G, D).transpose(1, 2)
     ks, vs = k.transpose(1, 2), v.transpose(1, 2)
     sdpa = torch.nn.functional.scaled_dot_product_attention
     if window is None:
-        return lambda: sdpa(qs, ks, vs, is_causal=True, enable_gqa=True)
+        return lambda: sdpa(qs, ks, vs, is_causal=True, enable_gqa=True, scale=scale)
     pos = torch.arange(T, device=q.device)
     mask = (pos[None, :] <= pos[:, None]) & (pos[:, None] - pos[None, :] < window)
-    return lambda: sdpa(qs, ks, vs, attn_mask=mask, enable_gqa=True)
+    return lambda: sdpa(qs, ks, vs, attn_mask=mask, enable_gqa=True, scale=scale)
 
 
 def attention_forward(shape, dtype, gen, window=None, iters=20) -> dict:

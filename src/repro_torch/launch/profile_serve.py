@@ -6,7 +6,10 @@ step of the port's engine, timed on the host clock and traced with
       --arch smollm-360m --batch 4 --prompt-len 512 --context-len 1024
 
 ``--num-layers`` cuts the depth (full width) for models whose full depth
-does not fit the card, as ``chip_smoke.py``'s serve phases cut it.
+does not fit the card, as ``chip_smoke.py``'s serve phases cut it, and
+turns off a multi-token-prediction head (``cfg.mtp``, deepseek-v3-671b):
+it runs in train mode only, and its block (a whole MoE layer) would not
+fit beside the layers kept.
 
 For each phase it prints the step's host-clock time (median of five
 untraced steps, each ending in a synchronize), the device's busy time (the
@@ -82,7 +85,10 @@ def main(argv: list[str] | None = None) -> None:
     cfg = get_config(args.arch)
     full_layers = cfg.num_layers
     if args.num_layers:
-        cfg = dataclasses.replace(cfg, num_layers=args.num_layers)
+        if cfg.mtp:
+            print(f"{args.arch}: the MTP head is off (mtp=False): prefill and decode "
+                  f"never run it, and its block would not fit beside the layers kept")
+        cfg = dataclasses.replace(cfg, num_layers=args.num_layers, mtp=False)
     params = init_model(cfg, seed=0, device="cuda")
     prefill, decode = make_prefill_fn(cfg), make_decode_fn(cfg)
     rng = np.random.default_rng(0)
@@ -142,7 +148,7 @@ def main(argv: list[str] | None = None) -> None:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60).stdout.strip()
     print(json.dumps({"arch": args.arch, "num_layers": cfg.num_layers,
-                      "full_layers": full_layers, "batch": args.batch,
+                      "full_layers": full_layers, "mtp": cfg.mtp, "batch": args.batch,
                       "prompt_len": args.prompt_len,
                       "context_len": args.context_len, "card": card, **out}))
 

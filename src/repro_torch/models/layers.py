@@ -36,7 +36,8 @@ Params = dict
 def dense_init(gen: torch.Generator, shape, in_axis_size: int,
                dtype=torch.float32) -> torch.Tensor:
     scale = 1.0 / math.sqrt(max(in_axis_size, 1))
-    return (torch.randn(shape, generator=gen, device=gen.device) * scale).to(dtype)
+    # scaled in place: a 15 GB expert weight needs no second 15 GB buffer
+    return torch.randn(shape, generator=gen, device=gen.device).mul_(scale).to(dtype)
 
 
 def embed_init(gen: torch.Generator, shape, dtype=torch.float32) -> torch.Tensor:
@@ -47,6 +48,14 @@ def _mm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """``x @ w`` in the promoted dtype (``jnp.result_type``)."""
     dt = torch.promote_types(x.dtype, w.dtype)
     return x.to(dt) @ w.to(dt)
+
+
+def _einsum(eq: str, *ops: torch.Tensor) -> torch.Tensor:
+    """``torch.einsum`` in the promoted dtype, as ``jnp.einsum`` promotes."""
+    dt = ops[0].dtype
+    for t in ops[1:]:
+        dt = torch.promote_types(dt, t.dtype)
+    return torch.einsum(eq, *(t.to(dt) for t in ops))
 
 
 # ---------------------------------------------------------------------------
@@ -136,6 +145,7 @@ def blockwise_attention(
     logit_cap: float | None = None,
     q_offset: int = 0,           # absolute position of q[0] (decode)
     k_valid_len: int | None = None,   # valid prefix of k/v (cache fill level)
+    scale: float | None = None,  # logit scale; None: 1/sqrt(D)
     impl: str = "auto",
 ) -> torch.Tensor:
     """Attention with the model zoo's mask menu; returns (B, Tq, KVH, G, D).
@@ -146,7 +156,7 @@ def blockwise_attention(
     """
     return ops.flash_attention(
         q.contiguous(), k.contiguous(), v.contiguous(), causal=causal,
-        window=window, prefix_len=prefix_len, logit_cap=logit_cap,
+        window=window, prefix_len=prefix_len, logit_cap=logit_cap, scale=scale,
         q_offset=q_offset, k_valid_len=k_valid_len, impl=impl)
 
 

@@ -35,7 +35,7 @@ from typing import Any
 import torch
 import torch.nn.functional as F
 
-from .layers import _mm, dense_init
+from .layers import _einsum, _mm, dense_init
 
 
 def init_moe(gen: torch.Generator, d_model: int, expert_d_ff: int,
@@ -58,14 +58,6 @@ def init_moe(gen: torch.Generator, d_model: int, expert_d_ff: int,
         if gates:
             params["shared_wg"] = dense_init(gen, (*lead, d, num_shared * ff), d, dtype)
     return params
-
-
-def _einsum(eq: str, *ops: torch.Tensor) -> torch.Tensor:
-    """``torch.einsum`` in the promoted dtype, as ``jnp.einsum`` promotes."""
-    dt = ops[0].dtype
-    for t in ops[1:]:
-        dt = torch.promote_types(dt, t.dtype)
-    return torch.einsum(eq, *(t.to(dt) for t in ops))
 
 
 def _gelu(a: torch.Tensor) -> torch.Tensor:

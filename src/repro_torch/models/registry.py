@@ -12,6 +12,7 @@ ARCHITECTURES: dict[str, str] = {
     "deepseek-67b": "repro_torch.configs.deepseek_67b",
     "gemma2-27b": "repro_torch.configs.gemma2_27b",
     "dbrx-132b": "repro_torch.configs.dbrx_132b",
+    "deepseek-v3-671b": "repro_torch.configs.deepseek_v3_671b",
     "recurrentgemma-9b": "repro_torch.configs.recurrentgemma_9b",
     "rwkv6-1.6b": "repro_torch.configs.rwkv6_1_6b",
     # the paper's own simulated training model (Fig. 8)
@@ -21,7 +22,6 @@ ARCHITECTURES: dict[str, str] = {
 #: Architectures of the JAX package that the port does not run yet, with what
 #: each still needs.
 NOT_PORTED: dict[str, str] = {
-    "deepseek-v3-671b": "MLA attention and the MTP head",
     "paligemma-3b": "the vision_text frontend",
     "hubert-xlarge": "the audio_frames frontend and encoder-only mode",
 }

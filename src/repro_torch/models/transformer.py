@@ -1,7 +1,8 @@
 """Model assembly: embedding -> pattern block stack -> final norm -> unembed.
 
-The port of the JAX package's ``models/transformer.py`` for GQA text
-models, dense or MoE, and the recurrent families: block patterns of
+The port of the JAX package's ``models/transformer.py`` for text models
+with GQA or MLA attention (``models/mla.py``), dense or MoE, and the
+recurrent families: block patterns of
 ``attn``, ``local_attn`` (the config's sliding window), ``global_attn``
 (full attention, or ``window_override``; Gemma-2 alternates it with
 ``local_attn``), ``rglru`` (RecurrentGemma) and ``rwkv`` (RWKV-6), with a
@@ -11,15 +12,17 @@ of dicts whose tensors carry a leading ``n_groups`` axis (the axis
 ``lax.scan`` runs over there; a Python loop runs over it here), ``lead``
 holds the ``moe.first_k_dense`` leading dense-FFN layers and ``tail`` the
 remainder layers.  Caches are stacked the same way, one per layer kind: a
-``KVCache`` for attention (a ``local_attn`` cache holds
+``KVCache`` for GQA attention (a ``local_attn`` cache holds
 ``min(window, context_len)`` slots, a ring buffer, as does any attention
-cache under ``window_override``), an ``RGLRUState`` or an ``RWKVState``.
+cache under ``window_override``), an ``MLACache`` for MLA (the latents; MLA
+takes no window), an ``RGLRUState`` or an ``RWKVState``.
 Modes ``train`` (full sequence, logits everywhere, no caches), ``prefill``
 (build caches, logits at the last position) and ``decode`` (one token +
 caches).  With ``cfg.remat``, train mode recomputes each layer in the
 backward pass (``torch.utils.checkpoint``, the counterpart of
-``jax.checkpoint``).  MLA, the MTP head and the modality frontends raise
-``NotImplementedError``.
+``jax.checkpoint``).  With ``cfg.mtp`` (DeepSeek-V3) train mode also runs
+the multi-token-prediction head and returns its logits beside the aux
+loss.  The modality frontends raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -33,6 +36,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from . import layers as L
+from . import mla as MLA
 from . import moe as MOE
 from . import rglru as RG
 from . import rwkv6 as RW
@@ -47,17 +51,15 @@ def _check_supported(cfg: ModelConfig) -> None:
     if unknown:
         missing.append(f"block kinds {unknown}")
     if any(k in ATTN_KINDS for k in cfg.block_pattern) and (
-            cfg.attention is None or cfg.attention.kind != "gqa"):
+            cfg.attention is None or cfg.attention.kind not in ("gqa", "mla")):
         missing.append(f"attention kind "
                        f"{cfg.attention.kind if cfg.attention else None!r}")
     if cfg.modality.kind != "text":
         missing.append(f"{cfg.modality.kind} frontend")
-    if cfg.mtp:
-        missing.append("MTP head")
     if missing:
         raise NotImplementedError(
-            f"{cfg.name}: the port runs GQA (dense or MoE) and recurrent text "
-            f"models; not yet ported: {', '.join(missing)} (ROADMAP.md, queue 1)")
+            f"{cfg.name}: the port runs GQA or MLA (dense or MoE) and recurrent "
+            f"text models; not yet ported: {', '.join(missing)} (ROADMAP.md, queue 1)")
 
 
 # ---------------------------------------------------------------------------
@@ -86,8 +88,15 @@ def _init_layer(gen: torch.Generator, cfg: ModelConfig, kind: str, layer_idx: in
     params: dict[str, Any] = {"norm1": norm_init(cfg.d_model, lead, gen.device)}
     if kind in ATTN_KINDS:
         a = cfg.attention
-        params["attn"] = L.init_gqa(gen, cfg.d_model, a.num_heads,
-                                    a.num_kv_heads, a.head_dim, lead)
+        if a.kind == "mla":
+            params["attn"] = MLA.init_mla(
+                gen, cfg.d_model, a.num_heads, q_lora_rank=a.q_lora_rank,
+                kv_lora_rank=a.kv_lora_rank, qk_nope_head_dim=a.qk_nope_head_dim,
+                qk_rope_head_dim=a.qk_rope_head_dim, v_head_dim=a.v_head_dim,
+                lead=lead)
+        else:
+            params["attn"] = L.init_gqa(gen, cfg.d_model, a.num_heads,
+                                        a.num_kv_heads, a.head_dim, lead)
     elif kind == "rglru":
         params["rglru"] = RG.init_rglru_block(
             gen, cfg.d_model, cfg.rglru.lru_width or cfg.d_model,
@@ -120,7 +129,14 @@ def _apply_layer(params, cfg: ModelConfig, kind: str, x, *, cache, mode,
     _, norm_fn = L.make_norm(cfg.norm)
     aux = None
     h = norm_fn(params["norm1"], x)
-    if kind in ATTN_KINDS:
+    if kind in ATTN_KINDS and cfg.attention.kind == "mla":
+        a = cfg.attention                  # MLA takes no window
+        y, new_cache = MLA.mla_attention(
+            params["attn"], h, num_heads=a.num_heads,
+            qk_nope_head_dim=a.qk_nope_head_dim, qk_rope_head_dim=a.qk_rope_head_dim,
+            v_head_dim=a.v_head_dim, rope_theta=a.rope_theta, cache=cache,
+            mode=mode, impl=kernel_impl)
+    elif kind in ATTN_KINDS:
         a = cfg.attention
         y, new_cache = L.gqa_attention(
             params["attn"], h, num_heads=a.num_heads,
@@ -194,6 +210,14 @@ def init_model(cfg: ModelConfig, *, seed: int = 0,
         params["tail"] = [_init_layer(gen, cfg, kind, 10**6) for kind in remainder]
     norm_init, _ = L.make_norm(cfg.norm)
     params["final_norm"] = norm_init(cfg.d_model, (), dev)
+    if cfg.mtp:
+        # DeepSeek-V3's MTP module: [h_t ; emb(token_{t+1})] projected to d,
+        # one more block of the pattern's last kind (an MoE layer in an MoE
+        # config), its own norm, the shared unembedding
+        params["mtp_proj"] = L.dense_init(gen, (2 * cfg.d_model, cfg.d_model),
+                                          2 * cfg.d_model)
+        params["mtp_block"] = _init_layer(gen, cfg, cfg.block_pattern[-1], 10**6)
+        params["mtp_norm"] = norm_init(cfg.d_model, (), dev)
     return params
 
 
@@ -201,6 +225,9 @@ def _layer_cache(cfg: ModelConfig, kind: str, batch: int, context_len: int,
                  window_override, dtype, dev, lead=()):
     if kind in ATTN_KINDS:
         a = cfg.attention
+        if a.kind == "mla":
+            return MLA.init_mla_cache(batch, context_len, a.kv_lora_rank,
+                                      a.qk_rope_head_dim, dtype, dev, lead)
         if kind == "local_attn" and a.sliding_window:
             size = min(a.sliding_window, context_len)
         elif window_override:
@@ -243,9 +270,10 @@ def init_caches(cfg: ModelConfig, batch: int, context_len: int,
 
 
 def _group(cache, g: int):
-    """Group ``g``'s view of a stacked cache (a KVCache, RGLRUState or
-    RWKVState): its tensors indexed on the leading axis, so that in-place
-    writes reach the stack; other fields (a KVCache's index) as they are."""
+    """Group ``g``'s view of a stacked cache (a KVCache, MLACache,
+    RGLRUState or RWKVState): its tensors indexed on the leading axis, so
+    that in-place writes reach the stack; other fields (an attention cache's
+    index) as they are."""
     return type(cache)(**{
         f.name: (getattr(cache, f.name)[g]
                  if isinstance(getattr(cache, f.name), torch.Tensor)
@@ -272,11 +300,14 @@ def apply_model(
     caches: dict | None = None,
     kernel_impl: str = "auto",
     window_override: int | None = None,
-) -> tuple[torch.Tensor, dict | None, torch.Tensor]:
+) -> tuple[torch.Tensor, dict | None, Any]:
     """Forward pass over ``batch["tokens"]`` (B, T).
 
     Returns (logits, new_caches, aux_loss) like the JAX package; aux_loss
-    is the sum of the MoE layers' router losses (a zero without MoE).
+    is the sum of the MoE layers' router losses (a zero without MoE).  With
+    ``cfg.mtp`` in train mode it is ``(aux_loss, mtp_logits)``: the MTP
+    head's logits for token t+2 at each position t (its block's router loss
+    is in aux_loss).
     ``train`` takes no caches and returns None for them; prefill and decode
     update ``caches`` (from :func:`init_caches`, with the same
     ``window_override``) in place and return them.  ``window_override``
@@ -327,11 +358,11 @@ def apply_model(
                 cache = None if train else _group(caches["blocks"][i], g)
                 x, last[i] = layer(groups[i][g], kind, x, cache)
         if not train:
-            # the stacks were written in place; a KVCache takes the index
-            # its layer advanced to
+            # the stacks were written in place; an attention cache takes the
+            # index its layer advanced to
             new_caches["blocks"] = tuple(
-                L.KVCache(c.k, c.v, c.positions, last[i].index)
-                if isinstance(c, L.KVCache) else c
+                dataclasses.replace(c, index=last[i].index)
+                if isinstance(c, (L.KVCache, MLA.MLACache)) else c
                 for i, c in enumerate(caches["blocks"]))
     if remainder:
         tail = []
@@ -348,4 +379,17 @@ def apply_model(
         xn = xn[:, -1:]                   # only the last position's logits
     cap = 30.0 if cfg.attention and cfg.attention.logit_softcap else None
     logits = L.unembed(params["embed"], xn, logit_cap=cap)
+    if cfg.mtp and train:
+        # position t pairs with the embedding of token t+1 (zeros at the end)
+        emb = L.embed(params["embed"], batch["tokens"],
+                      scale_by_dim=cfg.embedding_scale).to(xn.dtype)
+        emb_shift = torch.cat([emb[:, 1:], torch.zeros_like(emb[:, :1])], dim=1)
+        h = L._mm(torch.cat([xn, emb_shift], dim=-1), params["mtp_proj"]).to(xn.dtype)
+        h, _, aux = _apply_layer(params["mtp_block"], cfg, cfg.block_pattern[-1], h,
+                                 cache=None, mode="train", kernel_impl=kernel_impl)
+        if aux is not None:
+            total_aux = total_aux + aux
+        mtp_logits = L.unembed(params["embed"], norm_fn(params["mtp_norm"], h),
+                               logit_cap=cap)
+        return logits, None, (total_aux, mtp_logits)
     return logits, (None if train else new_caches), total_aux

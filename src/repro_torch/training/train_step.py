@@ -29,6 +29,7 @@ from repro_torch.configs.base import CommConfig, ModelConfig
 from repro_torch.core.collectives import DataAxis, all_reduce_mean, sync_gradients
 from repro_torch.device import timed
 from repro_torch.models import apply_model
+from repro_torch.models.layers import cross_entropy
 from repro_torch.optim import AdamWConfig, adamw_update, init_opt_state
 from repro_torch.optim.schedules import cosine_with_warmup
 from repro_torch.tree import leaves, tree_map, unflatten
@@ -53,11 +54,17 @@ def init_train_state(params) -> TrainState:
 
 def compute_loss(params, cfg: ModelConfig, batch, *,
                  kernel_impl: str = "auto") -> tuple[torch.Tensor, dict]:
-    """(total loss, metrics) of the model in train mode on ``batch``."""
+    """(total loss, metrics) of the model in train mode on ``batch``; with
+    ``cfg.mtp`` the MTP head's cross-entropy, weighted by
+    ``cfg.mtp_loss_weight``, joins the total."""
     logits, _, aux = apply_model(params, cfg, batch, mode="train",
                                  kernel_impl=kernel_impl)
     loss = losses.task_loss(cfg, logits, batch)
-    mtp_loss = torch.zeros((), device=loss.device)    # no MTP head ported
+    mtp_loss = torch.zeros((), device=loss.device)
+    if isinstance(aux, tuple):                 # MTP head active
+        aux, mtp_logits = aux
+        # position t's MTP target is token t+2 = labels[t+1]
+        mtp_loss = cross_entropy(mtp_logits[:, :-1], batch["labels"][:, 1:])
     total = loss + aux + cfg.mtp_loss_weight * mtp_loss
     return total, {"loss": loss, "aux_loss": aux, "mtp_loss": mtp_loss}
 

@@ -4,8 +4,8 @@ weights (JAX ``init_model``) and batch, with ``cfg.remat`` off and on.
 
 The JAX side runs op by op (``jax.disable_jit``), as the model parity tests
 do: the residual stream is bf16, and compiled XLA keeps excess precision
-there.  Tolerances: loss (and, apart, the MoE router's aux loss) atol
-1e-3; each gradient leaf within 2e-2 of its own norm
+there.  Tolerances: loss (and, apart, the MoE router's aux loss and the
+MTP head's loss) atol 1e-3; each gradient leaf within 2e-2 of its own norm
 (``||g_port - g_jax|| / ||g_jax||``).  Both come from bf16 roundings of the
 residual stream that land differently in the two frameworks (measured at
 most 8.5e-5 and 3.9e-3 on the smoke configs); a wrong gradient is off by
@@ -30,7 +30,8 @@ from repro_torch.tree import leaves_with_path, unflatten
 LOSS_ATOL, GRAD_RTOL = 1e-3, 2e-2
 
 
-def check_loss_and_grads(arch: str, remat: bool) -> None:
+def check_loss_and_grads(arch: str, remat: bool) -> dict:
+    """Returns the port's metrics."""
     cfg, jp, tp = converted_params(arch)
     jcfg = dataclasses.replace(cfg, remat=remat)
     tcfg = dataclasses.replace(get_smoke_config(arch), remat=remat)
@@ -50,6 +51,7 @@ def check_loss_and_grads(arch: str, remat: bool) -> None:
     assert set(tm) == set(jm) == {"loss", "aux_loss", "mtp_loss"}
     assert abs(tl.item() - float(jl)) <= LOSS_ATOL
     assert abs(tm["aux_loss"].item() - float(jm["aux_loss"])) <= LOSS_ATOL
+    assert abs(tm["mtp_loss"].item() - float(jm["mtp_loss"])) <= LOSS_ATOL
     jflat = jax.tree_util.tree_leaves(jg)
     assert len(jflat) == len(tg)
     for path, a, b in zip(paths, tg, jflat):
@@ -57,4 +59,5 @@ def check_loss_and_grads(arch: str, remat: bool) -> None:
         assert a.shape == b.shape, path
         rel = np.linalg.norm(a - b) / max(np.linalg.norm(b), 1e-30)
         assert rel <= GRAD_RTOL, ("/".join(path), rel)
+    return tm
 

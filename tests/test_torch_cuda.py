@@ -44,6 +44,13 @@ def cuda_device():
     ((1, 300, 300, 1, 16, 256), torch.float32, dict(window=64, prefix_len=20)),
     ((1, 129, 33, 1, 1, 256), torch.float32, dict(logit_cap=30.0)),
     ((2, 8, 300, 2, 8, 128), torch.bfloat16, dict(q_offset=250, k_valid_len=258)),
+    # deepseek-v3's MLA prefill: 128 KV heads of one query at head_dim 192
+    # (nope 128 + rope 64, v padded to it), on the 256-wide template; off
+    # the tiles; a scale other than 1/sqrt(D)
+    ((4, 512, 512, 128, 1, 192), torch.float32, dict(scale=192 ** -0.5)),
+    ((4, 512, 512, 128, 1, 192), torch.bfloat16, {}),
+    ((1, 97, 131, 3, 1, 192), torch.float32, {}),
+    ((2, 128, 128, 4, 1, 192), torch.float32, dict(scale=0.05)),
 ])
 def test_flash_attention_kernel_matches_plain(cuda_device, shape, dtype, kw):
     """Tolerance: fp32 atol 1e-4 (summation order), bf16 atol 2e-2."""
@@ -287,3 +294,25 @@ def test_recurrent_block_backward_raises_on_the_card(cuda_device, family):
     assert ops.launch_counts()[kernel] == before + 1
     with pytest.raises(NotImplementedError, match=kernel):
         y.sum().backward()
+
+
+@pytest.mark.requires_cuda
+def test_mla_training_raises_at_the_backward_head_dim(cuda_device):
+    """MLA at deepseek-v3's widths attends at head_dim 192 (nope 128 + rope
+    64), above the backward kernel's 128: a train step on the card runs the
+    forward kernel under autograd, and its backward raises, naming the
+    limit, instead of going through the plain version."""
+    from repro_torch.models import mla
+    dims = dict(num_heads=2, qk_nope_head_dim=128, qk_rope_head_dim=64, v_head_dim=128)
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    params = mla.init_mla(gen, 64, 2, q_lora_rank=32, kv_lora_rank=32, qk_nope_head_dim=128,
+                          qk_rope_head_dim=64, v_head_dim=128)
+    for t in params.values():
+        t.requires_grad_()
+    x = torch.randn(2, 16, 64, device=cuda_device, generator=gen)
+    before = ops.launch_counts()
+    y, _ = mla.mla_attention(params, x, mode="train", **dims)
+    assert ops.launch_counts()["flash_attention"] == before["flash_attention"] + 1
+    with pytest.raises(ValueError, match="head_dim <= 128"):
+        y.sum().backward()
+    assert ops.launch_counts()["flash_attention_bwd"] == before["flash_attention_bwd"]

@@ -11,12 +11,13 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_flash_plan import check_forward_plan
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro.models.layers import blockwise_attention as jax_blockwise
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.flash_attention import (BWD_KEYS, BWD_MAX_SPLIT, BWD_ROWS, bwd_plan,
-                                                 flash_attention_cuda, fwd_plan, fwd_tiles)
+                                                 flash_attention_cuda, fwd_plan)
 from repro_torch.models.layers import blockwise_attention
 
 
@@ -255,34 +256,7 @@ def test_forward_plan_covers_every_visible_pair_once(tq, tk, G, D, kw):
     skips a key tile only where none of its pairs is visible, and it leaves
     the mask out only where every pair of the block is visible; for every
     mask kind, ragged lengths, G up to 64 and both tile shapes."""
-    kw = dict(kw)
-    tq = tq if "q_offset" not in kw else min(tq, 16)
-    plan = fwd_plan(tq, tk, G, D, **kw)
-    assert (plan.rows, plan.keys) == fwd_tiles(D)
-    q_off = kw.pop("q_offset", 0)
-    mask = ref.attention_mask(q_off + torch.arange(tq), torch.arange(tk),
-                              causal=kw.get("causal", True), window=kw.get("window"),
-                              prefix_len=kw.get("prefix_len"),
-                              k_valid_len=kw.get("k_valid_len"), k_len=tk).numpy()
-    visible = np.repeat(np.broadcast_to(mask, (tq, tk)), G, axis=0)   # row t * G + g -> position t
-    nr = tq * G
-    seen = np.zeros((nr, tk), np.int64)
-    assert sorted(qt for qt, _, _ in plan.ctas) == list(range(-(-nr // plan.rows)))
-    for qt, first, classes in plan.ctas:
-        for i, per_warp in enumerate(classes):
-            k0 = (first + i) * plan.keys
-            assert len(per_warp) == plan.rows // 16
-            for w, cls in enumerate(per_warp):
-                r0 = qt * plan.rows + 16 * w
-                block = visible[r0:r0 + 16, k0:k0 + plan.keys]
-                if cls == "skip":
-                    assert not block.any()
-                    continue
-                if cls == "full":
-                    assert block.all() and block.shape[1] == plan.keys
-                seen[r0:r0 + 16, k0:k0 + plan.keys] += 1
-    assert (seen[visible] == 1).all()
-    assert seen.max() <= 1
+    check_forward_plan(tq if "q_offset" not in kw else min(tq, 16), tk, G, D, kw)
 
 
 def test_forward_plan_shares_key_tiles_and_goes_longest_first():

@@ -1,6 +1,6 @@
 """The port's model held against the JAX package's ``apply_model`` on five
-dense, one MoE and two recurrent smoke configs, from the same
-(JAX-initialised) weights.  The
+dense, two MoE (one with MLA and the MTP head) and two recurrent smoke
+configs, from the same (JAX-initialised) weights.  The
 prefill + decode check lives in ``_torch_model_parity.py``.
 
 Tolerance: logits atol 3e-2, because the residual stream is bfloat16 in
@@ -27,9 +27,10 @@ from repro.models import get_config as jax_get_config
 from repro.models import get_smoke_config as jax_smoke
 from repro_torch.models import (apply_model, get_config, get_smoke_config,
                                 init_caches, init_model)
+from repro_torch.models.registry import NOT_PORTED
 
 ARCHS = ["smollm-360m", "paper-7b", "glm4-9b", "recurrentgemma-9b", "rwkv6-1.6b",
-         "gemma2-27b", "deepseek-67b", "dbrx-132b"]
+         "gemma2-27b", "deepseek-67b", "dbrx-132b", "deepseek-v3-671b"]
 
 
 def test_prefill_and_decode_match_jax():
@@ -72,8 +73,9 @@ def test_configs_match_jax(arch):
 
 
 def test_registry_and_device_rules():
-    with pytest.raises(NotImplementedError, match="MLA"):
-        get_config("deepseek-v3-671b")
+    assert sorted(NOT_PORTED) == ["hubert-xlarge", "paligemma-3b"]
+    with pytest.raises(NotImplementedError, match="audio_frames"):
+        get_config("hubert-xlarge")
     with pytest.raises(NotImplementedError, match="vision_text"):
         get_smoke_config("paligemma-3b")
     with pytest.raises(KeyError):

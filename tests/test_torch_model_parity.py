@@ -1,7 +1,8 @@
 """Prefill + decode parity of the port's model with the JAX package's on
 paper-7b-smoke, glm4-smoke, deepseek-67b-smoke, gemma2-smoke, dbrx-smoke
-(also with one leading dense layer, ``first_k_dense=1``) and the two
-recurrent smoke configs (smollm-smoke: ``test_torch_model.py``; the check
+(also with one leading dense layer, ``first_k_dense=1``), deepseek-v3-smoke
+(MLA, a shared expert, one leading dense layer; prefill and decode do not
+run its MTP head) and the two recurrent smoke configs (smollm-smoke: ``test_torch_model.py``; the check
 and its tolerance: ``_torch_model_parity.py``).  recurrentgemma-smoke and
 gemma2-smoke prefill 20 tokens, more than their local-attention window of
 16, so that the ring buffer wraps and gemma2's global layers see keys its
@@ -15,7 +16,7 @@ from _torch_model_parity import check_prefill_and_decode
 @pytest.mark.parametrize("arch,prompt", [("paper-7b", 10), ("glm4-9b", 10),
                                          ("recurrentgemma-9b", 20), ("rwkv6-1.6b", 10),
                                          ("gemma2-27b", 20), ("deepseek-67b", 10),
-                                         ("dbrx-132b", 10)])
+                                         ("dbrx-132b", 10), ("deepseek-v3-671b", 10)])
 def test_prefill_and_decode_match_jax(arch, prompt):
     check_prefill_and_decode(arch, prompt)
 

@@ -183,7 +183,7 @@ def test_engine_matches_jax_engine(setup, strategy):
 def _check_engine_parity(arch, prompt_len):
     """``arch``'s smoke config through both engines under one fake clock:
     same tokens, virtual latencies, ledger and trace, with a NIC failure at
-    decode step 2."""
+    decode step 2.  Returns the port's params and results."""
     jcfg = jax_smoke(arch)
     jp = jax.jit(lambda key: jax_init_model(key, jcfg)[0])(jax.random.PRNGKey(0))
     tp = params_from_jax(jax.tree_util.tree_map(np.asarray, jp), device="cpu")
@@ -199,6 +199,7 @@ def _check_engine_parity(arch, prompt_len):
     assert got[0].failovers == 1 and len(got[0].tokens) == 6
     assert teng.last_recovery.stages == jeng.last_recovery.stages
     assert teng.trace.records == jeng.trace.records
+    return tp, got
 
 
 @pytest.mark.parametrize("arch,prompt_len", [("recurrentgemma-9b", 24), ("rwkv6-1.6b", 12)])
@@ -216,6 +217,18 @@ def test_gqa_engine_matches_jax_engine(arch, prompt_len):
     window), deepseek-67b and the MoE feed-forward of dbrx through both
     engines."""
     _check_engine_parity(arch, prompt_len)
+
+
+def test_mla_engine_matches_jax_engine():
+    """deepseek-v3-smoke through both engines: MLA's latent caches, the
+    absorbed decode, MoE layers with a shared expert after one dense
+    layer; the same tokens healthy (the run before the failure) and with
+    the NIC failure."""
+    tp, failed = _check_engine_parity("deepseek-v3-671b", 12)
+    cfg = get_smoke_config("deepseek-v3-671b")
+    healthy = ServingEngine(cfg, tp, context_len=64, device="cpu").run_batch(
+        _reqs(cfg, plen=12))
+    assert [r.tokens for r in healthy] == [r.tokens for r in failed]
 
 
 def test_serve_trace_matches_jax(setup):
@@ -262,3 +275,9 @@ def test_gqa_serve_cli_on_cpu(arch, capsys):
     """``--arch`` takes the other GQA families; gemma2-smoke's 24-token
     prompts wrap its 16-slot window."""
     _serve_cli(arch, capsys)
+
+
+def test_mla_serve_cli_on_cpu(capsys):
+    """``--arch deepseek-v3-671b`` serves MLA on the CPU (the MTP head is
+    train-only and takes no part)."""
+    _serve_cli("deepseek-v3-671b", capsys)
