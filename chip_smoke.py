@@ -46,7 +46,19 @@ Phases, each printing its own lines and seconds, and raising on failure
                192 (128 KV heads of one query) and whose decode attends to the
                latent cache in plain PyTorch; 4 requests of 512-token prompts,
                4 flash_attention launches per prefill, routing flips counted;
-  9. train   — full-width smollm-360m trained data-parallel on 4 ranks, all on
+  9. serve_paligemma — paligemma-3b at full width and depth (18 layers, fp32
+               weights, 10.0 GB): apply_model prefill over 256 image-patch
+               embeddings (a bidirectional prefix, the flash kernel's
+               prefix-LM mask at head_dim 256) and 256 text tokens, then 15
+               greedy decode steps, 4 requests; 18 flash_attention launches a
+               prefill, none in decode; tokens and prefill logits held to the
+               plain versions; TTFT, TPOT and peak memory printed;
+ 10. serve_hubert — hubert-xlarge at full width and depth (48 layers, 3.8
+               GB): the encoder's forward over 4 clips of 1024 frames (the
+               non-causal mask at head_dim 80), 48 flash_attention launches,
+               logits held to the plain versions; forward time and peak
+               memory printed;
+ 11. train   — full-width smollm-360m trained data-parallel on 4 ranks, all on
                this card (host-staged gloo wire): one rank's gradients through
                the attention kernels against plain attention; ``sync="xla"``
                against ``sync="r2ccl"`` (degraded rank 1, lost 0.5, g 2) for 4
@@ -55,7 +67,16 @@ Phases, each printing its own lines and seconds, and raising on failure
                after a NIC failure on node 1.  Launch counts are read on rank
                0 around each run and held to the counts the programs, the
                leaves and the layers predict; the step time is split into
-               forward+backward, wire, merge and optimizer.
+               forward+backward, wire, merge and optimizer;
+ 12. train_frontends — one rank's full-width, full-depth gradients of
+               paligemma-3b (the backward kernel at head_dim 256, prefix 256)
+               and hubert-xlarge (head_dim 80, non-causal) through the
+               kernels against the plain versions; then hubert-xlarge at full
+               width and 24 of 48 layers on 4 ranks sharing the card, sync
+               r2ccl, a ring switched to the degraded program after a NIC
+               failure on node 1 at step 2; the loss must be finite and
+               fall, and chunk_combine and both attention kernels run as
+               many times as predicted.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
@@ -143,6 +164,15 @@ NO_LIBRARY = "no single PyTorch call computes this recurrence"
 
 ARCH, BATCH, PROMPT, NEW_TOKENS, CONTEXT = "smollm-360m", 4, 512, 16, 1024
 FAIL_STEP = 4
+#: the frontend models at full width and depth: paligemma-3b (18 layers,
+#: 10.0 GB of fp32 weights), batch, text tokens after its 256 image patches,
+#: new tokens, context; hubert-xlarge (48 layers, 3.8 GB), batch, frames (4
+#: clips of about 20 s of audio at HuBERT's 50 frames a second)
+PALIGEMMA = ("paligemma-3b", BATCH, 256, NEW_TOKENS, 544)
+HUBERT = ("hubert-xlarge", BATCH, 1024)
+#: hubert-xlarge's layers in the 4-rank training run (full width): about
+#: 8.5 GB a rank of weights, gradients, AdamW moments and the bf16 wire
+HUBERT_TRAIN_LAYERS = 24
 #: the recurrent serve phases: (arch, batch, prompt, context, kernel
 #: launches per prefill); recurrentgemma-9b has 12 groups of (rglru, rglru,
 #: local_attn) and a tail of 2 rglru layers
@@ -172,9 +202,15 @@ ATOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}   # kernel vs plain
 # activations) as dbrx-132b: the same depth of bf16 residual roundings, and
 # the pinned check (routing replayed) measured 2.2e-2 there; the float32
 # check holds the kernels.
+# paligemma-3b (18 layers), set before its first run: its text embeddings
+# are scaled by sqrt(2048) as gemma2's are by sqrt(4608), so the residual's
+# bf16 ulps are large, as there.  hubert-xlarge (48 layers, no embedding
+# scale, LayerNorm), set before its first run: 1.5x smollm's depth of
+# roundings, over all 4096 frames' logits rather than one position a
+# request.  The float32 checks hold the kernels in both.
 LOGIT_ATOL = {"serve": 5e-2, "serve_recurrentgemma": 0.25, "serve_rwkv6": 0.25,
               "serve_gemma2": 0.25, "serve_deepseek67b": 0.1, "serve_dbrx": 0.25,
-              "serve_deepseekv3": 0.25}
+              "serve_deepseekv3": 0.25, "serve_paligemma": 0.25, "serve_hubert": 0.25}
 # the same with a float32 residual stream, where the gap is the kernels' own
 # fp32 error (about 1e-6 relative) carried through the layers
 LOGIT_ATOL_F32 = 1e-3
@@ -207,12 +243,24 @@ G2_ATTN, G2_WINDOW, G2_CAP = (2, 4352, 4352, 16, 2, 128), 4096, 50.0
 # model pads it, scale 1/sqrt(192) passed explicitly
 MLA_ATTN, MLA_V = (BATCH, PROMPT, PROMPT, 128, 1, 192), 128
 MLA_SCALE = 192 ** -0.5
+# one paligemma-3b layer in prefill: MQA, 8 query heads of 256 on one KV
+# head, 256 image patches (a bidirectional prefix) and 256 text tokens; one
+# hubert-xlarge layer: 16 heads of 80, non-causal, 1024 frames (about 20 s
+# of audio at HuBERT's 50 frames a second)
+PG_ATTN, PG_PREFIX = (BATCH, 512, 512, 1, 8, 256), 256
+HB_ATTN = (BATCH, 1024, 1024, 16, 1, 80)
 # its library yardstick is flex_attention compiled (a softcap score_mod, a
 # causal window block mask, GQA): SDPA has no logit softcap.  Its error
 # against the plain version is held to FLEX_ATOL, a guard that it computes
 # the same function (a TF32 product would err by about 1e-3, a wrong mask or
 # cap by O(1))
 FLEX_ATOL = 1e-2
+# the training shapes of one layer's attention backward (B = LOCAL_BATCH
+# sequences of SEQ): paligemma-3b (256 patches + 256 text tokens), hubert-
+# xlarge; deepseek-v3's MLA at its serving batch of 4
+PG_TRAIN = (2, 512, 512, 1, 8, 256)
+HB_TRAIN = (2, 512, 512, 16, 1, 80)
+MLA_TRAIN = MLA_ATTN
 # backward kernel vs autograd through the plain version, relative to
 # max(1, max |gradient|): a dK entry sums over up to Tq * G query rows
 BWD_RTOL = {torch.float32: 1e-3, torch.bfloat16: 3e-2}
@@ -286,7 +334,8 @@ def attention_bound(q, k, ref, kw, backward: bool = False) -> dict:
         causal=kw.get("causal", True), window=kw.get("window"),
         prefix_len=kw.get("prefix_len"), k_valid_len=kw.get("k_valid_len"),
         k_len=Tk)
-    flops = 4.0 * D * int(mask.sum()) * B * KVH * G
+    # (a mask without causal or window terms comes back (1, Tk): broadcast)
+    flops = 4.0 * D * int(mask.expand(Tq, Tk).sum()) * B * KVH * G
     nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size()
     if backward:
         flops *= 2.5
@@ -359,8 +408,16 @@ def check_flash_attention(gen) -> dict:
         ("mla-prefill", MLA_ATTN, torch.float32, dict(scale=MLA_SCALE)),
         ("mla-prefill", MLA_ATTN, torch.bfloat16, dict(scale=MLA_SCALE)),
         ("D=192 off the tiles", (1, 97, 131, 3, 1, 192), torch.float32, {}),
+        # the frontends' prefills: paligemma-3b's 256 image patches as a
+        # bidirectional prefix (MQA, 8 heads of 256), hubert-xlarge's
+        # non-causal encoder (16 heads of 80)
+        ("paligemma-prefill", PG_ATTN, torch.float32, dict(prefix_len=PG_PREFIX)),
+        ("paligemma-prefill", PG_ATTN, torch.bfloat16, dict(prefix_len=PG_PREFIX)),
+        ("hubert-encoder", HB_ATTN, torch.float32, dict(causal=False)),
+        ("hubert-encoder", HB_ATTN, torch.bfloat16, dict(causal=False)),
     ]
     smollm_err = rg_err = g2_err = mla_err = None
+    errs = {}
     for label, shape, dtype, kw in cases:
         q, k, v = inputs(*shape, dtype)
         out = flash_attention_cuda(q, k, v, **kw)
@@ -383,6 +440,8 @@ def check_flash_attention(gen) -> dict:
             g2_err = err
         if label == "mla-prefill" and dtype == torch.float32:
             mla_err = err
+        if dtype == torch.float32:
+            errs.setdefault(label, err)
         del q, k, v, out, want
 
     # two calls on the same inputs give the same bits, output and lse (no
@@ -403,19 +462,23 @@ def check_flash_attention(gen) -> dict:
     g2 = time_gemma2_attention(gen, ref, flash_attention_cuda)
     mla = time_mla_attention(gen, ref, flash_attention_cuda)
 
-    # timing at the serving prefill shape (one layer's attention), fp32, and
-    # at paper-7b's heads in bf16, each against SDPA (causal, GQA)
+    # timing at the serving prefill shape (one layer's attention), fp32, at
+    # paper-7b's heads in bf16, and at the frontends' prefills in fp32, each
+    # against SDPA (causal with GQA; paligemma's prefix as a boolean mask
+    # with K and V expanded to its 8 heads; hubert non-causal)
     timed = {}
-    for label, shape, dtype in (("smollm-prefill", (BATCH, PROMPT, PROMPT, 5, 3, 64),
-                                 torch.float32),
-                                ("paper-7b-heads", (2, 256, 256, 32, 1, 128), torch.bfloat16)):
+    for label, shape, dtype, kw in (
+            ("smollm-prefill", (BATCH, PROMPT, PROMPT, 5, 3, 64), torch.float32, {}),
+            ("paper-7b-heads", (2, 256, 256, 32, 1, 128), torch.bfloat16, {}),
+            ("paligemma-prefill", PG_ATTN, torch.float32, dict(prefix_len=PG_PREFIX)),
+            ("hubert-encoder", HB_ATTN, torch.float32, dict(causal=False))):
         q, k, v = inputs(*shape, dtype)
-        timed[label] = time_forward(q, k, v, ref, flash_attention_cuda, {}, iters=20)
+        timed[label] = time_forward(q, k, v, ref, flash_attention_cuda, kw, iters=20)
         t = timed[label]
-        log("kernels", f"flash_attention {label} {shape} {str(dtype)[6:]}: kernel "
+        log("kernels", f"flash_attention {label} {shape} {str(dtype)[6:]} {kw}: kernel "
             f"{t['ms']:.4f} / {t['ms_again']:.4f} ms, plain {t['plain_ms']:.4f} ms, sdpa "
             f"{t['library_ms']:.4f} ms (sdpa max_abs_err vs the plain version "
-            f"{t['library_err']:.2e}), {bound_text(t)}")
+            f"{t['library_err']:.2e}), {bound_text(t)}, {t['bound_ms'] / t['ms']:.1%} of it")
         log("kernels", f"flash_attention {label}, device time per call (torch.profiler): "
             f"kernel {fmt_ms(t['device_ms'])}, sdpa's kernels {fmt_ms(t['library_device_ms'])}")
     main = timed["smollm-prefill"]
@@ -424,7 +487,11 @@ def check_flash_attention(gen) -> dict:
                 recurrentgemma=dict(shape=RG_ATTN, max_abs_err=rg_err, **rg),
                 gemma2=dict(shape=G2_ATTN, max_abs_err=g2_err, **g2),
                 mla=dict(shape=MLA_ATTN, max_abs_err=mla_err, **mla),
-                paper_7b_bf16=timed["paper-7b-heads"])
+                paper_7b_bf16=timed["paper-7b-heads"],
+                paligemma=dict(shape=PG_ATTN, max_abs_err=errs["paligemma-prefill"],
+                               **timed["paligemma-prefill"]),
+                hubert=dict(shape=HB_ATTN, max_abs_err=errs["hubert-encoder"],
+                            **timed["hubert-encoder"]))
 
 
 def fmt_ms(t: float | None) -> str:
@@ -433,11 +500,12 @@ def fmt_ms(t: float | None) -> str:
 
 def time_forward(q, k, v, ref, flash_attention_cuda, kw, iters, plain_iters=None) -> dict:
     """One attention forward at (q, k, v): the kernel (twice, around the
-    others), the plain version and SDPA (causal with GQA; a window as a
-    boolean mask) by CUDA events, the kernel's and SDPA's device time per
-    call (torch.profiler), and the bound."""
+    others), the plain version and SDPA (causal or not, with GQA; a window
+    or a prefix as a boolean mask, K and V expanded to the query heads with
+    a prefix) by CUDA events, the kernel's and SDPA's device time per call
+    (torch.profiler), and the bound."""
     from repro_torch.launch.profile_kernels import device_ms, sdpa_forward
-    library = sdpa_forward(q, k, v, kw.get("window"), kw.get("scale"))
+    library = sdpa_forward(q, k, v, kw)
     kernel = lambda: flash_attention_cuda(q, k, v, **kw)
     lib_err = (library().transpose(1, 2).reshape(q.shape).float()
                - ref.reference_attention(q, k, v, **kw).float()).abs().max().item()
@@ -573,7 +641,6 @@ def check_flash_attention_bwd(gen) -> dict:
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels.flash_attention import (flash_attention_bwd_cuda,
                                                      flash_attention_cuda)
-    from repro_torch.launch.profile_kernels import device_ms
 
     def inputs(B, Tq, Tk, KVH, G, D, dtype):
         q = torch.randn(B, Tq, KVH, G, D, device="cuda", generator=gen).to(dtype)
@@ -607,8 +674,22 @@ def check_flash_attention_bwd(gen) -> dict:
         ("window+softcap", (1, 128, 128, 2, 1, 16), torch.float32,
          dict(window=32, logit_cap=50.0)),
         ("glm4-heads", (1, 64, 64, 2, 16, 128), torch.bfloat16, {}),
+        # above head_dim 128 (warp pairs split the columns): the frontends'
+        # training shapes, MLA's with its scale, D = 192 and 256 off the
+        # tiles with a window and softcap, a prefix, bf16
+        ("paligemma-train", PG_TRAIN, torch.float32, dict(prefix_len=PG_PREFIX)),
+        ("paligemma-train", PG_TRAIN, torch.bfloat16, dict(prefix_len=PG_PREFIX)),
+        ("hubert-train", HB_TRAIN, torch.float32, dict(causal=False)),
+        ("mla-train", MLA_TRAIN, torch.float32, dict(scale=MLA_SCALE)),
+        ("D=256 off the tiles", (1, 97, 131, 3, 2, 256), torch.float32,
+         dict(window=40, logit_cap=30.0)),
+        ("D=192 off the tiles", (1, 97, 131, 3, 2, 192), torch.float32,
+         dict(window=40, logit_cap=30.0)),
+        ("D=256 prefix", (1, 128, 128, 2, 1, 256), torch.float32, dict(prefix_len=40)),
+        ("D=256 bf16", (1, 97, 131, 3, 2, 256), torch.bfloat16, dict(causal=False)),
     ]
     train_err = None             # (max_abs_err, max_rel_err) at the training shape
+    rel_errs = {}                # fp32 max_rel_err by label
     for label, shape, dtype, kw in cases:
         q, k, v, do = inputs(*shape, dtype)
         _, _, got = kernel(q, k, v, do, kw)
@@ -630,6 +711,9 @@ def check_flash_attention_bwd(gen) -> dict:
                                f"> {BWD_RTOL[dtype]}")
         if train_err is None:
             train_err = (err, rel)
+        if dtype == torch.float32:
+            rel_errs.setdefault(label, rel)
+        del q, k, v, do, got, want
 
     # the autograd.Function that the model calls gives the same gradients
     q, k, v, do = inputs(*train_shape, torch.float32)
@@ -639,69 +723,82 @@ def check_flash_attention_bwd(gen) -> dict:
     if any(not torch.equal(a, b) for a, b in zip(direct, via)):
         raise RuntimeError("ops.flash_attention's backward differs from the kernel's")
 
-    # two calls on the same inputs give the same bits (no atomics)
+    # two calls on the same inputs give the same bits (no atomics), at D = 64
+    # and at paligemma's D = 256 (the column halves' exchange)
     _, _, again = kernel(q, k, v, do, {})
     if any(not torch.equal(a, b) for a, b in zip(direct, again)):
         raise RuntimeError("flash_attention_bwd: two calls on the same inputs differ")
+    pg = inputs(*PG_TRAIN, torch.float32)
+    pg_kw = dict(prefix_len=PG_PREFIX)
+    first, second = kernel(*pg, pg_kw)[2], kernel(*pg, pg_kw)[2]
+    if any(not torch.equal(a, b) for a, b in zip(first, second)):
+        raise RuntimeError("flash_attention_bwd paligemma-train: two calls on the same "
+                           "inputs differ")
     log("kernels", "flash_attention_bwd smollm-train: ops.flash_attention's gradients "
-        "equal the direct call's, and a second call's, bit for bit")
+        "equal the direct call's, and a second call's, bit for bit; paligemma-train "
+        "(D = 256): two calls give the same bits")
+    del pg, first, second, direct, again, via
 
-    # timing at the training shape (one layer's attention backward)
-    out, lse, _ = kernel(q, k, v, do, {})
-    qr, kr, vr = (t.detach().requires_grad_() for t in (q, k, v))
-    ref_out = ref.reference_attention(qr, kr, vr)
-    sdpa_out, dos = sdpa_graph(qr, kr, vr, do)
-    t_kernel = time_ms(lambda: flash_attention_bwd_cuda(q, k, v, out, do, lse))
-    t_plain = time_ms(lambda: torch.autograd.grad(ref_out, (qr, kr, vr), do,
-                                                  retain_graph=True))
-    t_lib = time_ms(lambda: torch.autograd.grad(sdpa_out, (qr, kr, vr), dos,
-                                                retain_graph=True))
-    t_kernel2 = time_ms(lambda: flash_attention_bwd_cuda(q, k, v, out, do, lse))
-    bound = attention_bound(q, k, ref, {}, backward=True)
-    passes = {bwd_pass(n): t for n, t in
-              device_ms(lambda: flash_attention_bwd_cuda(q, k, v, out, do, lse)).items()}
-    lib_dev = sum(device_ms(lambda: torch.autograd.grad(
-        sdpa_out, (qr, kr, vr), dos, retain_graph=True)).values())
-    log("kernels", f"flash_attention_bwd smollm-train fp32: kernel {t_kernel:.4f} / "
-        f"{t_kernel2:.4f} ms, plain {t_plain:.4f} ms, sdpa backward {t_lib:.4f} ms, "
-        f"{bound_text(bound)}")
-    log("kernels", f"flash_attention_bwd smollm-train fp32, device time per call by pass "
-        f"(torch.profiler): " + (", ".join(f"{n} {t:.4f} ms" for n, t in passes.items())
-                                 or "not measured (no device time in the profile)")
-        + f"; in all {sum(passes.values()):.4f} ms; sdpa backward's kernels {lib_dev:.4f} ms")
-
-    # paper-7b's heads in bf16 (one layer's attention backward)
-    q7, k7, v7, do7 = inputs(2, 256, 256, 32, 1, 128, torch.bfloat16)
-    out7, lse7, _ = kernel(q7, k7, v7, do7, {})
-    qr7, kr7, vr7 = (t.detach().requires_grad_() for t in (q7, k7, v7))
-    sdpa7, dos7 = sdpa_graph(qr7, kr7, vr7, do7)
-    t7 = time_ms(lambda: flash_attention_bwd_cuda(q7, k7, v7, out7, do7, lse7))
-    t7_lib = time_ms(lambda: torch.autograd.grad(sdpa7, (qr7, kr7, vr7), dos7,
-                                                 retain_graph=True))
-    t7_2 = time_ms(lambda: flash_attention_bwd_cuda(q7, k7, v7, out7, do7, lse7))
-    bound7 = attention_bound(q7, k7, ref, {}, backward=True)
-    passes7 = {bwd_pass(n): t for n, t in
-               device_ms(lambda: flash_attention_bwd_cuda(q7, k7, v7, out7, do7, lse7)).items()}
-    log("kernels", f"flash_attention_bwd paper-7b-heads (2, 256, 256, 32, 1, 128) bf16: "
-        f"kernel {t7:.4f} / {t7_2:.4f} ms, sdpa backward {t7_lib:.4f} ms, "
-        f"{bound_text(bound7)}; by pass " + ", ".join(f"{n} {t:.4f} ms"
-                                                      for n, t in passes7.items()))
+    # timing at the training shapes (one layer's attention backward): smollm,
+    # paper-7b's heads in bf16, and above head_dim 128 paligemma (prefix
+    # 256), MLA (head_dim 192, its scale) and hubert (non-causal, head_dim 80)
+    timed = {}
+    for label, shape, dtype, kw in (
+            ("smollm-train", train_shape, torch.float32, {}),
+            ("paper-7b-heads", (2, 256, 256, 32, 1, 128), torch.bfloat16, {}),
+            ("paligemma-train", PG_TRAIN, torch.float32, dict(prefix_len=PG_PREFIX)),
+            ("hubert-train", HB_TRAIN, torch.float32, dict(causal=False)),
+            ("mla-train", MLA_TRAIN, torch.float32, dict(scale=MLA_SCALE))):
+        t = timed[label] = time_backward(inputs(*shape, dtype), kw, kernel, ref)
+        passes = t["passes_ms"]
+        log("kernels", f"flash_attention_bwd {label} {shape} {str(dtype)[6:]} {kw}: kernel "
+            f"{t['ms']:.4f} / {t['ms_again']:.4f} ms, plain {t['plain_ms']:.4f} ms, sdpa "
+            f"backward {t['library_ms']:.4f} ms, {bound_text(t)}, "
+            f"{t['bound_ms'] / t['ms']:.1%} of it")
+        log("kernels", f"flash_attention_bwd {label}, device time per call by pass "
+            f"(torch.profiler): " + (", ".join(f"{n} {x:.4f} ms" for n, x in passes.items())
+                                     or "not measured (no device time in the profile)")
+            + f"; in all {sum(passes.values()):.4f} ms; sdpa backward's kernels "
+            f"{fmt_ms(t['library_device_ms'])}")
+    main = timed.pop("smollm-train")
     return dict(name="flash_attention_bwd", **KERNELS["flash_attention_bwd"],
-                launches=0, max_abs_err=train_err[0], max_rel_err=train_err[1],
-                ms=min(t_kernel, t_kernel2), plain_ms=t_plain, **bound,
-                library_ms=t_lib, passes_ms=passes, library_device_ms=lib_dev,
-                paper_7b_bf16=dict(ms=min(t7, t7_2), library_ms=t7_lib, passes_ms=passes7,
-                                   **bound7))
+                launches=0, max_abs_err=train_err[0], max_rel_err=train_err[1], **main,
+                paper_7b_bf16=timed["paper-7b-heads"],
+                paligemma=dict(shape=PG_TRAIN, max_rel_err=rel_errs["paligemma-train"],
+                               **timed["paligemma-train"]),
+                hubert=dict(shape=HB_TRAIN, max_rel_err=rel_errs["hubert-train"],
+                            **timed["hubert-train"]),
+                mla=dict(shape=MLA_TRAIN, max_rel_err=rel_errs["mla-train"],
+                         **timed["mla-train"]))
 
 
-def sdpa_graph(q, k, v, do):
-    """SDPA's forward on (B, T, KVH, G, D) leaves, causal with GQA, kept for
-    timing its backward, and dO in SDPA's (B, H, T, D) layout."""
-    B, T, KVH, G, D = q.shape
-    qs = q.reshape(B, T, KVH * G, D).transpose(1, 2)
-    out = torch.nn.functional.scaled_dot_product_attention(
-        qs, k.transpose(1, 2), v.transpose(1, 2), is_causal=True, enable_gqa=True)
-    return out, do.reshape(B, T, KVH * G, D).transpose(1, 2)
+def time_backward(inputs, kw, kernel, ref) -> dict:
+    """One attention backward at (q, k, v, dO): the kernel (twice, around the
+    others), autograd through the plain version and SDPA's backward (the
+    same masks as ``time_forward``'s SDPA, fp32 with TF32 off or bf16) by CUDA
+    events, the kernel's device time per pass and SDPA backward's kernels'
+    (torch.profiler), and the bound."""
+    from repro_torch.kernels.flash_attention import flash_attention_bwd_cuda
+    from repro_torch.launch.profile_kernels import device_ms, sdpa_forward
+    q, k, v, do = inputs
+    out, lse, _ = kernel(q, k, v, do, kw)
+    qr, kr, vr = (t.detach().requires_grad_() for t in (q, k, v))
+    ref_out = ref.reference_attention(qr, kr, vr, **kw)
+    sdpa_out = sdpa_forward(qr, kr, vr, kw)()
+    B, Tq, KVH, G, D = q.shape
+    dos = do.reshape(B, Tq, KVH * G, D).transpose(1, 2)
+    bwd = lambda: flash_attention_bwd_cuda(q, k, v, out, do, lse, **kw)
+    library = lambda: torch.autograd.grad(sdpa_out, (qr, kr, vr), dos, retain_graph=True)
+    t_kernel = time_ms(bwd, iters=10)
+    t_plain = time_ms(lambda: torch.autograd.grad(ref_out, (qr, kr, vr), do,
+                                                  retain_graph=True), iters=3, warmup=1)
+    t_lib = time_ms(library, iters=10)
+    t_kernel2 = time_ms(bwd, iters=10)
+    passes = {bwd_pass(n): t for n, t in device_ms(bwd).items()}
+    return dict(ms=min(t_kernel, t_kernel2), ms_again=max(t_kernel, t_kernel2),
+                plain_ms=t_plain, **attention_bound(q, k, ref, kw, backward=True),
+                library_ms=t_lib, passes_ms=passes,
+                library_device_ms=sum(device_ms(library).values()) or None)
 
 
 def bwd_pass(kernel_name: str) -> str:
@@ -712,35 +809,38 @@ def bwd_pass(kernel_name: str) -> str:
     return kernel_name[:60]
 
 
-def train_comms() -> dict[str, dict]:
-    """The collective programs the training phase runs, as ``all_reduce``
-    keyword arguments: the parity run's, and the CLI run's ring and the
-    degraded program it switches to.  The CLI run has 2 NICs a node, so the
+def train_comms() -> dict:
+    """The collective programs the training phases run, as ``CommConfig``s:
+    the parity run's, and the CLI run's ring and the degraded program it
+    switches to (the hubert-xlarge run takes the same two).  The CLI run has 2 NICs a node, so the
     failed NIC takes half the node's bandwidth (``launch/train.py``: lost
     fraction max(1/2, 0.34), g = 2) and the planner splits the payload
     between a ring and the partial AllReduce; with 8 NICs a node (lost 0.34)
     it would keep the plain ring."""
     from repro_torch.configs.base import CommConfig
-    return {"parity": CommConfig(**R2CCL_COMM).kwargs(),
-            "ring": CommConfig(mode="ring").kwargs(),
+    return {"parity": CommConfig(**R2CCL_COMM),
+            "ring": CommConfig(mode="ring"),
             "degraded": CommConfig(mode="r2ccl", degraded_rank=1, lost_fraction=0.5,
-                                   devices_per_node=CLI_NICS).kwargs()}
+                                   devices_per_node=CLI_NICS)}
 
 
-def leaf_sizes() -> list[int]:
+def leaf_sizes(cfg=None) -> list[int]:
+    """Element counts of the gradient leaves of ``cfg`` (smollm-360m's by
+    default), in the order the collectives sync them."""
     from repro_torch.models import get_config, init_model
     from repro_torch.tree import leaves
-    sizes = [p.numel() for p in leaves(init_model(get_config(ARCH), seed=0, device="cuda"))]
+    sizes = [p.numel() for p in leaves(init_model(cfg or get_config(ARCH), seed=0,
+                                                  device="cuda"))]
     torch.cuda.empty_cache()
     return sizes
 
 
-def planned_merges(sizes: list[int], comm: dict) -> list[tuple[int, int]]:
+def planned_merges(sizes: list[int], comm) -> list[tuple[int, int]]:
     """(rows, M) of every chunk_combine launch one rank makes in one gradient
     sync: each leaf through each non-empty segment of the program, one launch
     per step (on every rank, destination or not), from the IR alone."""
     from repro_torch.core.collectives import program_for
-    prog = program_for(WORLD, **comm)
+    prog = program_for(WORLD, **comm.kwargs())
     merges = []
     for total in sizes:
         start = 0
@@ -1203,13 +1303,13 @@ def synced_grads(cfg, rank: int, axis, dev) -> dict:
     from repro_torch.configs.base import CommConfig
     from repro_torch.core.collectives import all_reduce_mean, sync_gradients
     from repro_torch.models import init_model
-    from repro_torch.training import compute_loss
+    from repro_torch.training import compute_loss, param_grads
     from repro_torch.tree import leaves_with_path
 
     params = init_model(cfg, seed=0, device=dev)
     named = {"/".join(p): t.requires_grad_(True) for p, t in leaves_with_path(params)}
     total, _ = compute_loss(params, cfg, rank_batch(cfg, rank, 0, dev))
-    grads = dict(zip(named, torch.autograd.grad(total, list(named.values()))))
+    grads = dict(zip(named, param_grads(total, list(named.values()))))
     xla = {n: all_reduce_mean(g, axis) for n, g in grads.items()}
     wire = sync_gradients({n: g.to(torch.bfloat16) for n, g in grads.items()}, axis,
                           mean=True, **CommConfig(**R2CCL_COMM).kwargs())
@@ -1267,14 +1367,16 @@ def parity_rank(rank: int, world: int, device: str, _unused) -> dict:
     return out
 
 
-def grad_check(cfg) -> None:
+def grad_check(cfg, phase: str = "train") -> None:
     """One rank's full-width gradients with attention through the kernels
     against the same with the plain attention, on the card: with a float32
-    residual stream, and with the config's own (bfloat16)."""
+    residual stream, and with the config's own (bfloat16).  The batch is
+    the first LOCAL_BATCH rows of make_batch's SEQ-long global batch (for
+    paligemma-3b 256 image patches and 256 text tokens)."""
     from repro_torch.data import make_batch
     from repro_torch.kernels import ops
     from repro_torch.models import init_model
-    from repro_torch.training import compute_loss
+    from repro_torch.training import compute_loss, param_grads
     from repro_torch.tree import leaves, leaves_with_path
 
     params = init_model(cfg, seed=0, device="cuda")
@@ -1291,7 +1393,7 @@ def grad_check(cfg) -> None:
         for impl in ("auto", "reference"):
             ops.reset_launch_counts()
             total, _ = compute_loss(params, c, batch, kernel_impl=impl)
-            got[impl] = (total.item(), torch.autograd.grad(total, flat), ops.launch_counts())
+            got[impl] = (total.item(), param_grads(total, flat), ops.launch_counts())
         (la, ga, ca), (lr, gr, cr) = got["auto"], got["reference"]
         if ca != counts(flash_attention=remat * cfg.num_layers,
                         flash_attention_bwd=cfg.num_layers) or cr != counts():
@@ -1304,7 +1406,8 @@ def grad_check(cfg) -> None:
                 and all(torch.isfinite(g).all() for g in ga) and rel[worst] <= rel_tol):
             raise RuntimeError(f"full-width gradients kernel vs plain, {dtype} residual: "
                                f"loss {la} vs {lr}, worst leaf {worst} rel err {rel[worst]}")
-        log("train", f"one rank's full-width gradients, {dtype} residual stream, "
+        log(phase, f"{cfg.name}: one rank's full-width gradients ({cfg.num_layers} layers), "
+            f"{dtype} residual stream, "
             f"attention kernels vs plain: loss {la:.6f} vs {lr:.6f} (tol {loss_tol}), "
             f"worst leaf {worst} ||diff||/||plain|| = {rel[worst]:.3e} (tol {rel_tol}); "
             f"launches {ca}")
@@ -1398,6 +1501,281 @@ def train(card: str) -> dict[str, int]:
     return res["launches"]
 
 
+def generate(params, cfg, batch: dict, new: int, context: int, impl: str,
+             forced: torch.Tensor | None = None) -> dict:
+    """``apply_model`` prefill over ``batch`` (patches and tokens), then
+    ``new - 1`` greedy decode steps, each timed on the host clock after a
+    synchronize.  With ``forced`` (B, new) tokens, decode is fed those
+    instead of its own argmax (the plain run replays the kernels' run, so
+    that every step's argmax can be compared).  Returns the tokens (B, new),
+    each step's last-position float32 logits (B, new, V), TTFT, TPOT and the
+    launch counts of the prefill and of the decode."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import apply_model, init_caches
+    B = batch["tokens"].shape[0]
+    caches = init_caches(cfg, B, context, dtype=torch.float32, device="cuda")
+    toks, logits = [], []
+    with torch.no_grad():
+        ops.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out, caches, _ = apply_model(params, cfg, batch, mode="prefill", caches=caches,
+                                     kernel_impl=impl)
+        nxt = out[:, -1].argmax(-1)
+        torch.cuda.synchronize()
+        ttft = time.perf_counter() - t0
+        prefill_launches = ops.launch_counts()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        for i in range(new):
+            toks.append(nxt)
+            logits.append(out[:, -1].float())
+            if i == new - 1:
+                break
+            feed = nxt if forced is None else forced[:, i]
+            out, caches, _ = apply_model(params, cfg, {"tokens": feed[:, None]},
+                                         mode="decode", caches=caches, kernel_impl=impl)
+            nxt = out[:, -1].argmax(-1)
+        torch.cuda.synchronize()
+        tpot = (time.perf_counter() - t0) / max(new - 1, 1)
+    return dict(tokens=torch.stack(toks, 1), logits=torch.stack(logits, 1), ttft=ttft,
+                tpot=tpot, prefill_launches=prefill_launches,
+                decode_launches=ops.launch_counts())
+
+
+def serve_paligemma(card: str) -> dict[str, int]:
+    """paligemma-3b at full width and depth: prefill over 256 image-patch
+    embeddings and 256 text tokens, then greedy decode, through
+    ``apply_model`` (the serving engine feeds tokens only, as the JAX
+    package's).  Launches: one flash forward per layer per prefill, none in
+    decode.  Kernels against their plain versions: with a float32 residual
+    stream the plain run replays the kernels' tokens and its argmax must
+    agree at every step whose top-2 margin exceeds LOGIT_ATOL_F32 (so a
+    free greedy run gives the same tokens), and the prefill logits agree
+    within LOGIT_ATOL_F32; with the config's bf16, the prefill logits
+    within the phase's LOGIT_ATOL.  Returns the served run's launch
+    counts (prefill and decode)."""
+    from repro_torch.data import make_batch
+    from repro_torch.models import get_config, init_model
+    from repro_torch.tree import leaves
+
+    phase = "serve_paligemma"
+    arch, batch, text, new, context = PALIGEMMA
+    cfg = get_config(arch)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_model(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in leaves(params))
+    P = cfg.modality.num_prefix_tokens
+    a = cfg.attention
+    log(phase, f"{arch}: {cfg.num_layers} layers, d_model {cfg.d_model}, {a.num_heads}/"
+        f"{a.num_kv_heads} heads of {a.head_dim}, {P} image patches of "
+        f"{cfg.modality.frontend_dim} as a bidirectional prefix, {n_params / 1e6:.1f}M fp32 "
+        f"params ({4 * n_params / 1e9:.1f} GB), init {time.perf_counter() - t0:.2f} s")
+    b = make_batch(cfg, seq_len=P + text, batch_size=batch, step=0)
+    feed = {k: torch.from_numpy(b[k]).cuda() for k in ("patches", "tokens")}
+
+    generate(params, cfg, feed, 2, context, "auto")      # warm-up
+    run = generate(params, cfg, feed, new, context, "auto")
+    want = counts(flash_attention=cfg.num_layers)
+    if run["prefill_launches"] != want or run["decode_launches"] != counts():
+        raise RuntimeError(f"launches: prefill {run['prefill_launches']} (want {want}), "
+                           f"decode {run['decode_launches']} (want none)")
+    toks = run["tokens"]
+    if not (toks.shape == (batch, new) and bool(((toks >= 0) & (toks < cfg.vocab_size)).all())):
+        raise RuntimeError(f"bad tokens {toks.tolist()}")
+    log(phase, f"TTFT {run['ttft'] * 1e3:.3f} ms, TPOT {run['tpot'] * 1e3:.3f} ms [B={batch}, "
+        f"{P} patches + {text} text tokens, {new} new tokens, {cfg.dtype} residual "
+        f"stream; {card}]; launches per prefill {run['prefill_launches']}, in decode "
+        f"{run['decode_launches']} (as predicted); first tokens of request 0: "
+        f"{toks[0, :8].tolist()}")
+
+    c32 = dataclasses.replace(cfg, dtype="float32")
+    kern = generate(params, c32, feed, new, context, "auto")
+    plain = generate(params, c32, feed, new, context, "reference", forced=kern["tokens"])
+    top2 = plain["logits"].topk(2, dim=-1).values
+    decided = (top2[..., 0] - top2[..., 1]) > LOGIT_ATOL_F32
+    same = plain["logits"].argmax(-1) == kern["tokens"]
+    err = (kern["logits"][:, 0] - plain["logits"][:, 0]).abs().max().item()
+    log(phase, f"float32 residual stream, kernels vs plain: prefill logits "
+        f"max_abs_err={err:.3e} (tol {LOGIT_ATOL_F32}); greedy tokens: the plain run "
+        f"replaying the kernels' {new} tokens picks the same at {int(same.sum())} of "
+        f"{same.numel()} steps (all steps whose top-2 margin exceeds {LOGIT_ATOL_F32}: "
+        f"{bool(same[decided].all())}; {int((~decided).sum())} ties)")
+    if err > LOGIT_ATOL_F32 or not bool(same[decided].all()):
+        raise RuntimeError(f"{arch} kernels vs plain, float32: prefill logits err {err}, "
+                           f"tokens {kern['tokens'].tolist()} vs plain argmax "
+                           f"{plain['logits'].argmax(-1).tolist()}")
+    del kern, plain
+    tol = LOGIT_ATOL[phase]
+    lk = generate(params, cfg, feed, 1, context, "auto")["logits"][:, 0]
+    lp = generate(params, cfg, feed, 1, context, "reference")["logits"][:, 0]
+    err = (lk - lp).abs().max().item()
+    log(phase, f"{cfg.dtype} residual stream, kernels vs plain: prefill logits "
+        f"max_abs_err={err:.3e} (tol {tol}; logits span {lp.min().item():.3f}.."
+        f"{lp.max().item():.3f})")
+    if not (torch.isfinite(lk).all() and err <= tol):
+        raise RuntimeError(f"{arch} prefill logits kernel vs plain, {cfg.dtype}: {err}")
+    log(phase, f"peak memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB "
+        f"(torch.cuda.max_memory_allocated)")
+    del params, lk, lp
+    torch.cuda.empty_cache()
+    return {k: run["prefill_launches"][k] + run["decode_launches"][k] for k in KERNELS}
+
+
+def serve_hubert(card: str) -> dict[str, int]:
+    """hubert-xlarge at full width and depth: the encoder's forward
+    (``apply_model`` in train mode under no_grad; the model is encoder-only)
+    over 4 clips of 1024 frame embeddings, one flash forward per layer, its
+    logits through the kernels against the plain versions with a float32
+    residual stream (LOGIT_ATOL_F32) and the config's bf16 (the phase's
+    LOGIT_ATOL).  Returns the launch counts of the timed forward."""
+    from repro_torch.data import make_batch
+    from repro_torch.kernels import ops
+    from repro_torch.models import apply_model, get_config, init_model
+    from repro_torch.tree import leaves
+
+    phase = "serve_hubert"
+    arch, batch, frames = HUBERT
+    cfg = get_config(arch)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_model(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in leaves(params))
+    a = cfg.attention
+    log(phase, f"{arch}: {cfg.num_layers} layers, d_model {cfg.d_model}, {a.num_heads} "
+        f"heads of {a.head_dim}, non-causal, no rope, frames of {cfg.modality.frontend_dim}, "
+        f"{n_params / 1e6:.1f}M fp32 params ({4 * n_params / 1e9:.1f} GB), init "
+        f"{time.perf_counter() - t0:.2f} s")
+    feed = {"frames": torch.from_numpy(
+        make_batch(cfg, seq_len=frames, batch_size=batch, step=0)["frames"]).cuda()}
+
+    def encode(c, impl):
+        with torch.no_grad():
+            return apply_model(params, c, feed, mode="train", kernel_impl=impl)[0].float()
+
+    encode(cfg, "auto")                                   # warm-up
+    ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = encode(cfg, "auto")
+    torch.cuda.synchronize()
+    fwd_ms = (time.perf_counter() - t0) * 1e3
+    launches = ops.launch_counts()
+    if launches != counts(flash_attention=cfg.num_layers):
+        raise RuntimeError(f"launches {launches}, want {cfg.num_layers} flash_attention")
+    log(phase, f"encoder forward {fwd_ms:.3f} ms [B={batch} clips of {frames} frames, "
+        f"{cfg.dtype} residual stream; {card}]; launches {launches} (as predicted)")
+    for dtype, tol in (("float32", LOGIT_ATOL_F32), (cfg.dtype, LOGIT_ATOL[phase])):
+        c = dataclasses.replace(cfg, dtype=dtype)
+        got, want = encode(c, "auto"), encode(c, "reference")
+        if not (got.shape == (batch, frames, cfg.vocab_size) and torch.isfinite(got).all()):
+            raise RuntimeError(f"{arch} logits: shape {tuple(got.shape)} or non-finite")
+        err = (got - want).abs().max().item()
+        log(phase, f"encoder logits through the kernels vs their plain versions, {dtype} "
+            f"residual stream, all {batch * frames} frames: max_abs_err={err:.3e} (tol "
+            f"{tol}; logits span {want.min().item():.3f}..{want.max().item():.3f})")
+        if err > tol:
+            raise RuntimeError(f"{arch} logits kernel vs plain, {dtype}: {err} > {tol}")
+    log(phase, f"peak memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB "
+        f"(torch.cuda.max_memory_allocated)")
+    del params, out, got, want
+    torch.cuda.empty_cache()
+    return launches
+
+
+def frontend_rank(rank: int, world: int, device: str, layers: int) -> dict:
+    """One rank of the hubert-xlarge R2CCL run: full width, ``layers``
+    layers, the training CLI's two pre-built steps (a ring, then after a NIC
+    failure on node 1 at step FAIL_AT the degraded R2CCL program of
+    CLI_NICS NICs a node) with its optimizer and schedule (AdamW lr 1e-3,
+    warmed up over 100 steps, so step 0's scale is 0), and the same batch
+    every step (this rank's rows of step 0's), so that the losses compare.
+    Returns losses, per-step stats, launches and peak memory."""
+    from repro_torch.core.collectives import DataAxis
+    from repro_torch.kernels import ops
+    from repro_torch.models import get_config, init_model
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.training import init_train_state, make_train_step
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = dataclasses.replace(get_config(HUBERT[0]), num_layers=layers)
+    dev = torch.device("cuda:0")
+    axis = DataAxis()
+    state = init_train_state(init_model(cfg, seed=0, device=dev))
+    steps = {name: make_train_step(cfg, AdamWConfig(lr=1e-3), sync="r2ccl", comm=comm,
+                                   axis=axis)
+             for name, comm in train_comms().items() if name != "parity"}
+    batch = rank_batch(cfg, rank, 0, dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    ops.reset_launch_counts()
+    losses, stats, scheds = [], [], []
+    for i in range(TRAIN_STEPS):
+        active = "ring" if i < FAIL_AT else "degraded"
+        st: dict[str, float] = {}
+        t0 = time.perf_counter()
+        state, m = steps[active](state, batch, stats=st)
+        losses.append(float(m["loss"]))
+        st["step_s"] = time.perf_counter() - t0
+        stats.append(st)
+        scheds.append(active)
+    return dict(losses=losses, stats=stats, scheds=scheds, launches=ops.launch_counts(),
+                max_memory_allocated=torch.cuda.max_memory_allocated(dev))
+
+
+def train_frontends(card: str) -> dict[str, int]:
+    """Full-depth gradient checks of paligemma-3b and hubert-xlarge (one
+    rank, kernels vs plain, float32 and bf16 residual streams), then
+    hubert-xlarge on 4 ranks sharing the card with R2CCL sync and a NIC
+    failure: full width, HUBERT_TRAIN_LAYERS of its 48 layers (weights,
+    gradients, two AdamW moments and a bf16 wire copy are ~18 bytes a
+    parameter: 17 GB a rank at full depth, 68 GB for four).  Returns rank
+    0's launch counts of the 4-rank run."""
+    from repro_torch.launch import ranks
+    from repro_torch.models import get_config
+
+    phase = "train_frontends"
+    for arch in ("paligemma-3b", HUBERT[0]):
+        t0 = time.perf_counter()
+        grad_check(get_config(arch), phase)
+        torch.cuda.empty_cache()
+        log(phase, f"{arch} grad check {time.perf_counter() - t0:.1f} s")
+
+    cfg = dataclasses.replace(get_config(HUBERT[0]), num_layers=HUBERT_TRAIN_LAYERS)
+    L, remat = cfg.num_layers, 2 if cfg.remat else 1
+    sizes = leaf_sizes(cfg)
+    comms = train_comms()
+    per_step = {k: len(planned_merges(sizes, comms[k])) for k in ("ring", "degraded")}
+    t0 = time.perf_counter()
+    runs = ranks.run(frontend_rank, WORLD, "cuda", args=(HUBERT_TRAIN_LAYERS,))
+    r0 = runs[0]
+    want = counts(flash_attention=remat * L * TRAIN_STEPS, flash_attention_bwd=L * TRAIN_STEPS,
+                  chunk_combine=per_step["ring"] * FAIL_AT
+                  + per_step["degraded"] * (TRAIN_STEPS - FAIL_AT))
+    losses = r0["losses"]
+    log(phase, f"{cfg.name}: {L} of {get_config(HUBERT[0]).num_layers} layers (full width, depth cut), "
+        f"{sum(sizes) / 1e6:.1f}M params in {len(sizes)} leaves, {WORLD} ranks on one card, "
+        f"{LOCAL_BATCH} clips of {SEQ} frames each, the same batch every step; schedules "
+        f"{r0['scheds']} (NIC failure on node 1 at step {FAIL_AT}, {CLI_NICS} NICs a node); "
+        f"losses {[round(x, 6) for x in losses]}; launches on rank 0 {r0['launches']}")
+    log(phase, f"per step: ring (step 1) {split(r0['stats'][1:FAIL_AT])}; degraded r2ccl "
+        f"(step {TRAIN_STEPS - 1}) {split(r0['stats'][-1:])}; peak memory per rank "
+        f"{[round(r['max_memory_allocated'] / 2**30, 2) for r in runs]} GiB [{card}]")
+    if not (np.isfinite(losses).all() and losses[-1] < losses[0]
+            and all(r["losses"] == losses for r in runs)):
+        raise RuntimeError(f"{cfg.name} r2ccl run: losses {[r['losses'] for r in runs]} "
+                           "(want finite, falling, equal on every rank)")
+    if r0["launches"] != want:
+        raise RuntimeError(f"{cfg.name} r2ccl run launches {r0['launches']} on rank 0, "
+                           f"want {want}")
+    log(phase, f"{cfg.name} r2ccl run {time.perf_counter() - t0:.1f} s; loss finite and "
+        f"falling, launches as predicted")
+    return r0["launches"]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
@@ -1455,9 +1833,16 @@ def main() -> int:
         by_path[phase] = serve(card, phase, arch, batch, prompt, context, per_prefill,
                                LOGIT_ATOL[phase], layers=layers, overrides=overrides)
         log(phase, f"{time.perf_counter() - t0:.1f} s")
+    for phase, fn in (("serve_paligemma", serve_paligemma), ("serve_hubert", serve_hubert)):
+        t0 = time.perf_counter()
+        by_path[phase] = fn(card)
+        log(phase, f"{time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     by_path["train"] = train(card)
     log("train", f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    by_path["train_frontends"] = train_frontends(card)
+    log("train_frontends", f"{time.perf_counter() - t0:.1f} s")
     for row in rows:
         row["launches_by_path"] = {p: c[row["name"]] for p, c in by_path.items()}
         row["launches"] = row["launches_by_path"][MAIN_PATH[row["name"]]]

@@ -15,7 +15,7 @@
 //
 // Layout (the JAX package's): q, o, dO, dq (B, Tq, KVH, G, D); k, v, dk, dv
 // (B, Tk, KVH, D); lse, delta fp32 (B, Tq, KVH, G).  fp32 or bf16 in and out.
-// D <= 128, G <= 64.  A "row" is one (position, query head) pair of a kv
+// D <= 256, G <= 64.  A "row" is one (position, query head) pair of a kv
 // head, r = t * G + g: the G heads of a kv head share its K and V.
 //
 // What bounds it: five products of 2 * D operations per visible (row, key)
@@ -44,11 +44,13 @@
 // Passes (three launches on one stream; every sum in registers or in a fixed
 // order, no atomics, so two calls give identical bits):
 //   1. bwd_preprocess: delta = rowsum(dO * O), one warp per row.
-//   2. bwd_dkdv: a CTA of 4 warps holds a 64-key tile of K and V (16 keys a
-//      warp) and the fp32 dK, dV accumulators, and steps over the query rows
-//      that see the key tile, 32 rows a step (16 for fp32 at D = 128).
-//   3. bwd_dq: a CTA of 4 warps holds 64 query rows (16 a warp) and the dQ
-//      accumulator, and steps over the keys the forward visited, 32 a step.
+//   2. bwd_dkdv: a CTA of 4 warps (8 above D = 128, below) holds a 64-key
+//      tile of K and V (16 keys a warp) and the fp32 dK, dV accumulators, and
+//      steps over the query rows that see the key tile, 32 rows a step (16
+//      for fp32 from D = 128).
+//   3. bwd_dq: a CTA of 4 warps (8 above D = 128) holds 64 query rows (16 a
+//      warp) and the dQ accumulator, and steps over the keys the forward
+//      visited, 32 a step (16 for fp32 above D = 128).
 //   In both, one tile's range of steps is split evenly over a thread-block
 //   cluster of S CTAs (S = 1, 2, 4 or 8: the least whose share of the
 //   longest tile is no longer than an even share of the pass over the card,
@@ -61,7 +63,23 @@
 //   next step loads while the current one multiplies.  At D = 64 a CTA takes
 //   ~72 KB of shared memory and at most 170 registers a thread: three an SM.
 //   Where a step's whole (row, key) rectangle is visible, the mask is not
-//   evaluated pair by pair.
+//   evaluated pair by pair.  After the loop the cluster sums dK, then dV,
+//   through one 64 x (DP + 8) fp32 buffer laid over the CTA's tiles.
+//
+// Head dims 129 .. 256 (paligemma-3b's 256, MLA's 192; templates DP = 192
+// and 256).  At DP = 256 a warp holding 16 keys' dK and dV over all columns
+// would need 256 fp32 accumulators a thread before S and dP, and the tiles
+// at 4 warps' shape would not fit 227 KB.  So a CTA has 8 warps in two
+// column halves: warp w (< 4) and its partner w + 4 take the same 16 keys
+// (dK/dV) or 16 rows (dQ); each multiplies S and dP over its half of the D
+// columns only, the two partial tiles meet in shared memory (each warp adds
+// the other's; IEEE addition commutes, so both hold the same bits, and P and
+// dS come out identical in both), and each then accumulates dK, dV or dQ
+// over its own half of the columns: 128 accumulators a thread at DP = 256,
+// as at DP = 128.  No product is done twice; a step costs one more barrier.
+// fp32 steps 16 rows (dK/dV) and 16 keys (dQ) there, so that K, V (or Q,
+// dO), the double-buffered stream and the exchange fit one CTA an SM: 216
+// KB of the 227 at DP = 256.  The split and the cluster sums are as at D <= 128.
 //
 // The dQ pass recomputes S and dP (seven products per visible pair, not
 // five) instead of taking dS from the dK/dV pass: storing dS would cost
@@ -93,23 +111,29 @@ namespace {
 
 using namespace hopper;
 
-constexpr int kWarps = 4;
-constexpr int kThreads = 32 * kWarps;
-constexpr int kBK = 16 * kWarps;   // keys per dK/dV CTA, 16 a warp
-constexpr int kBQ = 16 * kWarps;   // query rows per dQ CTA, 16 a warp
+constexpr int kRowWarps = 4;       // warps along the keys (dK/dV) or rows (dQ)
+constexpr int kBK = 16 * kRowWarps;   // keys per dK/dV CTA, 16 a warp
+constexpr int kBQ = 16 * kRowWarps;   // query rows per dQ CTA, 16 a warp
 constexpr int kMaxSplit = 8;       // the portable cluster size
 constexpr int kPreThreads = 256;
 
-// query rows per dK/dV step and keys per dQ step, and the CTAs an SM each
-// pass is built for: 32-wide steps keep the S and dP tiles in 32 registers
-// a thread and a CTA in 72 KB of shared memory at D = 64, three an SM;
-// fp32 at D = 128 steps 16 rows to keep dK and dV (128 registers) from
-// spilling
+// Column halves NH (warps 4 NH, each over DH = DP / NH columns), query rows
+// per dK/dV step and keys per dQ step, and the CTAs an SM each pass is built
+// for: 32-wide steps keep the S and dP tiles in 32 registers a thread and a
+// CTA in 72 KB of shared memory at D = 64, three an SM; fp32 at D = 128
+// steps 16 rows to keep dK and dV (128 registers) from spilling; above 128
+// the columns split in two halves, and fp32 steps 16 keys in dQ to fit
+// shared memory
 template <typename T, int DP>
 struct Tiles {
+  static constexpr int NH = DP > 128 ? 2 : 1;
+  static constexpr int DH = DP / NH;
+  static constexpr int THREADS = 32 * kRowWarps * NH;
   static constexpr int BR = DP <= 64 || sizeof(T) == 2 ? 32 : 16;
-  static constexpr int BKQ = 32;
+  static constexpr int BKQ = DP > 128 && sizeof(T) == 4 ? 16 : 32;
   static constexpr int MINB = DP <= 64 ? 3 : 1;
+  // fp32 words of the column halves' exchange of NB 8-wide S and dP blocks
+  static constexpr int xchg(int nb) { return NH == 2 ? THREADS * 2 * nb * 4 : 0; }
 };
 
 struct Params {
@@ -143,7 +167,7 @@ __device__ __forceinline__ size_t row_off(const Params& p, int b, int h,
 // rows r0 .. r0 + n - 1 of q-like tensors (and lse * log2(e), delta, the
 // rows' positions) into shared tiles; zero past the last row.  Columns
 // D .. DP-1 are zeroed once by the caller.
-template <typename T, int DP>
+template <typename T, int DP, int NT>
 __device__ __forceinline__ void load_rows(const Params& p, const T* a,
                                           const T* c, const float* lse,
                                           const float* delta, int b, int h,
@@ -155,7 +179,7 @@ __device__ __forceinline__ void load_rows(const Params& p, const T* a,
   if (p.vec) {
     constexpr int V = 16 / sizeof(T);
     const int cpr = p.D / V;
-    for (int i = threadIdx.x; i < n * cpr; i += kThreads) {
+    for (int i = threadIdx.x; i < n * cpr; i += NT) {
       const int r = i / cpr, col = (i % cpr) * V;
       const bool ok = r0 + r < nr;
       const size_t off = ok ? row_off(p, b, h, r0 + r) * p.D + col : 0;
@@ -163,7 +187,7 @@ __device__ __forceinline__ void load_rows(const Params& p, const T* a,
       cp16(c_s + r * LD + col, c + off, ok);
     }
   } else {
-    for (int i = threadIdx.x; i < n * p.D; i += kThreads) {
+    for (int i = threadIdx.x; i < n * p.D; i += NT) {
       const int r = i / p.D, col = i % p.D;
       const bool ok = r0 + r < nr;
       const size_t off = ok ? row_off(p, b, h, r0 + r) * p.D + col : 0;
@@ -171,7 +195,7 @@ __device__ __forceinline__ void load_rows(const Params& p, const T* a,
       c_s[r * LD + col] = ok ? c[off] : from_float<T>(0.f);
     }
   }
-  for (int r = threadIdx.x; r < n; r += kThreads) {
+  for (int r = threadIdx.x; r < n; r += NT) {
     const bool ok = r0 + r < nr;
     const size_t off = ok ? row_off(p, b, h, r0 + r) : 0;
     cp4(lse_s + r, lse + off, ok);
@@ -181,7 +205,7 @@ __device__ __forceinline__ void load_rows(const Params& p, const T* a,
 }
 
 // keys k0 .. k0 + n - 1 of k and v into shared tiles, zero past Tk
-template <typename T, int DP>
+template <typename T, int DP, int NT>
 __device__ __forceinline__ void load_keys(const Params& p, const T* k,
                                           const T* v, int b, int h, int k0,
                                           int n, T* k_s, T* v_s) {
@@ -189,7 +213,7 @@ __device__ __forceinline__ void load_keys(const Params& p, const T* k,
   if (p.vec) {
     constexpr int V = 16 / sizeof(T);
     const int cpr = p.D / V;
-    for (int i = threadIdx.x; i < n * cpr; i += kThreads) {
+    for (int i = threadIdx.x; i < n * cpr; i += NT) {
       const int r = i / cpr, col = (i % cpr) * V;
       const bool ok = k0 + r < p.Tk;
       const size_t off =
@@ -198,7 +222,7 @@ __device__ __forceinline__ void load_keys(const Params& p, const T* k,
       cp16(v_s + r * LD + col, v + off, ok);
     }
   } else {
-    for (int i = threadIdx.x; i < n * p.D; i += kThreads) {
+    for (int i = threadIdx.x; i < n * p.D; i += NT) {
       const int r = i / p.D, col = i % p.D;
       const bool ok = k0 + r < p.Tk;
       const size_t off =
@@ -242,29 +266,52 @@ __device__ __forceinline__ void probs(const Params& p, bool full, float s,
 // ---- cluster sums -----------------------------------------------------------
 
 // The cluster's S partial sums of a 64-row tile meet in shared memory: each
-// CTA has written its (NPART x 64) x rld floats to `red`; rank r sums rows
+// CTA has written its 64 x rld floats to `red`; rank r sums rows
 // [r 64 / S, (r + 1) 64 / S) over ranks 0 .. S-1 in that order and hands
-// (row, column, sums) to `emit`.  Deterministic, no atomics.
-template <int NPART, typename Emit>
+// (row, column, sum) to `emit`.  Deterministic, no atomics.  Ends with a
+// cluster barrier, so `red` may be written again after it.
+template <int NT, typename Emit>
 __device__ __forceinline__ void cluster_sum(const float* red, int rld,
                                             int ncols, Emit emit) {
   cg::cluster_group cluster = cg::this_cluster();
   const int S = (int)cluster.num_blocks(), rank = (int)cluster.block_rank();
   cluster.sync();
   const int per = 64 / S;
-  for (int i = threadIdx.x; i < per * ncols; i += kThreads) {
+  for (int i = threadIdx.x; i < per * ncols; i += NT) {
     const int c = rank * per + i / ncols, d = i % ncols;
-    float acc[NPART];
-#pragma unroll
-    for (int q = 0; q < NPART; ++q) acc[q] = 0.f;
-    for (int s = 0; s < S; ++s) {
-      const float* rr = cluster.map_shared_rank(red, s);
-#pragma unroll
-      for (int q = 0; q < NPART; ++q) acc[q] += rr[(q * 64 + c) * rld + d];
-    }
+    float acc = 0.f;
+    for (int s = 0; s < S; ++s)
+      acc += cluster.map_shared_rank(red, s)[c * rld + d];
     emit(c, d, acc);
   }
   cluster.sync();      // no CTA leaves while another reads its shared memory
+}
+
+// The two column halves' partial S and dP tiles of a warp pair (warps w and
+// w + 4, NB 8-wide blocks each) meet in `xs`: each warp writes its own and
+// adds its partner's, so both hold the full sums, bit for bit the same
+// (IEEE addition commutes).  The caller's next barrier frees `xs`.
+template <int NB>
+__device__ __forceinline__ void pair_sum(float (*a)[4], float (*b)[4],
+                                         float* xs) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  float* mine = xs + warp * (2 * NB * 4 * 32);
+  const float* other = xs + (warp ^ kRowWarps) * (2 * NB * 4 * 32);
+#pragma unroll
+  for (int j = 0; j < NB; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      mine[(j * 4 + e) * 32 + lane] = a[j][e];
+      mine[((NB + j) * 4 + e) * 32 + lane] = b[j][e];
+    }
+  __syncthreads();
+#pragma unroll
+  for (int j = 0; j < NB; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      a[j][e] += other[(j * 4 + e) * 32 + lane];
+      b[j][e] += other[((NB + j) * 4 + e) * 32 + lane];
+    }
 }
 
 // ---- the passes -------------------------------------------------------------
@@ -331,17 +378,18 @@ __device__ __forceinline__ void share(int lo, int hi, int& first, int& n) {
 }
 
 template <typename T, int DP>
-__global__ void __launch_bounds__(kThreads, Tiles<T, DP>::MINB)
+__global__ void __launch_bounds__(Tiles<T, DP>::THREADS, Tiles<T, DP>::MINB)
 bwd_dkdv(const T* __restrict__ q, const T* __restrict__ k,
          const T* __restrict__ v, const T* __restrict__ dout,
          const float* __restrict__ lse, const float* __restrict__ delta,
          T* __restrict__ dk, T* __restrict__ dv, Params p) {
   using M = Mma<T>;
-  constexpr int BR = Tiles<T, DP>::BR;
+  using TL = Tiles<T, DP>;
+  constexpr int BR = TL::BR, NT = TL::THREADS, DH = TL::DH;
   constexpr int LD = ld_of<T>(DP);
   constexpr int NB = BR / 8;        // 8-row blocks of S^T per warp
-  constexpr int ND = DP / 8;        // 8-column blocks of dK, dV per warp
-  constexpr int RLD = DP + 8;       // fp32 stride of the reduction tiles
+  constexpr int ND = DH / 8;        // 8-column blocks of dK, dV per warp
+  constexpr int RLD = DP + 8;       // fp32 stride of the reduction tile
   extern __shared__ __align__(16) unsigned char smem[];
   T* k_s = reinterpret_cast<T*>(smem);      // kBK x LD
   T* v_s = k_s + kBK * LD;                  // kBK x LD
@@ -350,13 +398,16 @@ bwd_dkdv(const T* __restrict__ q, const T* __restrict__ k,
   float* lse_s = reinterpret_cast<float*>(do_s + 2 * BR * LD);  // 2 x BR
   float* dl_s = lse_s + 2 * BR;                                  // 2 x BR
   int* pos_s = reinterpret_cast<int*>(dl_s + 2 * BR);            // 2 x BR
-  float* red = reinterpret_cast<float*>(q_s);  // after the loop: 2 x kBK x RLD
+  float* xs = reinterpret_cast<float*>(pos_s + 2 * BR);  // TL::xchg(NB)
+  float* red = reinterpret_cast<float*>(smem);  // after the loop: kBK x RLD
 
   const int item = blockIdx.x / p.split;    // (key tile, b, h), longest first
   const int BH = p.B * p.KVH;
   const int k0 = (item / BH) * kBK;
   const int b = (item % BH) / p.KVH, h = (item % BH) % p.KVH;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int kw = warp % kRowWarps;          // this warp's 16 keys
+  const int c0 = (warp / kRowWarps) * DH;   // and first column
   const int g = lane >> 2, t = lane & 3;
   const int nr = p.Tq * p.G;
 
@@ -364,11 +415,11 @@ bwd_dkdv(const T* __restrict__ q, const T* __restrict__ k,
   dkdv_tiles(p, k0, BR, lo, hi);
   share(lo, hi, first, n);
 
-  zero_pad<T, DP, kThreads>(p.D, k_s, 2 * kBK + 4 * BR);
-  load_keys<T, DP>(p, k, v, b, h, k0, kBK, k_s, v_s);
+  zero_pad<T, DP, NT>(p.D, k_s, 2 * kBK + 4 * BR);
+  load_keys<T, DP, NT>(p, k, v, b, h, k0, kBK, k_s, v_s);
   if (n > 0)
-    load_rows<T, DP>(p, q, dout, lse, delta, b, h, first * BR, BR, q_s, do_s,
-                     lse_s, dl_s, pos_s);
+    load_rows<T, DP, NT>(p, q, dout, lse, delta, b, h, first * BR, BR, q_s,
+                         do_s, lse_s, dl_s, pos_s);
   cp_commit();
 
   float dka[ND][4], dva[ND][4];
@@ -376,15 +427,15 @@ bwd_dkdv(const T* __restrict__ q, const T* __restrict__ k,
   for (int j = 0; j < ND; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) dka[j][e] = dva[j][e] = 0.f;
-  const int key0 = k0 + warp * 16 + g;      // this thread's keys: key0, key0 + 8
+  const int key0 = k0 + kw * 16 + g;        // this thread's keys: key0, key0 + 8
 
   for (int it = 0; it < n; ++it) {
     const int buf = it & 1;
     if (it + 1 < n)
-      load_rows<T, DP>(p, q, dout, lse, delta, b, h, (first + it + 1) * BR, BR,
-                       q_s + (buf ^ 1) * BR * LD, do_s + (buf ^ 1) * BR * LD,
-                       lse_s + (buf ^ 1) * BR, dl_s + (buf ^ 1) * BR,
-                       pos_s + (buf ^ 1) * BR);
+      load_rows<T, DP, NT>(p, q, dout, lse, delta, b, h, (first + it + 1) * BR,
+                           BR, q_s + (buf ^ 1) * BR * LD,
+                           do_s + (buf ^ 1) * BR * LD, lse_s + (buf ^ 1) * BR,
+                           dl_s + (buf ^ 1) * BR, pos_s + (buf ^ 1) * BR);
     cp_commit();
     cp_wait<1>();
     __syncthreads();
@@ -394,22 +445,25 @@ bwd_dkdv(const T* __restrict__ q, const T* __restrict__ k,
     const float* dls = dl_s + buf * BR;
     const int* ps = pos_s + buf * BR;
 
-    // S^T = K Q^T and dP^T = V dO^T: this warp's 16 keys x BR rows
+    // S^T = K Q^T and dP^T = V dO^T: this warp's 16 keys x BR rows, over
+    // its DH columns (then summed with its partner's)
     float st[NB][4], dpt[NB][4];
 #pragma unroll
     for (int j = 0; j < NB; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) st[j][e] = dpt[j][e] = 0.f;
 #pragma unroll 2
-    for (int kc = 0; kc < DP / M::K; ++kc) {
-      const typename M::A ka = M::load_a(k_s, LD, warp * 16, kc * M::K);
-      const typename M::A va = M::load_a(v_s, LD, warp * 16, kc * M::K);
+    for (int kc = 0; kc < DH / M::K; ++kc) {
+      const int col = c0 + kc * M::K;
+      const typename M::A ka = M::load_a(k_s, LD, kw * 16, col);
+      const typename M::A va = M::load_a(v_s, LD, kw * 16, col);
 #pragma unroll
       for (int j = 0; j < NB; ++j) {
-        M::mma(st[j], ka, M::load_b_nt(qs, LD, j * 8, kc * M::K));
-        M::mma(dpt[j], va, M::load_b_nt(dos, LD, j * 8, kc * M::K));
+        M::mma(st[j], ka, M::load_b_nt(qs, LD, j * 8, col));
+        M::mma(dpt[j], va, M::load_b_nt(dos, LD, j * 8, col));
       }
     }
+    if constexpr (TL::NH == 2) pair_sum<NB>(st, dpt, xs);
 
     // P^T and dS^T in place; element e of block j is (key, row) =
     // (key0 + 8 (e >> 1), 8 j + 2 t + (e & 1))
@@ -425,15 +479,16 @@ bwd_dkdv(const T* __restrict__ q, const T* __restrict__ k,
               r0 + rl < nr, ps[rl], key0 + 8 * (e >> 1), st[j][e], dpt[j][e]);
       }
 
-    // dV += P^T dO and dK += dS^T Q, summing over the tile's rows
+    // dV += P^T dO and dK += dS^T Q over this warp's columns, summing over
+    // the tile's rows
 #pragma unroll
     for (int kc = 0; kc < BR / M::K; ++kc) {
       const typename M::A pa = M::from_c(st, kc);
       const typename M::A sa = M::from_c(dpt, kc);
 #pragma unroll
       for (int nd = 0; nd < ND; ++nd) {
-        M::mma(dva[nd], pa, M::load_b_nn(dos, LD, kc * M::K, nd * 8));
-        M::mma(dka[nd], sa, M::load_b_nn(qs, LD, kc * M::K, nd * 8));
+        M::mma(dva[nd], pa, M::load_b_nn(dos, LD, kc * M::K, c0 + nd * 8));
+        M::mma(dka[nd], sa, M::load_b_nn(qs, LD, kc * M::K, c0 + nd * 8));
       }
     }
     __syncthreads();   // the next iteration's load reuses this buffer
@@ -441,33 +496,40 @@ bwd_dkdv(const T* __restrict__ q, const T* __restrict__ k,
   cp_wait<0>();
   __syncthreads();
 
+  // dK, then dV, summed over the cluster through `red`
+  const size_t base = ((size_t)b * p.Tk + k0) * p.KVH + h;
 #pragma unroll
   for (int nd = 0; nd < ND; ++nd)
 #pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int c = warp * 16 + g + 8 * (e >> 1), d = nd * 8 + 2 * t + (e & 1);
-      red[c * RLD + d] = dka[nd][e];
-      red[(kBK + c) * RLD + d] = dva[nd][e];
-    }
-  cluster_sum<2>(red, RLD, p.D, [&](int c, int d, const float* sum) {
-    if (k0 + c >= p.Tk) return;
-    const size_t off = (((size_t)b * p.Tk + k0 + c) * p.KVH + h) * p.D + d;
-    store(dk + off, sum[0] * p.scale);
-    store(dv + off, sum[1]);
+    for (int e = 0; e < 4; ++e)
+      red[(kw * 16 + g + 8 * (e >> 1)) * RLD + c0 + nd * 8 + 2 * t + (e & 1)] =
+          dka[nd][e];
+  cluster_sum<NT>(red, RLD, p.D, [&](int c, int d, float sum) {
+    if (k0 + c < p.Tk) store(dk + (base + (size_t)c * p.KVH) * p.D + d, sum * p.scale);
+  });
+#pragma unroll
+  for (int nd = 0; nd < ND; ++nd)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      red[(kw * 16 + g + 8 * (e >> 1)) * RLD + c0 + nd * 8 + 2 * t + (e & 1)] =
+          dva[nd][e];
+  cluster_sum<NT>(red, RLD, p.D, [&](int c, int d, float sum) {
+    if (k0 + c < p.Tk) store(dv + (base + (size_t)c * p.KVH) * p.D + d, sum);
   });
 }
 
 template <typename T, int DP>
-__global__ void __launch_bounds__(kThreads, Tiles<T, DP>::MINB)
+__global__ void __launch_bounds__(Tiles<T, DP>::THREADS, Tiles<T, DP>::MINB)
 bwd_dq(const T* __restrict__ q, const T* __restrict__ k,
        const T* __restrict__ v, const T* __restrict__ dout,
        const float* __restrict__ lse, const float* __restrict__ delta,
        T* __restrict__ dq, Params p) {
   using M = Mma<T>;
-  constexpr int BKQ = Tiles<T, DP>::BKQ;
+  using TL = Tiles<T, DP>;
+  constexpr int BKQ = TL::BKQ, NT = TL::THREADS, DH = TL::DH;
   constexpr int LD = ld_of<T>(DP);
   constexpr int NK = BKQ / 8;       // 8-key blocks of S per warp
-  constexpr int ND = DP / 8;
+  constexpr int ND = DH / 8;        // 8-column blocks of dQ per warp
   constexpr int RLD = DP + 8;
   extern __shared__ __align__(16) unsigned char smem[];
   T* q_s = reinterpret_cast<T*>(smem);      // kBQ x LD
@@ -477,7 +539,8 @@ bwd_dq(const T* __restrict__ q, const T* __restrict__ k,
   float* lse_s = reinterpret_cast<float*>(v_s + 2 * BKQ * LD);  // kBQ
   float* dl_s = lse_s + kBQ;                                     // kBQ
   int* pos_s = reinterpret_cast<int*>(dl_s + kBQ);               // kBQ
-  float* red = reinterpret_cast<float*>(k_s);  // after the loop: kBQ x RLD
+  float* xs = reinterpret_cast<float*>(pos_s + kBQ);  // TL::xchg(NK)
+  float* red = reinterpret_cast<float*>(smem);  // after the loop: kBQ x RLD
 
   const int nr = p.Tq * p.G;
   const int nqt = (nr + kBQ - 1) / kBQ;
@@ -487,16 +550,18 @@ bwd_dq(const T* __restrict__ q, const T* __restrict__ k,
   const int b = (item % BH) / p.KVH, h = (item % BH) % p.KVH;
   const int r0 = qt * kBQ, r1 = min(r0 + kBQ, nr);
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int rw = warp % kRowWarps;          // this warp's 16 rows
+  const int c0 = (warp / kRowWarps) * DH;   // and first column
   const int g = lane >> 2, t = lane & 3;
 
   int lo, hi, first, n;
   dq_tiles(p, r0, r1, BKQ, lo, hi);
   share(lo, hi, first, n);
 
-  zero_pad<T, DP, kThreads>(p.D, q_s, 2 * kBQ + 4 * BKQ);
-  load_rows<T, DP>(p, q, dout, lse, delta, b, h, r0, kBQ, q_s, do_s, lse_s,
-                   dl_s, pos_s);
-  if (n > 0) load_keys<T, DP>(p, k, v, b, h, first * BKQ, BKQ, k_s, v_s);
+  zero_pad<T, DP, NT>(p.D, q_s, 2 * kBQ + 4 * BKQ);
+  load_rows<T, DP, NT>(p, q, dout, lse, delta, b, h, r0, kBQ, q_s, do_s, lse_s,
+                       dl_s, pos_s);
+  if (n > 0) load_keys<T, DP, NT>(p, k, v, b, h, first * BKQ, BKQ, k_s, v_s);
   cp_commit();
 
   float dqa[ND][4];
@@ -505,8 +570,8 @@ bwd_dq(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int e = 0; e < 4; ++e) dqa[j][e] = 0.f;
 
-  // this thread's two rows, 16 warp + g and + 8: their position, lse, delta
-  const int rl0 = warp * 16 + g;
+  // this thread's two rows, 16 rw + g and + 8: their position, lse, delta
+  const int rl0 = rw * 16 + g;
   int qp[2];
   float lse2[2], dl[2];
   bool row_ok[2];
@@ -524,30 +589,33 @@ bwd_dq(const T* __restrict__ q, const T* __restrict__ k,
     const int buf = it & 1;
     const int k0 = (first + it) * BKQ;
     if (it + 1 < n)
-      load_keys<T, DP>(p, k, v, b, h, k0 + BKQ, BKQ, k_s + (buf ^ 1) * BKQ * LD,
-                       v_s + (buf ^ 1) * BKQ * LD);
+      load_keys<T, DP, NT>(p, k, v, b, h, k0 + BKQ, BKQ,
+                           k_s + (buf ^ 1) * BKQ * LD, v_s + (buf ^ 1) * BKQ * LD);
     cp_commit();
     cp_wait<1>();
     __syncthreads();
     const T* ks = k_s + buf * BKQ * LD;
     const T* vs = v_s + buf * BKQ * LD;
 
-    // S = Q K^T and dP = dO V^T: this warp's 16 rows x BKQ keys
+    // S = Q K^T and dP = dO V^T: this warp's 16 rows x BKQ keys, over its
+    // DH columns (then summed with its partner's)
     float s[NK][4], dp[NK][4];
 #pragma unroll
     for (int j = 0; j < NK; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
 #pragma unroll 2
-    for (int kc = 0; kc < DP / M::K; ++kc) {
-      const typename M::A qa = M::load_a(q_s, LD, warp * 16, kc * M::K);
-      const typename M::A oa = M::load_a(do_s, LD, warp * 16, kc * M::K);
+    for (int kc = 0; kc < DH / M::K; ++kc) {
+      const int col = c0 + kc * M::K;
+      const typename M::A qa = M::load_a(q_s, LD, rw * 16, col);
+      const typename M::A oa = M::load_a(do_s, LD, rw * 16, col);
 #pragma unroll
       for (int j = 0; j < NK; ++j) {
-        M::mma(s[j], qa, M::load_b_nt(ks, LD, j * 8, kc * M::K));
-        M::mma(dp[j], oa, M::load_b_nt(vs, LD, j * 8, kc * M::K));
+        M::mma(s[j], qa, M::load_b_nt(ks, LD, j * 8, col));
+        M::mma(dp[j], oa, M::load_b_nt(vs, LD, j * 8, col));
       }
     }
+    if constexpr (TL::NH == 2) pair_sum<NK>(s, dp, xs);
     // element e of block j is (row, key) = (rl0 + 8 (e >> 1),
     // k0 + 8 j + 2 t + (e & 1))
     const bool full = all_visible(p, r0 + kBQ, pos_s[0], pos_s[kBQ - 1], k0,
@@ -561,13 +629,13 @@ bwd_dq(const T* __restrict__ q, const T* __restrict__ k,
         probs(p, full, s[j][e], dp[j][e], lse2[i], dl[i], row_ok[i], qp[i],
               k0 + j * 8 + 2 * t + (e & 1), pr, dp[j][e]);
       }
-    // dQ += dS K
+    // dQ += dS K over this warp's columns
 #pragma unroll
     for (int kc = 0; kc < BKQ / M::K; ++kc) {
       const typename M::A sa = M::from_c(dp, kc);
 #pragma unroll
       for (int nd = 0; nd < ND; ++nd)
-        M::mma(dqa[nd], sa, M::load_b_nn(ks, LD, kc * M::K, nd * 8));
+        M::mma(dqa[nd], sa, M::load_b_nn(ks, LD, kc * M::K, c0 + nd * 8));
     }
     __syncthreads();
   }
@@ -578,31 +646,31 @@ bwd_dq(const T* __restrict__ q, const T* __restrict__ k,
   for (int nd = 0; nd < ND; ++nd)
 #pragma unroll
     for (int e = 0; e < 4; ++e)
-      red[(rl0 + 8 * (e >> 1)) * RLD + nd * 8 + 2 * t + (e & 1)] = dqa[nd][e];
-  cluster_sum<1>(red, RLD, p.D, [&](int c, int d, const float* sum) {
-    if (r0 + c < nr) store(dq + row_off(p, b, h, r0 + c) * p.D + d, sum[0] * p.scale);
+      red[(rl0 + 8 * (e >> 1)) * RLD + c0 + nd * 8 + 2 * t + (e & 1)] = dqa[nd][e];
+  cluster_sum<NT>(red, RLD, p.D, [&](int c, int d, float sum) {
+    if (r0 + c < nr) store(dq + row_off(p, b, h, r0 + c) * p.D + d, sum * p.scale);
   });
 }
 
 // ---- host side --------------------------------------------------------------
 
+// bytes of shared memory: the tiles (and the column halves' exchange)
+// during the loop, the fp32 reduction tile laid over them after it
 template <typename T, int DP>
 size_t smem_dkdv() {
-  constexpr int BR = Tiles<T, DP>::BR;
-  const size_t tiles = sizeof(T) * (size_t)(2 * kBK + 4 * BR) * ld_of<T>(DP) +
-                       sizeof(float) * 6 * BR;
-  const size_t red = sizeof(T) * (size_t)2 * kBK * ld_of<T>(DP) +
-                     sizeof(float) * (size_t)2 * kBK * (DP + 8);
+  using TL = Tiles<T, DP>;
+  const size_t tiles = sizeof(T) * (size_t)(2 * kBK + 4 * TL::BR) * ld_of<T>(DP) +
+                       sizeof(float) * (6 * TL::BR + TL::xchg(TL::BR / 8));
+  const size_t red = sizeof(float) * (size_t)kBK * (DP + 8);
   return tiles > red ? tiles : red;
 }
 
 template <typename T, int DP>
 size_t smem_dq() {
-  constexpr int BKQ = Tiles<T, DP>::BKQ;
-  const size_t tiles = sizeof(T) * (size_t)(2 * kBQ + 4 * BKQ) * ld_of<T>(DP) +
-                       sizeof(float) * 3 * kBQ;
-  const size_t red = sizeof(T) * (size_t)2 * kBQ * ld_of<T>(DP) +
-                     sizeof(float) * (size_t)kBQ * (DP + 8);
+  using TL = Tiles<T, DP>;
+  const size_t tiles = sizeof(T) * (size_t)(2 * kBQ + 4 * TL::BKQ) * ld_of<T>(DP) +
+                       sizeof(float) * (3 * kBQ + TL::xchg(TL::BKQ / 8));
+  const size_t red = sizeof(float) * (size_t)kBQ * (DP + 8);
   return tiles > red ? tiles : red;
 }
 
@@ -619,14 +687,14 @@ int choose_split(long long total, int most, int minb, int n_sm) {
 }
 
 template <typename Kernel, typename... Args>
-cudaError_t launch_cluster(Kernel kernel, unsigned grid, int split,
+cudaError_t launch_cluster(Kernel kernel, unsigned grid, int threads, int split,
                            size_t smem, cudaStream_t stream, Args... args) {
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return e;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(grid);
-  cfg.blockDim = dim3(kThreads);
+  cfg.blockDim = dim3(threads);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
   cudaLaunchAttribute attr[1];
@@ -677,7 +745,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* o,
   Params pk = p;
   pk.split = choose_split(total, most, MINB, n_sm);
   e = launch_cluster(bwd_dkdv<T, DP>, (unsigned)(nkt * BH * pk.split),
-                     pk.split, smem_dkdv<T, DP>(), stream, q_, k_, v_, do_,
+                     Tiles<T, DP>::THREADS, pk.split, smem_dkdv<T, DP>(), stream, q_, k_, v_, do_,
                      lse, static_cast<const float*>(delta),
                      static_cast<T*>(dk), static_cast<T*>(dv), pk);
   if (e != cudaSuccess) return e;
@@ -695,7 +763,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* o,
   Params pq = p;
   pq.split = choose_split(total, most, MINB, n_sm);
   return launch_cluster(bwd_dq<T, DP>, (unsigned)(nqt * BH * pq.split),
-                        pq.split, smem_dq<T, DP>(), stream, q_, k_, v_, do_,
+                        Tiles<T, DP>::THREADS, pq.split, smem_dq<T, DP>(), stream, q_, k_, v_, do_,
                         lse, static_cast<const float*>(delta),
                         static_cast<T*>(dq), pq);
 }
@@ -711,7 +779,11 @@ cudaError_t dispatch_d(const void* q, const void* k, const void* v,
     return launch<T, 32>(q, k, v, o, dout, lse, delta, dq, dk, dv, p, s);
   if (p.D <= 64)
     return launch<T, 64>(q, k, v, o, dout, lse, delta, dq, dk, dv, p, s);
-  return launch<T, 128>(q, k, v, o, dout, lse, delta, dq, dk, dv, p, s);
+  if (p.D <= 128)
+    return launch<T, 128>(q, k, v, o, dout, lse, delta, dq, dk, dv, p, s);
+  if (p.D <= 192)
+    return launch<T, 192>(q, k, v, o, dout, lse, delta, dq, dk, dv, p, s);
+  return launch<T, 256>(q, k, v, o, dout, lse, delta, dq, dk, dv, p, s);
 }
 
 }  // namespace
@@ -729,7 +801,7 @@ extern "C" int repro_flash_attention_bwd(
     int causal, int has_window, int window, int has_prefix, int prefix_len,
     int has_cap, float cap, float scale, void* stream) {
   if (B < 1 || Tq < 1 || Tk < 1 || KVH < 1 || G < 1 || G > 64 || D < 1 ||
-      D > 128 || (dtype != 0 && dtype != 1))
+      D > 256 || (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
   const size_t row_bytes = (size_t)D * (dtype == 0 ? 4 : 2);
   const int vec = row_bytes % 16 == 0 && aligned16(q) && aligned16(k) &&

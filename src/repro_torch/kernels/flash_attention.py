@@ -26,7 +26,7 @@ _ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 13
 _BWD_ARGTYPES = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 13
                  + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p])
 MAX_HEAD_DIM = 256
-MAX_BWD_HEAD_DIM = 128  # the backward's K, V, Q and dO tiles fit shared memory
+MAX_BWD_HEAD_DIM = 256  # above 128 the backward splits the columns over warp pairs
 MAX_GROUP = 64          # query heads per KV head: one CTA holds them all
 # the backward's work split (csrc/flash_attention_bwd.cu): keys per dK/dV
 # CTA, query rows per dQ CTA, the largest cluster
@@ -105,9 +105,12 @@ def fwd_plan(Tq: int, Tk: int, G: int, D: int, *, causal: bool = True,
 
 def _bwd_tiles(D: int, dtype: torch.dtype) -> tuple[int, int, int]:
     """(query rows per dK/dV step, keys per dQ step, CTAs an SM): the
-    kernel's ``Tiles``."""
+    kernel's ``Tiles``.  Above head_dim 128 a CTA's warps split the columns
+    in two halves, and fp32 steps 16 keys in the dQ pass to fit shared
+    memory."""
     br = 32 if D <= 64 or dtype == torch.bfloat16 else 16
-    return br, 32, 3 if D <= 64 else 1
+    bkq = 16 if D > 128 and dtype == torch.float32 else 32
+    return br, bkq, 3 if D <= 64 else 1
 
 
 @dataclasses.dataclass(frozen=True)
@@ -289,7 +292,7 @@ def flash_attention_bwd_cuda(
     One call launches three kernels (delta = rowsum(dO * O), then dK/dV
     and dQ, each a cluster launch split as :func:`bwd_plan` says) and
     counts once in ``flash_attention_bwd_cuda.launches``.  Raises on inputs
-    the kernel does not take (head_dim above 128) and when a
+    the kernel does not take (head_dim above 256) and when a
     launch is refused.
     """
     _check(q, k, v)

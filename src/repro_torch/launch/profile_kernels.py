@@ -103,18 +103,32 @@ def three_ways(fn, iters: int = 20) -> dict:
     return dict(events_ms=events_ms(fn, iters), device_ms=device_ms(fn), host_ms=host_ms(fn))
 
 
-def sdpa_forward(q, k, v, window=None, scale=None):
-    """SDPA's forward on the kernel's layout, q (B, T, KVH, G, D) and k, v
-    (B, T, KVH, D): causal with GQA, a window as a boolean mask, ``scale``
-    (None: 1/sqrt(D)).  Returns a callable giving (B, KVH * G, T, D)."""
-    B, T, KVH, G, D = q.shape
-    qs = q.reshape(B, T, KVH * G, D).transpose(1, 2)
+def sdpa_forward(q, k, v, kw: dict | None = None):
+    """SDPA's forward on the kernel's layout, q (B, Tq, KVH, G, D) and k, v
+    (B, Tk, KVH, D), for the flash kernel's keyword arguments ``kw``:
+    causal (the default) or not, with GQA; a window or a prefix-LM prefix as
+    a boolean mask (with a prefix, K and V expanded to the query heads);
+    ``scale`` (None: 1/sqrt(D)).  Returns a callable giving (B, KVH * G, Tq,
+    D); differentiable in q, k and v."""
+    kw = kw or {}
+    B, Tq, KVH, G, D = q.shape
+    qs = q.reshape(B, Tq, KVH * G, D).transpose(1, 2)
     ks, vs = k.transpose(1, 2), v.transpose(1, 2)
+    causal, window, prefix = kw.get("causal", True), kw.get("window"), kw.get("prefix_len")
+    scale = kw.get("scale")
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    if window is None:
-        return lambda: sdpa(qs, ks, vs, is_causal=True, enable_gqa=True, scale=scale)
-    pos = torch.arange(T, device=q.device)
-    mask = (pos[None, :] <= pos[:, None]) & (pos[:, None] - pos[None, :] < window)
+    if window is None and prefix is None:
+        return lambda: sdpa(qs, ks, vs, is_causal=causal, enable_gqa=True, scale=scale)
+    qp = torch.arange(Tq, device=q.device)[:, None]
+    kp = torch.arange(k.shape[1], device=q.device)[None, :]
+    mask = torch.ones(Tq, k.shape[1], dtype=torch.bool, device=q.device)
+    if causal:
+        mask = (kp <= qp) | (kp < prefix) if prefix is not None else kp <= qp
+    if window is not None:
+        mask = mask & (qp - kp < window)
+    if prefix is not None:
+        ks, vs = ks.repeat_interleave(G, dim=1), vs.repeat_interleave(G, dim=1)
+        return lambda: sdpa(qs, ks, vs, attn_mask=mask, scale=scale)
     return lambda: sdpa(qs, ks, vs, attn_mask=mask, enable_gqa=True, scale=scale)
 
 
@@ -125,7 +139,7 @@ def attention_forward(shape, dtype, gen, window=None, iters=20) -> dict:
     k, v = (torch.randn(B, Tk, KVH, D, device="cuda", generator=gen).to(dtype)
             for _ in range(2))
     kw = {} if window is None else dict(window=window)
-    library = sdpa_forward(q, k, v, window)
+    library = sdpa_forward(q, k, v, kw)
     kernel = lambda: flash_attention_cuda(q, k, v, **kw)
     return dict(shape=shape, dtype=str(dtype)[6:], window=window,
                 kernel=three_ways(kernel, iters), sdpa=three_ways(library, iters),

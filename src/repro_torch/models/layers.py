@@ -245,14 +245,16 @@ def gqa_attention(
     use_rope: bool = True,
     causal: bool = True,
     window: int | None = None,
+    prefix_len: int | None = None,
     logit_cap: float | None = None,
     cache: KVCache | None = None,
     mode: str = "prefill",       # train | prefill | decode
     impl: str = "auto",
 ) -> tuple[torch.Tensor, KVCache | None]:
-    """GQA attention with optional sliding window.  ``train`` attends over
-    the full sequence and keeps no cache; prefill fills the KV cache and
-    decode extends it (both in place)."""
+    """GQA attention with optional sliding window and prefix-LM mask (the
+    first ``prefix_len`` positions attend to each other both ways).
+    ``train`` attends over the full sequence and keeps no cache; prefill
+    fills the KV cache and decode extends it (both in place)."""
     if mode not in ("train", "prefill", "decode"):
         raise ValueError(f"mode must be train, prefill or decode, got {mode!r}")
     B, T, d = x.shape
@@ -289,7 +291,7 @@ def gqa_attention(
         k = apply_rope(k, positions, rope_theta)
     qg = q.reshape(B, T, num_kv_heads, G, head_dim)
     out = blockwise_attention(qg, k, v, causal=causal, window=window,
-                              logit_cap=logit_cap, impl=impl)
+                              prefix_len=prefix_len, logit_cap=logit_cap, impl=impl)
     y = _mm(out.reshape(B, T, num_heads * head_dim), wo)
     if mode == "train":
         return y, None

@@ -15,23 +15,14 @@ ARCHITECTURES: dict[str, str] = {
     "deepseek-v3-671b": "repro_torch.configs.deepseek_v3_671b",
     "recurrentgemma-9b": "repro_torch.configs.recurrentgemma_9b",
     "rwkv6-1.6b": "repro_torch.configs.rwkv6_1_6b",
+    "paligemma-3b": "repro_torch.configs.paligemma_3b",
+    "hubert-xlarge": "repro_torch.configs.hubert_xlarge",
     # the paper's own simulated training model (Fig. 8)
     "paper-7b": "repro_torch.configs.paper_7b",
 }
 
-#: Architectures of the JAX package that the port does not run yet, with what
-#: each still needs.
-NOT_PORTED: dict[str, str] = {
-    "paligemma-3b": "the vision_text frontend",
-    "hubert-xlarge": "the audio_frames frontend and encoder-only mode",
-}
-
 
 def _module(arch: str):
-    if arch in NOT_PORTED:
-        raise NotImplementedError(
-            f"arch {arch!r} is not ported to PyTorch yet: it needs "
-            f"{NOT_PORTED[arch]} (ROADMAP.md, queue 1)")
     if arch not in ARCHITECTURES:
         raise KeyError(f"unknown arch {arch!r}; available: {sorted(ARCHITECTURES)}")
     return importlib.import_module(ARCHITECTURES[arch])

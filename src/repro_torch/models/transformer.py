@@ -22,7 +22,14 @@ caches).  With ``cfg.remat``, train mode recomputes each layer in the
 backward pass (``torch.utils.checkpoint``, the counterpart of
 ``jax.checkpoint``).  With ``cfg.mtp`` (DeepSeek-V3) train mode also runs
 the multi-token-prediction head and returns its logits beside the aux
-loss.  The modality frontends raise ``NotImplementedError``.
+loss.  The two modality frontends take precomputed embeddings through a
+linear ``frontend_proj``, as in the JAX package: ``vision_text``
+(PaliGemma) puts the projected image patches before the scaled token
+embeddings and attends over them as a bidirectional prefix (prefix-LM) in
+train and prefill mode, while decode embeds tokens only; ``audio_frames``
+(HuBERT) projects frames, and its config's non-causal attention without
+rope makes it an encoder: its users run train mode (its logits are the
+encoder's output), and the serve CLI refuses ``encoder_only`` configs.
 """
 
 from __future__ import annotations
@@ -54,12 +61,13 @@ def _check_supported(cfg: ModelConfig) -> None:
             cfg.attention is None or cfg.attention.kind not in ("gqa", "mla")):
         missing.append(f"attention kind "
                        f"{cfg.attention.kind if cfg.attention else None!r}")
-    if cfg.modality.kind != "text":
+    if cfg.modality.kind not in ("text", "vision_text", "audio_frames"):
         missing.append(f"{cfg.modality.kind} frontend")
     if missing:
         raise NotImplementedError(
             f"{cfg.name}: the port runs GQA or MLA (dense or MoE) and recurrent "
-            f"text models; not yet ported: {', '.join(missing)} (ROADMAP.md, queue 1)")
+            f"models with text, vision_text or audio_frames inputs; not ported: "
+            f"{', '.join(missing)}")
 
 
 # ---------------------------------------------------------------------------
@@ -123,9 +131,11 @@ def _window(cfg: ModelConfig, kind: str, window_override):
 
 
 def _apply_layer(params, cfg: ModelConfig, kind: str, x, *, cache, mode,
-                 kernel_impl="auto", window_override=None):
+                 kernel_impl="auto", window_override=None, prefix_len=None):
     """Returns (x_out, new_cache, aux_loss); aux_loss is None for a layer
-    without MoE."""
+    without MoE.  ``prefix_len`` (the image prefix of a vision_text batch)
+    reaches GQA attention; MLA and the recurrent blocks take none, as in the
+    JAX package."""
     _, norm_fn = L.make_norm(cfg.norm)
     aux = None
     h = norm_fn(params["norm1"], x)
@@ -142,7 +152,7 @@ def _apply_layer(params, cfg: ModelConfig, kind: str, x, *, cache, mode,
             params["attn"], h, num_heads=a.num_heads,
             num_kv_heads=a.num_kv_heads, head_dim=a.head_dim,
             rope_theta=a.rope_theta, use_rope=a.use_rope, causal=a.causal,
-            window=_window(cfg, kind, window_override),
+            window=_window(cfg, kind, window_override), prefix_len=prefix_len,
             logit_cap=a.logit_softcap, cache=cache, mode=mode, impl=kernel_impl)
     elif kind == "rglru":
         y, new_cache = RG.rglru_block(params["rglru"], h,
@@ -196,6 +206,9 @@ def init_model(cfg: ModelConfig, *, seed: int = 0,
     params: dict[str, Any] = {
         "embed": L.init_embedding(gen, cfg.vocab_size, cfg.d_model,
                                   cfg.tie_embeddings)}
+    if cfg.modality.kind in ("vision_text", "audio_frames"):
+        fd = cfg.modality.frontend_dim
+        params["frontend_proj"] = L.dense_init(gen, (fd, cfg.d_model), fd)
     n_groups, pattern, remainder = _pattern_split(cfg)
     # the scanned groups and the tail take the MoE FFN in an MoE config (the
     # JAX package initialises them as layer 10**6); only ``lead`` is dense
@@ -301,7 +314,10 @@ def apply_model(
     kernel_impl: str = "auto",
     window_override: int | None = None,
 ) -> tuple[torch.Tensor, dict | None, Any]:
-    """Forward pass over ``batch["tokens"]`` (B, T).
+    """Forward pass.  ``batch`` keys by modality: ``tokens`` (B, T) for
+    text; ``patches`` (B, P, frontend_dim) and ``tokens`` (B, T_text) for
+    vision_text (tokens only in decode); ``frames`` (B, T, frontend_dim)
+    for audio_frames.
 
     Returns (logits, new_caches, aux_loss) like the JAX package; aux_loss
     is the sum of the MoE layers' router losses (a zero without MoE).  With
@@ -321,12 +337,27 @@ def apply_model(
     train = mode == "train"
     if not train and caches is None:
         raise ValueError(f"mode={mode!r} needs caches (init_caches)")
-    x = L.embed(params["embed"], batch["tokens"],
-                scale_by_dim=cfg.embedding_scale)
+    prefix_len = None
+    if cfg.modality.kind == "vision_text" and mode != "decode":
+        if "patches" not in batch:
+            raise ValueError(f"{cfg.name}: a vision_text batch in {mode} mode needs "
+                             f"'patches' (B, P, {cfg.modality.frontend_dim}) beside 'tokens'")
+        patches = batch["patches"]
+        x_txt = L.embed(params["embed"], batch["tokens"],
+                        scale_by_dim=cfg.embedding_scale)
+        x_img = L._mm(patches, params["frontend_proj"])      # not scaled
+        x = torch.cat([x_img.to(x_txt.dtype), x_txt], dim=1)
+        prefix_len = patches.shape[1]
+    elif cfg.modality.kind == "audio_frames":
+        x = L._mm(batch["frames"], params["frontend_proj"])
+    else:
+        x = L.embed(params["embed"], batch["tokens"],
+                    scale_by_dim=cfg.embedding_scale)
     x = x.to(torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32)
 
     n_groups, pattern, remainder = _pattern_split(cfg)
-    kw = dict(mode=mode, kernel_impl=kernel_impl, window_override=window_override)
+    kw = dict(mode=mode, kernel_impl=kernel_impl, window_override=window_override,
+              prefix_len=prefix_len)
     total_aux = torch.zeros((), device=x.device)
 
     def layer(p, kind, x, cache):
@@ -379,7 +410,7 @@ def apply_model(
         xn = xn[:, -1:]                   # only the last position's logits
     cap = 30.0 if cfg.attention and cfg.attention.logit_softcap else None
     logits = L.unembed(params["embed"], xn, logit_cap=cap)
-    if cfg.mtp and train:
+    if cfg.mtp and train and cfg.modality.kind == "text":
         # position t pairs with the embedding of token t+1 (zeros at the end)
         emb = L.embed(params["embed"], batch["tokens"],
                       scale_by_dim=cfg.embedding_scale).to(xn.dtype)

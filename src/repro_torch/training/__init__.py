@@ -5,4 +5,5 @@ from .train_step import (  # noqa: F401
     compute_loss,
     init_train_state,
     make_train_step,
+    param_grads,
 )

@@ -69,6 +69,13 @@ def compute_loss(params, cfg: ModelConfig, batch, *,
     return total, {"loss": loss, "aux_loss": aux, "mtp_loss": mtp_loss}
 
 
+def param_grads(total: torch.Tensor, flat: list[torch.Tensor]) -> tuple:
+    """d total / d each leaf of ``flat``.  A leaf the loss does not reach
+    (the token embedding of an audio encoder, which reads frames) gets
+    zeros, as ``jax.grad`` gives it, where autograd would raise."""
+    return torch.autograd.grad(total, flat, allow_unused=True, materialize_grads=True)
+
+
 def make_train_step(
     cfg: ModelConfig,
     opt: AdamWConfig,
@@ -101,7 +108,7 @@ def make_train_step(
     def grads_and_metrics(params, batch):
         total, metrics = compute_loss(params, cfg, batch)
         flat = leaves(params)
-        grads = unflatten(params, torch.autograd.grad(total, flat))
+        grads = unflatten(params, param_grads(total, flat))
         return grads, {k: v.detach() for k, v in metrics.items()}
 
     def mean_metrics(metrics):

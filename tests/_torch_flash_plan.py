@@ -1,11 +1,13 @@
-"""The forward kernel's walk over the key tiles (``fwd_plan``) held to the
-mask: shared by the flash-attention and MLA tests."""
+"""The forward kernel's walk over the key tiles (``fwd_plan``) and the
+backward kernel's work split (``bwd_plan``) held to the mask: shared by the
+flash-attention and MLA tests."""
 
 import numpy as np
 import torch
 
 from repro_torch.kernels import ref
-from repro_torch.kernels.flash_attention import fwd_plan, fwd_tiles
+from repro_torch.kernels.flash_attention import (BWD_KEYS, BWD_ROWS, bwd_plan, fwd_plan,
+                                                 fwd_tiles)
 
 
 def check_forward_plan(tq: int, tk: int, G: int, D: int, kw: dict) -> None:
@@ -40,3 +42,30 @@ def check_forward_plan(tq: int, tk: int, G: int, D: int, kw: dict) -> None:
                 seen[r0:r0 + 16, k0:k0 + plan.keys] += 1
     assert (seen[visible] == 1).all()
     assert seen.max() <= 1
+
+
+def check_backward_plan(tq: int, tk: int, G: int, D: int, dtype: torch.dtype,
+                        n_sm: int, kw: dict):
+    """``bwd_plan``'s dK/dV CTAs and, separately, its dQ CTAs meet every
+    (query row, key) pair that ``ref.attention_mask`` leaves visible exactly
+    once; cluster sizes are 1 to 8.  Returns the plan."""
+    plan = bwd_plan(2, tq, tk, 5, G, D, dtype=dtype, n_sm=n_sm, **kw)
+    mask = ref.attention_mask(torch.arange(tq), torch.arange(tk), causal=kw.get("causal", True),
+                              window=kw.get("window"), prefix_len=kw.get("prefix_len"),
+                              k_valid_len=None, k_len=tk).numpy()
+    visible = np.repeat(np.broadcast_to(mask, (tq, tk)), G, axis=0)   # row t * G + g -> position t
+    nr = tq * G
+    assert plan.split_dkdv in (1, 2, 4, 8) and plan.split_dq in (1, 2, 4, 8)
+    assert len(plan.dkdv) == -(-tk // BWD_KEYS) * plan.split_dkdv
+    assert len(plan.dq) == -(-nr // BWD_ROWS) * plan.split_dq
+    seen = np.zeros((nr, tk), np.int64)
+    for kt, rank, first, end in plan.dkdv:
+        assert 0 <= rank < plan.split_dkdv and 0 <= first <= end
+        seen[first:min(end, nr), kt * BWD_KEYS:(kt + 1) * BWD_KEYS] += 1
+    assert (seen[visible] == 1).all()
+    seen[:] = 0
+    for qt, rank, lo, hi in plan.dq:
+        assert 0 <= rank < plan.split_dq and 0 <= lo <= hi
+        seen[qt * BWD_ROWS:(qt + 1) * BWD_ROWS, lo:hi] += 1
+    assert (seen[visible] == 1).all()
+    return plan

@@ -24,7 +24,7 @@ from _torch_model_parity import converted_params
 from repro.training.train_step import compute_loss as jax_compute_loss
 from repro_torch.data import make_batch
 from repro_torch.models import get_smoke_config
-from repro_torch.training import compute_loss
+from repro_torch.training import compute_loss, param_grads
 from repro_torch.tree import leaves_with_path, unflatten
 
 LOSS_ATOL, GRAD_RTOL = 1e-3, 2e-2
@@ -46,7 +46,7 @@ def check_loss_and_grads(arch: str, remat: bool) -> dict:
     flat = [t.detach().clone().requires_grad_() for t in flat]
     params = unflatten(tp, flat)        # fresh leaves: the cached weights stay as they are
     tl, tm = compute_loss(params, tcfg, {k: torch.from_numpy(v) for k, v in batch.items()})
-    tg = torch.autograd.grad(tl, flat)
+    tg = param_grads(tl, flat)
 
     assert set(tm) == set(jm) == {"loss", "aux_loss", "mtp_loss"}
     assert abs(tl.item() - float(jl)) <= LOSS_ATOL

@@ -134,11 +134,22 @@ def _bwd_cases():
     for tq, tk in ((65, 129), (129, 63), (1, 70)):
         for kw in ({}, dict(causal=False)):
             cases.append(((2, tq, tk, 1, 2, 20), torch.float32, kw))
-    for D in (16, 20, 64, 128):
+    for D in (16, 20, 64, 128, 160, 192, 200, 256):
         for G in (1, 3, 16, 64):
             for dtype in (torch.float32, torch.bfloat16):
                 kw = masks[(D + G) % len(masks)]
                 cases.append(((1, 33 if G >= 16 else 97, 97, 2, G, D), dtype, kw))
+    # above head_dim 128 (the column halves): paligemma-3b's and hubert's
+    # training shapes, off the tiles with a window and softcap, a prefix,
+    # bf16, and MLA's head_dim 192 with its scale
+    cases += [((2, 512, 512, 1, 8, 256), torch.float32, dict(prefix_len=256)),
+              ((2, 512, 512, 16, 1, 80), torch.float32, dict(causal=False)),
+              ((1, 97, 131, 3, 2, 256), torch.float32, dict(window=40, logit_cap=30.0)),
+              ((1, 97, 131, 3, 2, 192), torch.float32, dict(window=40, logit_cap=30.0)),
+              ((1, 128, 128, 2, 1, 256), torch.float32, dict(prefix_len=40)),
+              ((2, 512, 512, 1, 8, 256), torch.bfloat16, dict(prefix_len=256)),
+              ((1, 97, 131, 3, 2, 192), torch.bfloat16, dict(causal=False)),
+              ((2, 256, 256, 8, 1, 192), torch.float32, dict(scale=192 ** -0.5))]
     return cases
 
 
@@ -172,7 +183,9 @@ def test_flash_attention_backward_matches_plain(cuda_device, shape, dtype, kw):
 @pytest.mark.requires_cuda
 @pytest.mark.parametrize("shape,dtype", [((2, 512, 512, 5, 3, 64), torch.float32),
                                          ((2, 256, 256, 32, 1, 128), torch.bfloat16),
-                                         ((1, 200, 200, 2, 16, 20), torch.float32)])
+                                         ((1, 200, 200, 2, 16, 20), torch.float32),
+                                         ((2, 512, 512, 1, 8, 256), torch.float32),
+                                         ((1, 200, 200, 4, 2, 192), torch.bfloat16)])
 def test_flash_attention_backward_is_deterministic(cuda_device, shape, dtype):
     """No atomics on gradients: two calls of the backward kernel on the same
     inputs give identical bits, and so does the autograd path through
@@ -297,22 +310,44 @@ def test_recurrent_block_backward_raises_on_the_card(cuda_device, family):
 
 
 @pytest.mark.requires_cuda
-def test_mla_training_raises_at_the_backward_head_dim(cuda_device):
+def test_mla_training_gradients_match_plain(cuda_device):
     """MLA at deepseek-v3's widths attends at head_dim 192 (nope 128 + rope
-    64), above the backward kernel's 128: a train step on the card runs the
-    forward kernel under autograd, and its backward raises, naming the
-    limit, instead of going through the plain version."""
+    64): a train step on the card runs the forward kernel under autograd and
+    the backward kernel (the 192-wide template), and its gradients match
+    the same step through the plain attention, under the backward's fp32
+    tolerance (1e-3 of max(1, max |grad|))."""
     from repro_torch.models import mla
     dims = dict(num_heads=2, qk_nope_head_dim=128, qk_rope_head_dim=64, v_head_dim=128)
     gen = torch.Generator(device=cuda_device).manual_seed(0)
     params = mla.init_mla(gen, 64, 2, q_lora_rank=32, kv_lora_rank=32, qk_nope_head_dim=128,
                           qk_rope_head_dim=64, v_head_dim=128)
-    for t in params.values():
-        t.requires_grad_()
     x = torch.randn(2, 16, 64, device=cuda_device, generator=gen)
-    before = ops.launch_counts()
-    y, _ = mla.mla_attention(params, x, mode="train", **dims)
-    assert ops.launch_counts()["flash_attention"] == before["flash_attention"] + 1
-    with pytest.raises(ValueError, match="head_dim <= 128"):
-        y.sum().backward()
-    assert ops.launch_counts()["flash_attention_bwd"] == before["flash_attention_bwd"]
+    dy = torch.randn(2, 16, 64, device=cuda_device, generator=gen)
+    names = sorted(params)
+    grads = {}
+    for impl in ("auto", "reference"):
+        leaves = {n: params[n].detach().clone().requires_grad_() for n in names}
+        before = ops.launch_counts()
+        y, _ = mla.mla_attention(leaves, x, mode="train", impl=impl, **dims)
+        grads[impl] = torch.autograd.grad(y, [leaves[n] for n in names], dy)
+        after = ops.launch_counts()
+        want = 1 if impl == "auto" else 0
+        assert after["flash_attention"] == before["flash_attention"] + want
+        assert after["flash_attention_bwd"] == before["flash_attention_bwd"] + want
+    for n, a, b in zip(names, grads["auto"], grads["reference"]):
+        assert torch.isfinite(a).all(), n
+        assert (a - b).abs().max().item() <= 1e-3 * max(1.0, b.abs().max().item()), n
+
+
+@pytest.mark.requires_cuda
+def test_backward_above_head_dim_256_raises(cuda_device):
+    """head_dim 320 is past the backward kernel's widest template: the
+    wrapper raises, naming the limit, and launches nothing; no fallback."""
+    from repro_torch.kernels.flash_attention import flash_attention_bwd_cuda
+    q = torch.randn(1, 8, 1, 1, 320, device=cuda_device)
+    k = torch.randn(1, 8, 1, 320, device=cuda_device)
+    lse = torch.zeros(1, 8, 1, 1, device=cuda_device)
+    before = ops.launch_counts()["flash_attention_bwd"]
+    with pytest.raises(ValueError, match="head_dim <= 256"):
+        flash_attention_bwd_cuda(q, k, k, q, q, lse)
+    assert ops.launch_counts()["flash_attention_bwd"] == before

@@ -11,13 +11,13 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_flash_plan import check_forward_plan
+from _torch_flash_plan import check_backward_plan, check_forward_plan
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro.models.layers import blockwise_attention as jax_blockwise
 from repro_torch.kernels import ops, ref
-from repro_torch.kernels.flash_attention import (BWD_KEYS, BWD_MAX_SPLIT, BWD_ROWS, bwd_plan,
-                                                 flash_attention_cuda, fwd_plan)
+from repro_torch.kernels.flash_attention import (BWD_MAX_SPLIT, bwd_plan, flash_attention_cuda,
+                                                 fwd_plan)
 from repro_torch.models.layers import blockwise_attention
 
 
@@ -200,25 +200,30 @@ def test_backward_plan_covers_every_visible_pair_once(tq, tk, G, D, dtype, n_sm,
     as the kernel's): the dK/dV CTAs and, separately, the dQ CTAs meet every
     (query row, key) pair that ``ref.attention_mask`` leaves visible exactly
     once, for every mask kind, ragged lengths and cluster sizes 1 to 8."""
-    plan = bwd_plan(2, tq, tk, 5, G, D, dtype=dtype, n_sm=n_sm, **kw)
-    mask = ref.attention_mask(torch.arange(tq), torch.arange(tk), causal=kw.get("causal", True),
-                              window=kw.get("window"), prefix_len=kw.get("prefix_len"),
-                              k_valid_len=None, k_len=tk).numpy()
-    visible = np.repeat(np.broadcast_to(mask, (tq, tk)), G, axis=0)           # row t * G + g -> position t
-    nr = tq * G
-    assert plan.split_dkdv in (1, 2, 4, 8) and plan.split_dq in (1, 2, 4, 8)
-    assert len(plan.dkdv) == -(-tk // BWD_KEYS) * plan.split_dkdv
-    assert len(plan.dq) == -(-nr // BWD_ROWS) * plan.split_dq
-    seen = np.zeros((nr, tk), np.int64)
-    for kt, rank, first, end in plan.dkdv:
-        assert 0 <= rank < plan.split_dkdv and 0 <= first <= end
-        seen[first:min(end, nr), kt * BWD_KEYS:(kt + 1) * BWD_KEYS] += 1
-    assert (seen[visible] == 1).all()
-    seen[:] = 0
-    for qt, rank, lo, hi in plan.dq:
-        assert 0 <= rank < plan.split_dq and 0 <= lo <= hi
-        seen[qt * BWD_ROWS:(qt + 1) * BWD_ROWS, lo:hi] += 1
-    assert (seen[visible] == 1).all()
+    check_backward_plan(tq, tk, G, D, dtype, n_sm, kw)
+
+
+_WIDE_PLAN_MASKS = _PLAN_MASKS + [dict(prefix_len=256), dict(window=40, causal=False)]
+
+
+@pytest.mark.parametrize("kw", _WIDE_PLAN_MASKS, ids=lambda kw: "-".join(f"{k}={v}" for k, v in kw.items()) or "causal")
+@pytest.mark.parametrize("tq,tk,G,D,dtype,n_sm", [
+    (512, 512, 8, 256, torch.float32, 132),      # paligemma-3b's training shape
+    (512, 512, 8, 256, torch.bfloat16, 132),
+    (512, 512, 1, 192, torch.float32, 132),      # MLA's head_dim
+    (97, 131, 2, 256, torch.float32, 1000), (131, 97, 3, 192, torch.bfloat16, 1000),
+    (70, 70, 64, 256, torch.float32, 132), (1, 1, 1, 129, torch.float32, 132),
+])
+def test_backward_plan_above_head_dim_128_covers_every_visible_pair_once(
+        tq, tk, G, D, dtype, n_sm, kw):
+    """Above head_dim 128 the kernel keeps its 64-key and 64-row CTAs
+    (their warps split the columns in two halves) and fp32 steps 16 keys in
+    the dQ pass: the walk still meets every visible (query row, key) pair
+    once, under causal, prefix (paligemma's 256 image positions among
+    them), window and non-causal masks."""
+    plan = check_backward_plan(tq, tk, G, D, dtype, n_sm, kw)
+    step = 16 if dtype == torch.float32 else 32
+    assert all((hi - lo) % step == 0 for _, _, lo, hi in plan.dq)
 
 
 def test_backward_plan_fills_the_card_longest_first():

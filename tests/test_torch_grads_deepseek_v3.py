@@ -3,8 +3,8 @@ of the port's deepseek-v3-671b smoke config (MLA, a shared expert, one
 leading dense layer, the MTP head) against ``jax.value_and_grad`` of the JAX
 package's ``compute_loss`` (check and tolerances: ``_torch_grad_parity.py``).
 On the CPU attention runs its plain version, which autograd differentiates
-at MLA's head_dim of 48; on the card the backward kernel stops at 128
-(``test_torch_cuda.py``)."""
+at MLA's head_dim of 48; on the card the backward kernel's 192-wide template
+takes deepseek-v3's head_dim (``test_torch_cuda.py``)."""
 
 import pytest
 

@@ -1,7 +1,8 @@
 """The port's model held against the JAX package's ``apply_model`` on five
-dense, two MoE (one with MLA and the MTP head) and two recurrent smoke
-configs, from the same (JAX-initialised) weights.  The
-prefill + decode check lives in ``_torch_model_parity.py``.
+dense, two MoE (one with MLA and the MTP head), two recurrent and the two
+frontend (vision_text, audio_frames) smoke configs, from the same
+(JAX-initialised) weights.  The prefill + decode check lives in
+``_torch_model_parity.py`` (the frontends': ``test_torch_frontends.py``).
 
 Tolerance: logits atol 3e-2, because the residual stream is bfloat16 in
 both frameworks (``cfg.dtype``): a float32 sum taken in another order can
@@ -25,12 +26,14 @@ import torch
 from _torch_model_parity import check_prefill_and_decode, converted_params
 from repro.models import get_config as jax_get_config
 from repro.models import get_smoke_config as jax_smoke
+from repro.models.registry import ARCHITECTURES as JAX_ARCHITECTURES
+from repro_torch.data import make_batch
 from repro_torch.models import (apply_model, get_config, get_smoke_config,
-                                init_caches, init_model)
-from repro_torch.models.registry import NOT_PORTED
+                                init_caches, init_model, list_architectures)
 
 ARCHS = ["smollm-360m", "paper-7b", "glm4-9b", "recurrentgemma-9b", "rwkv6-1.6b",
-         "gemma2-27b", "deepseek-67b", "dbrx-132b", "deepseek-v3-671b"]
+         "gemma2-27b", "deepseek-67b", "dbrx-132b", "deepseek-v3-671b",
+         "paligemma-3b", "hubert-xlarge"]
 
 
 def test_prefill_and_decode_match_jax():
@@ -73,11 +76,13 @@ def test_configs_match_jax(arch):
 
 
 def test_registry_and_device_rules():
-    assert sorted(NOT_PORTED) == ["hubert-xlarge", "paligemma-3b"]
-    with pytest.raises(NotImplementedError, match="audio_frames"):
-        get_config("hubert-xlarge")
-    with pytest.raises(NotImplementedError, match="vision_text"):
-        get_smoke_config("paligemma-3b")
+    """Every architecture of the JAX package is registered in the port, and
+    its full and smoke configs resolve."""
+    assert list_architectures() == sorted(JAX_ARCHITECTURES) == sorted(ARCHS)
+    for arch in list_architectures():
+        assert get_config(arch).name == arch
+        assert (dataclasses.asdict(get_smoke_config(arch).modality)
+                == dataclasses.asdict(jax_smoke(arch).modality))
     with pytest.raises(KeyError):
         get_config("no-such-arch")
     if not torch.cuda.is_available():
@@ -93,13 +98,22 @@ def test_registry_and_device_rules():
 
 def test_attn_impl_reference_equals_auto_on_cpu(pair):
     """``kernel_impl="reference"`` (the plain version of every kernel) is the
-    CPU path itself."""
+    CPU path itself: prefill for the decoders (paligemma's over its image
+    prefix and 7 text tokens), train mode for the encoder."""
     arch, cfg, _, tp = pair
     tcfg = get_smoke_config(arch)
-    tokens = torch.from_numpy(np.random.default_rng(1).integers(0, cfg.vocab_size, (1, 7)))
-    a, _, _ = apply_model(tp, tcfg, {"tokens": tokens}, mode="prefill",
-                          caches=init_caches(tcfg, 1, 8, device="cpu"))
-    b, _, _ = apply_model(tp, tcfg, {"tokens": tokens}, mode="prefill",
-                          caches=init_caches(tcfg, 1, 8, device="cpu"),
-                          kernel_impl="reference")
-    torch.testing.assert_close(a, b, rtol=0, atol=0)
+    ctx = 8
+    if cfg.modality.kind == "text":
+        batch = {"tokens": torch.from_numpy(
+            np.random.default_rng(1).integers(0, cfg.vocab_size, (1, 7)))}
+    else:
+        P = cfg.modality.num_prefix_tokens
+        batch = {k: torch.from_numpy(v)
+                 for k, v in make_batch(tcfg, seq_len=P + 7, batch_size=1, step=1).items()}
+        ctx = P + 8
+    mode = "train" if cfg.encoder_only else "prefill"
+
+    def run(impl):
+        caches = None if cfg.encoder_only else init_caches(tcfg, 1, ctx, device="cpu")
+        return apply_model(tp, tcfg, batch, mode=mode, caches=caches, kernel_impl=impl)[0]
+    torch.testing.assert_close(run("auto"), run("reference"), rtol=0, atol=0)
