@@ -1,11 +1,13 @@
-"""Configuration system: model and communication configs.
+"""Configuration system: model, communication and sharding configs.
 
 The port's own copy of the JAX package's ``configs/base.py`` dataclasses
 (and of ``CommConfig`` from its ``core/planner.py``), so that the port
 imports nothing of that package.  Every ported architecture gets a
 ``src/repro_torch/configs/<id>.py`` exporting ``CONFIG`` (the full published
 configuration) and ``smoke_config()`` (a reduced variant of the same family
-for CPU tests).  The logical-axis sharding rules are not ported yet.
+for CPU tests).  Sharding is expressed by logical-axis rules
+(``ShardingConfig``, ``FSDP_TP_RULES``) mapped onto a mesh by
+``launch/mesh.py`` and ``launch/sharding.py``.
 """
 
 from __future__ import annotations
@@ -210,3 +212,45 @@ INPUT_SHAPES: dict[str, InputShape] = {
     "decode_32k": InputShape("decode_32k", 32_768, 128, "decode"),
     "long_500k": InputShape("long_500k", 524_288, 1, "decode"),
 }
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardingConfig:
+    """Logical-axis -> mesh-axis rules (MaxText-style)."""
+
+    mode: str = "tp"                   # "tp" | "fsdp_tp"
+    rules: tuple[tuple[str, tuple[str, ...] | str | None], ...] = (
+        ("batch", ("pod", "data")),
+        ("seq", None),
+        ("embed", None),
+        ("heads", "model"),
+        ("kv_heads", "model"),
+        ("mlp", "model"),
+        ("vocab", "model"),
+        ("experts", "model"),
+        ("expert_embed", None),
+        ("expert_mlp", None),
+        ("lru", "model"),
+        ("cache_seq", None),
+    )
+
+    def lookup(self) -> dict[str, tuple[str, ...] | str | None]:
+        return dict(self.rules)
+
+
+FSDP_TP_RULES: tuple[tuple[str, tuple[str, ...] | str | None], ...] = (
+    ("batch", ("pod", "data")),
+    ("seq", None),
+    ("embed", ("pod", "data")),       # ZeRO-3-style: shard params over data too
+    ("heads", "model"),
+    ("kv_heads", "model"),
+    ("mlp", "model"),
+    ("vocab", "model"),
+    ("experts", "model"),
+    # Expert weights shard only on the expert dim: the JAX package found that
+    # sharding a second axis over data made GSPMD replicate all expert compute
+    ("expert_embed", None),
+    ("expert_mlp", None),
+    ("lru", "model"),
+    ("cache_seq", None),
+)

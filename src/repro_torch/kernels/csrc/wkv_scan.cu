@@ -6,7 +6,10 @@
 //     out_t = r_t . (S + u * k_t^T v_t),    S <- diag(w_t) S + k_t^T v_t,
 // plus what the serving path needs and the Pallas kernel lacks: a starting
 // state s0 (`rwkv_block` prefill continues from `state.s`) and the final
-// state s_T, written for decode.
+// state s_T, written for decode.  Under autograd it also writes the state
+// at the start of every chunk of kChunk steps to `ckpt` (B, H, chunks, K,
+// V), from which wkv_scan_bwd.cu replays each chunk; serving passes a null
+// `ckpt` and writes nothing more.
 //
 // Layout (the model's, read in place with no transposes): r, k, w
 // (B, T, H, K), v (B, T, H, V), u (H, K), s0 and s_T (B, H, K, V), out
@@ -162,7 +165,8 @@ __global__ void __launch_bounds__(Shape<K>::NT)
 wkv_scan_kernel(const float* __restrict__ r, const float* __restrict__ k,
                 const float* __restrict__ v, const float* __restrict__ w,
                 const float* __restrict__ u, const float* __restrict__ s0,
-                float* __restrict__ out, float* __restrict__ sT, int T, int H) {
+                float* __restrict__ out, float* __restrict__ sT,
+                float* __restrict__ ckpt, int T, int H) {
   constexpr int L = Shape<K>::L, C = Shape<K>::C, COLS = Shape<K>::COLS;
   __shared__ __align__(16) float rkw_s[2][kChunk * 3 * K];
   __shared__ __align__(16) float v_s[2][kChunk * COLS];
@@ -190,6 +194,13 @@ wkv_scan_kernel(const float* __restrict__ r, const float* __restrict__ k,
   cp_commit();
   for (int ch = 0; ch < nchunks; ++ch) {
     const int buf = ch & 1, t0 = ch * kChunk;
+    if (ckpt != nullptr) {           // the state before step t0
+      float* cp = ckpt + ((size_t)bh * nchunks + ch) * K * K + j0 + c0;
+#pragma unroll
+      for (int e = 0; e < kRows; ++e)
+#pragma unroll
+        for (int c = 0; c < C; ++c) cp[(size_t)(k0 + e) * K + c] = S[e][c];
+    }
     if (ch + 1 < nchunks)
       load_chunk<K, VEC>(r, k, w, v, b, h, j0, t0 + kChunk, T, H,
                          rkw_s[buf ^ 1], v_s[buf ^ 1]);
@@ -237,35 +248,36 @@ wkv_scan_kernel(const float* __restrict__ r, const float* __restrict__ k,
 
 template <int K>
 cudaError_t launch(const void* r, const void* k, const void* v, const void* w,
-                   const void* u, const void* s0, void* out, void* sT, int B,
-                   int T, int H, bool vec, cudaStream_t stream) {
+                   const void* u, const void* s0, void* out, void* sT, void* ckpt,
+                   int B, int T, int H, bool vec, cudaStream_t stream) {
   const dim3 grid((unsigned)(B * H * (K / Shape<K>::COLS)));
   auto kernel = vec ? wkv_scan_kernel<K, true> : wkv_scan_kernel<K, false>;
   kernel<<<grid, Shape<K>::NT, 0, stream>>>(
       static_cast<const float*>(r), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<const float*>(w),
       static_cast<const float*>(u), static_cast<const float*>(s0),
-      static_cast<float*>(out), static_cast<float*>(sT), T, H);
+      static_cast<float*>(out), static_cast<float*>(sT), static_cast<float*>(ckpt),
+      T, H);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// Plain C entry point (loaded with ctypes).  K is the head size (K = V).
-// Returns the cudaError_t of the launch (0 = cudaSuccess); shapes the kernel
+// Plain C entry point (loaded with ctypes).  K is the head size (K = V);
+// ckpt is null, or room for B * H * ceil(T / 16) states.  Returns the cudaError_t of the launch (0 = cudaSuccess); shapes the kernel
 // does not take return cudaErrorInvalidValue without launching.
 extern "C" int repro_wkv_scan(const void* r, const void* k, const void* v,
                               const void* w, const void* u, const void* s0,
-                              void* out, void* sT, int B, int T, int H, int K,
-                              void* stream) {
+                              void* out, void* sT, void* ckpt, int B, int T,
+                              int H, int K, void* stream) {
   if (B < 1 || T < 1 || H < 1 || (long long)B * H * 4 > 2147483647LL)
     return (int)cudaErrorInvalidValue;
   const bool vec = aligned16(r) && aligned16(k) && aligned16(v) && aligned16(w);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (K) {
-    case 16: return (int)launch<16>(r, k, v, w, u, s0, out, sT, B, T, H, vec, s);
-    case 32: return (int)launch<32>(r, k, v, w, u, s0, out, sT, B, T, H, vec, s);
-    case 64: return (int)launch<64>(r, k, v, w, u, s0, out, sT, B, T, H, vec, s);
+    case 16: return (int)launch<16>(r, k, v, w, u, s0, out, sT, ckpt, B, T, H, vec, s);
+    case 32: return (int)launch<32>(r, k, v, w, u, s0, out, sT, ckpt, B, T, H, vec, s);
+    case 64: return (int)launch<64>(r, k, v, w, u, s0, out, sT, ckpt, B, T, H, vec, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

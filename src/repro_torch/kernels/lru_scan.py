@@ -1,13 +1,15 @@
-"""RG-LRU scan on Hopper: the wrapper of ``csrc/lru_scan.cu``.
+"""RG-LRU scan on Hopper: the wrappers of ``csrc/lru_scan.cu`` and
+``csrc/lru_scan_bwd.cu``.
 
-Replaces the TPU kernel ``lru_scan_pallas`` of the JAX package
+The forward replaces the TPU kernel ``lru_scan_pallas`` of the JAX package
 (``kernels/lru_scan.py``), with the starting state ``h0`` the model passes.
-The kernel's plain version is ``ref.reference_lru_scan``; ``ops.lru_scan``
-picks between them by the tensors' device.  :class:`LRUScan` puts the
-kernel under autograd with a backward that raises: the recurrent families
-are served, not trained, on the card (ROADMAP.md, queue 2, "Backward
-kernels with no Pallas counterpart").  :func:`lru_scan_tiled` is the
-kernel's tiled walk in plain torch, for the CPU tests.
+The backward has no Pallas counterpart: it replaces ``jax.grad`` through the
+JAX model's ``lru_scan_ref``.  The plain versions are
+``ref.reference_lru_scan`` and ``ref.reference_lru_scan_bwd``;
+``ops.lru_scan`` picks between kernel and plain version by the tensors'
+device.  :class:`LRUScan` puts the kernels under autograd.
+:func:`lru_scan_tiled` is the forward kernel's tiled walk in plain torch,
+for the CPU tests.
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ import torch
 from .build import entry
 
 _ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+_BWD_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
 # the kernel's walk (csrc/lru_scan.cu): time steps a tile, warps a CTA
 TILE, WARPS = 128, 8
 
@@ -101,18 +104,63 @@ def lru_scan_tiled(a: torch.Tensor, x: torch.Tensor, h0: torch.Tensor, *,
     return out.view(B, tiles * tile, W)[:, :T]
 
 
+def lru_scan_bwd_cuda(a: torch.Tensor, h: torch.Tensor, h0: torch.Tensor,
+                      gh: torch.Tensor, *, want_gh0: bool = True
+                      ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor | None]:
+    """Launch the backward kernel on a's device and PyTorch's current stream.
+
+    a, h (the forward's output), gh (the gradient of h): contiguous float32
+    (B, T, W) CUDA tensors, T >= 1; h0: contiguous float32 (B, W).  Returns
+    (gx, ga, gh0), gh0 None unless ``want_gh0``.  Raises on anything else
+    and when the launch is refused.  ``lru_scan_bwd_cuda.launches`` counts
+    launches.
+    """
+    ins = (a, h, gh)
+    if a.dim() != 3 or any(t.shape != a.shape for t in ins) \
+            or h0.shape != (a.shape[0], a.shape[2]):
+        raise ValueError(f"want a = h = gh (B,T,W), h0 (B,W); got "
+                         f"{[tuple(t.shape) for t in (*ins, h0)]}")
+    if any(t.dtype != torch.float32 for t in (*ins, h0)):
+        raise TypeError(f"lru_scan_bwd takes float32 inputs; got "
+                        f"{[t.dtype for t in (*ins, h0)]}")
+    if not (a.is_cuda and all(t.device == a.device for t in (*ins, h0))):
+        raise ValueError("lru_scan_bwd kernel needs its inputs on one CUDA device")
+    if not all(t.is_contiguous() for t in (*ins, h0)):
+        raise ValueError("lru_scan_bwd kernel needs contiguous inputs")
+    B, T, W = a.shape
+    if T < 1:
+        raise ValueError("lru_scan_bwd kernel needs at least one time step")
+    gx, ga = torch.empty_like(a), torch.empty_like(a)
+    gh0 = torch.empty_like(h0) if want_gh0 else None
+    fn = entry("lru_scan_bwd", "repro_lru_scan_bwd", _BWD_ARGTYPES)
+    with torch.cuda.device(a.device):
+        stream = torch.cuda.current_stream(a.device).cuda_stream
+        err = fn(a.data_ptr(), h.data_ptr(), h0.data_ptr(), gh.data_ptr(),
+                 gx.data_ptr(), ga.data_ptr(), gh0.data_ptr() if want_gh0 else None,
+                 B, T, W, stream)
+    if err != 0:
+        raise RuntimeError(f"lru_scan_bwd kernel launch failed: cudaError_t {err}")
+    lru_scan_bwd_cuda.launches += 1
+    return gx, ga, gh0
+
+
+lru_scan_bwd_cuda.launches = 0
+
+
 class LRUScan(torch.autograd.Function):
-    """The kernel under autograd: ``apply(a, x, h0)``.  Its backward raises,
-    so that a training step on the card fails where it needs a backward
-    kernel instead of going through the plain version."""
+    """The kernels under autograd: ``apply(a, x, h0)``.  The forward saves
+    a, h0 and its output; the backward is :func:`lru_scan_bwd_cuda`, and
+    computes h0's gradient only where it is asked for."""
 
     @staticmethod
     def forward(ctx, a, x, h0):
-        return lru_scan_cuda(a, x, h0)
+        h = lru_scan_cuda(a, x, h0)
+        ctx.save_for_backward(a, h, h0)
+        return h
 
     @staticmethod
     def backward(ctx, grad):
-        raise NotImplementedError(
-            "lru_scan has no backward kernel: the recurrent families are "
-            "served, not trained, on the card (ROADMAP.md, queue 2, 'Backward "
-            "kernels with no Pallas counterpart')")
+        a, h, h0 = ctx.saved_tensors
+        gx, ga, gh0 = lru_scan_bwd_cuda(a, h, h0, grad.contiguous(),
+                                        want_gh0=ctx.needs_input_grad[2])
+        return ga, gx, gh0

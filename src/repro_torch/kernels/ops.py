@@ -16,8 +16,8 @@ import torch
 from . import ref
 from .chunk_combine import chunk_combine_cuda
 from .flash_attention import FlashAttention, flash_attention_bwd_cuda, flash_attention_cuda
-from .lru_scan import LRUScan, lru_scan_cuda
-from .wkv_scan import WKVScan, wkv_scan_cuda
+from .lru_scan import LRUScan, lru_scan_bwd_cuda, lru_scan_cuda
+from .wkv_scan import WKVScan, wkv_scan_bwd_cuda, wkv_scan_cuda
 
 IMPLS = ("auto", "reference")
 
@@ -86,7 +86,8 @@ def lru_scan(a: torch.Tensor, x: torch.Tensor, h0: torch.Tensor, *,
              impl: str = "auto") -> torch.Tensor:
     """RG-LRU states ``h_t = a_t * h_{t-1} + x_t`` from ``h0``: a, x
     (B, T, W), h0 (B, W) -> (B, T, W) float32.  On the card, inputs that
-    require grad go through :class:`LRUScan`, whose backward raises."""
+    require grad go through :class:`LRUScan`, whose backward is the
+    ``lru_scan_bwd`` kernel."""
     _check_impl(impl)
     if impl == "reference" or a.device.type == "cpu":
         return ref.reference_lru_scan(a, x, h0)
@@ -103,7 +104,7 @@ def wkv_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
     """RWKV-6 WKV recurrence in the model's layout: r, k, v, w (B, T, H, K),
     u (H, K), s0 (B, H, K, K) -> (out (B, T, H, K), s_T (B, H, K, K)),
     float32.  On the card, inputs that require grad go through
-    :class:`WKVScan`, whose backward raises."""
+    :class:`WKVScan`, whose backward is the ``wkv_scan_bwd`` kernel."""
     _check_impl(impl)
     if impl == "reference" or r.device.type == "cpu":
         return ref.reference_wkv(r, k, v, w, u, s0)
@@ -118,7 +119,9 @@ _WRAPPERS = {"flash_attention": flash_attention_cuda,
              "flash_attention_bwd": flash_attention_bwd_cuda,
              "chunk_combine": chunk_combine_cuda,
              "lru_scan": lru_scan_cuda,
-             "wkv_scan": wkv_scan_cuda}
+             "lru_scan_bwd": lru_scan_bwd_cuda,
+             "wkv_scan": wkv_scan_cuda,
+             "wkv_scan_bwd": wkv_scan_bwd_cuda}
 
 
 def launch_counts() -> dict[str, int]:

@@ -127,3 +127,76 @@ def reference_wkv(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         s = wf[:, t, :, :, None] * s + kv
     out = torch.stack(outs, dim=1) if outs else vf.new_zeros(vf.shape)
     return out, s
+
+
+def reference_lru_scan_bwd(a: torch.Tensor, h: torch.Tensor, h0: torch.Tensor,
+                           gh: torch.Tensor
+                           ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain version of the RG-LRU scan's backward, the reverse recurrence
+    the ``lru_scan_bwd`` kernel runs: from the forward's ``a``, its output
+    ``h``, ``h0`` and the gradient ``gh`` of ``h``, with ``h_{-1} = h0``,
+
+        dh_{T-1} = gh_{T-1},   dh_t = gh_t + a_{t+1} dh_{t+1},
+        gx_t = dh_t,   ga_t = dh_t h_{t-1},   gh0 = a_0 dh_0,
+
+    the forward recurrence run backwards in time with ``a`` shifted by one
+    step.  a, h, gh: (B, T, W), T >= 1; h0: (B, W).  Returns (gx, ga, gh0),
+    float32.  Tests hold it to autograd and ``jax.grad``; the card's path
+    runs the kernel.
+    """
+    af, hf, ghf = a.float(), h.float(), gh.float()
+    T = a.shape[1]
+    gx, ga = torch.empty_like(ghf), torch.empty_like(ghf)
+    dh = torch.zeros_like(h0, dtype=torch.float32)
+    for t in range(T - 1, -1, -1):
+        dh = ghf[:, t] + (af[:, t + 1] * dh if t + 1 < T else 0.0)
+        gx[:, t] = dh
+        ga[:, t] = dh * (hf[:, t - 1] if t > 0 else h0.float())
+    return gx, ga, af[:, 0] * dh
+
+
+def reference_wkv_bwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      w: torch.Tensor, u: torch.Tensor, s0: torch.Tensor,
+                      gy: torch.Tensor, gs_t: torch.Tensor | None = None
+                      ) -> tuple[torch.Tensor, ...]:
+    """Plain version of the WKV recurrence's backward, the reverse walk the
+    ``wkv_scan_bwd`` kernel runs.  With ``S_{t-1}`` the state before step t
+    (``S_{-1} = s0``) and ``dS`` the adjoint of the state after it (``gs_t``
+    at the end, zeros if None), from t = T - 1 down to 0:
+
+        c_t = v_t . gy_t
+        gr_t = S_{t-1} gy_t + u * k_t c_t
+        gu += r_t * k_t c_t
+        gk_t = dS v_t + r_t * u c_t
+        gv_t = dS^T k_t + (sum_i r_t[i] u_i k_t[i]) gy_t
+        gw_t = rowsum(dS * S_{t-1})
+        dS <- diag(w_t) dS + r_t^T gy_t
+
+    and ``gs0 = dS`` at the end.  The states are recomputed forward from
+    ``s0`` (the kernel replays them from per-chunk checkpoints); none is
+    recovered by dividing by w, which underflows at the model's decays.
+    Shapes as ``reference_wkv``, gy (B, T, H, V).  Returns (gr, gk, gv, gw,
+    gu, gs0), float32.
+    """
+    rf, kf, vf, wf, gyf = (t.float() for t in (r, k, v, w, gy))
+    uf = u.float()
+    T = r.shape[1]
+    states = [s0.float()]
+    for t in range(T - 1):
+        states.append(wf[:, t, :, :, None] * states[-1]
+                      + kf[:, t, :, :, None] * vf[:, t, :, None, :])
+    ds = torch.zeros_like(states[0]) if gs_t is None else gs_t.float().clone()
+    grads = [torch.empty_like(x) for x in (rf, kf, vf, wf)]
+    gr, gk, gv, gw = grads
+    gu = torch.zeros_like(rf[:, 0])                                  # (B, H, K)
+    for t in range(T - 1, -1, -1):
+        rt, kt, vt, wt, gyt, sp = rf[:, t], kf[:, t], vf[:, t], wf[:, t], gyf[:, t], states[t]
+        c = (vt * gyt).sum(-1, keepdim=True)                         # (B, H, 1)
+        gr[:, t] = torch.einsum("bhkv,bhv->bhk", sp, gyt) + uf * kt * c
+        gu += rt * kt * c
+        gk[:, t] = torch.einsum("bhkv,bhv->bhk", ds, vt) + rt * uf * c
+        gv[:, t] = (torch.einsum("bhkv,bhk->bhv", ds, kt)
+                    + (rt * uf * kt).sum(-1, keepdim=True) * gyt)
+        gw[:, t] = (ds * sp).sum(-1)
+        ds = wt[..., None] * ds + rt[..., None] * gyt[..., None, :]
+    return gr, gk, gv, gw, gu.sum(0), ds

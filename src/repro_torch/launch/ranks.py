@@ -34,7 +34,8 @@ import torch.multiprocessing as mp
 from repro_torch.device import resolve_device
 
 #: sources under ``kernels/csrc`` that a training rank launches
-TRAIN_KERNELS = ("flash_attention", "flash_attention_bwd", "chunk_combine")
+TRAIN_KERNELS = ("flash_attention", "flash_attention_bwd", "chunk_combine",
+                 "lru_scan", "lru_scan_bwd", "wkv_scan", "wkv_scan_bwd")
 
 
 class RankError(RuntimeError):

@@ -88,6 +88,12 @@ def layernorm(params: Params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tenso
     return y.to(dtype)
 
 
+def norm_axes(kind: str) -> dict:
+    """Logical sharding axes of a ``make_norm(kind)`` norm's params."""
+    return {"scale": ("embed",), "bias": ("embed",)} if kind == "layernorm" \
+        else {"scale": ("embed",)}
+
+
 def make_norm(kind: str):
     """(init, apply) for ``cfg.norm``."""
     if kind == "rmsnorm":
@@ -200,6 +206,11 @@ def init_gqa(gen: torch.Generator, d_model: int, num_heads: int,
         "wo": dense_init(gen, (*lead, num_heads, head_dim, d_model),
                          num_heads * head_dim, dtype),
     }
+
+
+#: logical sharding axes of ``init_gqa``'s params (the JAX package's)
+GQA_AXES = {"wq": ("embed", "heads", None), "wk": ("embed", "kv_heads", None),
+            "wv": ("embed", "kv_heads", None), "wo": ("heads", None, "embed")}
 
 
 @dataclasses.dataclass
@@ -334,6 +345,12 @@ def init_mlp(gen: torch.Generator, d_model: int, d_ff: int, activation: str,
     }
 
 
+def mlp_axes(activation: str) -> dict:
+    """Logical sharding axes of ``init_mlp``'s params."""
+    axes = {"wu": ("embed", "mlp"), "wd": ("mlp", "embed")}
+    return {"wg": ("embed", "mlp"), **axes} if activation in ("swiglu", "geglu") else axes
+
+
 def mlp(params: Params, x: torch.Tensor, activation: str) -> torch.Tensor:
     if activation == "swiglu":
         h = F.silu(_mm(x, params["wg"])) * _mm(x, params["wu"])
@@ -356,6 +373,12 @@ def init_embedding(gen: torch.Generator, vocab: int, d_model: int, tie: bool,
     if not tie:
         params["unembed"] = dense_init(gen, (d_model, vocab), d_model, dtype)
     return params
+
+
+def embedding_axes(tie: bool) -> dict:
+    """Logical sharding axes of ``init_embedding``'s params."""
+    axes = {"embedding": ("vocab", "embed")}
+    return axes if tie else {**axes, "unembed": ("embed", "vocab")}
 
 
 def embed(params: Params, tokens: torch.Tensor, scale_by_dim: bool = False) -> torch.Tensor:

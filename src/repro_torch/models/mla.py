@@ -52,6 +52,13 @@ def init_mla(gen: torch.Generator, d_model: int, num_heads: int, *,
     }
 
 
+#: logical sharding axes of ``init_mla``'s params (the JAX package's)
+MLA_AXES = {"w_dq": ("embed", None), "w_uq": (None, "heads", None),
+            "w_dkv": ("embed", None), "w_kpe": ("embed", None),
+            "w_uk": (None, "heads", None), "w_uv": (None, "heads", None),
+            "w_o": ("heads", None, "embed")}
+
+
 @dataclasses.dataclass
 class MLACache:
     """Latent KV cache, written in place like ``layers.KVCache``; ``index``

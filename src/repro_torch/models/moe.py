@@ -60,6 +60,23 @@ def init_moe(gen: torch.Generator, d_model: int, expert_d_ff: int,
     return params
 
 
+def moe_axes(num_shared: int, activation: str) -> dict:
+    """Logical sharding axes of ``init_moe``'s params: the experts' own
+    ``expert_embed`` and ``expert_mlp`` (the JAX package keeps FSDP off
+    the expert weights' embed dim, which its dispatch einsum contracts)."""
+    expert = ("experts", "expert_embed", "expert_mlp")
+    axes = {"router": ("embed", "experts"), "wu": expert,
+            "wd": ("experts", "expert_mlp", "expert_embed")}
+    gates = activation in ("swiglu", "geglu")
+    if gates:
+        axes["wg"] = expert
+    if num_shared:
+        axes.update(shared_wu=("embed", "mlp"), shared_wd=("mlp", "embed"))
+        if gates:
+            axes["shared_wg"] = ("embed", "mlp")
+    return axes
+
+
 def _gelu(a: torch.Tensor) -> torch.Tensor:
     return F.gelu(a, approximate="tanh")
 

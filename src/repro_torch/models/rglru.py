@@ -52,6 +52,14 @@ def init_rglru_block(gen: torch.Generator, d_model: int, lru_width: int,
     }
 
 
+#: logical sharding axes of ``init_rglru_block``'s params (the JAX package's)
+RGLRU_AXES = {"w_x": ("embed", "lru"), "w_gate": ("embed", "lru"),
+              "conv_w": (None, "lru"), "conv_b": ("lru",),
+              "w_rg": ("lru", None), "b_rg": ("lru",),
+              "w_ig": ("lru", None), "b_ig": ("lru",),
+              "lam": ("lru",), "w_out": ("lru", "embed")}
+
+
 @dataclasses.dataclass
 class RGLRUState:
     """Decode-time state: LRU hidden + conv tail window."""

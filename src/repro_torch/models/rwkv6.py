@@ -62,6 +62,16 @@ def init_rwkv_block(gen: torch.Generator, d_model: int, head_size: int,
     }
 
 
+#: logical sharding axes of ``init_rwkv_block``'s params (the JAX package's)
+RWKV_AXES = {"w_r": ("embed", "heads"), "w_k": ("embed", "heads"),
+             "w_v": ("embed", "heads"), "w_g": ("embed", "heads"),
+             "w_o": ("heads", "embed"),
+             "decay_base": (None,), "decay_a": ("embed", None), "decay_b": (None, "heads"),
+             "u": (None,), "mu": (None, None), "ts_a": ("embed", None), "ts_b": (None, None),
+             "ln_x_scale": (None,), "cm_k": ("embed", "mlp"), "cm_v": ("mlp", "embed"),
+             "cm_mu": (None,)}
+
+
 @dataclasses.dataclass
 class RWKVState:
     s: torch.Tensor                 # (B, H, K, V) wkv state

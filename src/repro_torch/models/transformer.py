@@ -79,11 +79,17 @@ def _lead_layers(cfg: ModelConfig) -> int:
     return cfg.moe.first_k_dense if (cfg.moe and cfg.moe.first_k_dense) else 0
 
 
-def _init_ffn(gen: torch.Generator, cfg: ModelConfig, layer_idx: int, lead=()):
-    """("moe", params) from layer ``first_k_dense`` on in an MoE config, else
-    ("mlp", params)."""
+def _uses_moe(cfg: ModelConfig, layer_idx: int) -> bool:
+    """Whether layer ``layer_idx`` takes the MoE FFN: from layer
+    ``first_k_dense`` on in an MoE config."""
     m = cfg.moe
-    if m is not None and m.num_experts > 0 and layer_idx >= _lead_layers(cfg):
+    return m is not None and m.num_experts > 0 and layer_idx >= _lead_layers(cfg)
+
+
+def _init_ffn(gen: torch.Generator, cfg: ModelConfig, layer_idx: int, lead=()):
+    """("moe", params) where ``_uses_moe``, else ("mlp", params)."""
+    m = cfg.moe
+    if _uses_moe(cfg, layer_idx):
         return "moe", MOE.init_moe(gen, cfg.d_model, m.expert_d_ff or cfg.d_ff,
                                    m.num_experts, m.num_shared_experts,
                                    cfg.activation, lead)
@@ -198,8 +204,8 @@ def init_model(cfg: ModelConfig, *, seed: int = 0,
                device: str | torch.device = "cuda") -> dict:
     """Random float32 weights with the JAX package's distributions, drawn
     from a ``torch.Generator`` seeded with ``seed`` on ``device``.  Returns
-    the params dict (the JAX package also returns logical sharding axes,
-    which the port does not use yet)."""
+    the params dict; its logical sharding axes, which the JAX package's
+    ``init_model`` returns beside it, are :func:`model_axes`."""
     _check_supported(cfg)
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
@@ -232,6 +238,54 @@ def init_model(cfg: ModelConfig, *, seed: int = 0,
         params["mtp_block"] = _init_layer(gen, cfg, cfg.block_pattern[-1], 10**6)
         params["mtp_norm"] = norm_init(cfg.d_model, (), dev)
     return params
+
+
+def _layer_axes(cfg: ModelConfig, kind: str, layer_idx: int) -> dict:
+    """The logical axes of ``_init_layer``'s params (without ``lead``)."""
+    axes: dict[str, Any] = {"norm1": L.norm_axes(cfg.norm)}
+    if kind in ATTN_KINDS:
+        axes["attn"] = dict(MLA.MLA_AXES if cfg.attention.kind == "mla" else L.GQA_AXES)
+    elif kind == "rglru":
+        axes["rglru"] = dict(RG.RGLRU_AXES)
+    else:
+        axes["rwkv"] = dict(RW.RWKV_AXES)
+        return axes
+    axes["norm2"] = L.norm_axes(cfg.norm)
+    if _uses_moe(cfg, layer_idx):
+        axes["moe"] = MOE.moe_axes(cfg.moe.num_shared_experts, cfg.activation)
+    else:
+        axes["mlp"] = L.mlp_axes(cfg.activation)
+    return axes
+
+
+def model_axes(cfg: ModelConfig) -> dict:
+    """The logical sharding axes of :func:`init_model`'s params: the same
+    nesting of dicts, tuples and lists, each tensor's place taken by a tuple
+    of logical axis names (``"embed"``, ``"heads"``, ...) or ``None``, one
+    per dimension, as the JAX package's ``init_model`` returns them.  The
+    stacked ``blocks`` lead with ``None`` for their ``n_groups`` axis.
+    ``launch/sharding.py`` maps them onto a mesh."""
+    _check_supported(cfg)
+    axes: dict[str, Any] = {"embed": L.embedding_axes(cfg.tie_embeddings)}
+    if cfg.modality.kind in ("vision_text", "audio_frames"):
+        axes["frontend_proj"] = (None, "embed")
+    n_groups, pattern, remainder = _pattern_split(cfg)
+    if n_groups > 0:
+        axes["blocks"] = tuple(
+            {k: {n: (None, *ax) for n, ax in sub.items()}
+             for k, sub in _layer_axes(cfg, kind, 10**6).items()}
+            for kind in pattern)
+    lead = _lead_layers(cfg)
+    if lead:
+        axes["lead"] = [_layer_axes(cfg, cfg.pattern_layers[i], i) for i in range(lead)]
+    if remainder:
+        axes["tail"] = [_layer_axes(cfg, kind, 10**6) for kind in remainder]
+    axes["final_norm"] = L.norm_axes(cfg.norm)
+    if cfg.mtp:
+        axes["mtp_proj"] = (None, "embed")
+        axes["mtp_block"] = _layer_axes(cfg, cfg.block_pattern[-1], 10**6)
+        axes["mtp_norm"] = L.norm_axes(cfg.norm)
+    return axes
 
 
 def _layer_cache(cfg: ModelConfig, kind: str, batch: int, context_len: int,

@@ -87,3 +87,30 @@ def train_rank(rank, world, device, spec):
         losses.append(float(m["loss"]))
     flat = {"/".join(p): t.detach().numpy() for p, t in leaves_with_path(state.params)}
     return {"losses": losses, "params": flat if rank == 0 else None}
+
+
+def sharding_rank(rank, world, device, arch, modes):
+    """Place ``arch``'s smoke params (seed 0, the same on every rank) on a
+    (2, 2) ``("data", "model")`` host mesh by the specs of each rule set in
+    ``modes``.  Returns, by mode, each leaf's spec, the shape of this rank's
+    local shard and that of the whole tensor, and whether ``full_tensor()``
+    gives the weights back bit for bit."""
+    from repro_torch.launch.mesh import make_host_mesh, rules_for
+    from repro_torch.launch.sharding import distribute, param_specs
+    from repro_torch.models import get_smoke_config, init_model, model_axes
+    from repro_torch.tree import leaves_with_path, tree_map
+
+    cfg = get_smoke_config(arch)
+    mesh = make_host_mesh(2, 2, device_type="cpu")
+    params = init_model(cfg, seed=0, device="cpu")
+    out = {}
+    for mode in modes:
+        specs = param_specs(mesh, rules_for(cfg, mode), model_axes(cfg), params)
+        placed = distribute(params, mesh, specs)
+        rows = []
+        tree_map(lambda p, s, d: rows.append(
+            (s, tuple(d.to_local().shape), tuple(p.shape),
+             torch.equal(d.full_tensor(), p))), params, specs, placed)
+        names = ["/".join(path) for path, _ in leaves_with_path(params)]
+        out[mode] = dict(zip(names, rows))
+    return out

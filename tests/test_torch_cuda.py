@@ -283,30 +283,146 @@ def test_wkv_scan_kernel_matches_plain_at_hard_decays(cuda_device, b, t, h, k):
         torch.testing.assert_close(got, want, rtol=0, atol=tol)
 
 
+GRAD_RTOL = 1e-4    # of max(1, max |grad|): the CPU block gradient tests' bound
+
+
+def _grad_close(got, want, what=""):
+    tol = GRAD_RTOL * max(1.0, want.abs().max().item())
+    torch.testing.assert_close(got, want, rtol=0, atol=tol, msg=what)
+
+
 @pytest.mark.requires_cuda
 @pytest.mark.parametrize("family", ["rglru", "rwkv"])
-def test_recurrent_block_backward_raises_on_the_card(cuda_device, family):
+def test_recurrent_block_gradients_match_plain_on_the_card(cuda_device, family):
     """A recurrent block trained on the card runs its scan kernel under
-    autograd, and the backward raises instead of going through the plain
-    version.  (On the CPU the blocks are differentiable:
+    autograd and the scan's backward kernel, and its gradients with respect
+    to every weight and the input match the same block through the plain
+    scan (fp32, 1e-4 of max(1, max |grad|)).  T = 40 is off the backward's
+    tiles and chunks.  (On the CPU the blocks are held to ``jax.grad``:
     ``test_torch_recurrent.py``.)"""
     from repro_torch.models import rglru, rwkv6
     gen = torch.Generator(device=cuda_device).manual_seed(0)
-    x = torch.randn(2, 8, 32, device=cuda_device, generator=gen)
+    x = torch.randn(2, 40, 64, device=cuda_device, generator=gen)
+    dy = torch.randn(2, 40, 64, device=cuda_device, generator=gen)
     if family == "rglru":
-        params = rglru.init_rglru_block(gen, 32, 32, 4)
-        block = lambda p: rglru.rglru_block(p, x, conv_width=4, mode="train")
+        params = rglru.init_rglru_block(gen, 64, 48, 4)
+        block = lambda p, x, impl: rglru.rglru_block(p, x, conv_width=4, impl=impl)
     else:
-        params = rwkv6.init_rwkv_block(gen, 32, 16, 8, 4)
-        block = lambda p: rwkv6.rwkv_block(p, x, head_size=16, mode="train")
-    for t in params.values():
-        t.requires_grad_()
+        params = rwkv6.init_rwkv_block(gen, 64, 16, 8, 4)
+        block = lambda p, x, impl: rwkv6.rwkv_block(p, x, head_size=16, impl=impl)
     kernel = "lru_scan" if family == "rglru" else "wkv_scan"
-    before = ops.launch_counts()[kernel]
-    y, _ = block(params)
-    assert ops.launch_counts()[kernel] == before + 1
-    with pytest.raises(NotImplementedError, match=kernel):
-        y.sum().backward()
+    names = sorted(params)
+    grads = {}
+    for impl in ("auto", "reference"):
+        leaves = [params[n].detach().clone().requires_grad_() for n in names]
+        xi = x.clone().requires_grad_()
+        before = ops.launch_counts()
+        y, _ = block(dict(zip(names, leaves)), xi, impl)
+        grads[impl] = torch.autograd.grad((y * dy).sum(), leaves + [xi])
+        torch.cuda.synchronize()
+        after = ops.launch_counts()
+        ran = {n: after[n] - before[n] for n in after}
+        want = {kernel: 1, f"{kernel}_bwd": 1} if impl == "auto" else {}
+        assert {n: c for n, c in ran.items() if c} == want
+    for n, a, b in zip(names + ["x"], grads["auto"], grads["reference"]):
+        _grad_close(a, b, n)
+
+
+def _lru_grad_inputs(b, t, w, seed, device):
+    z, x, h0, gh = _scan_inputs([(b, t, w), (b, t, w), (b, w), (b, t, w)], seed, device)
+    a = torch.exp(-8.0 * torch.sigmoid(z) * 0.05)
+    return a, x, h0, gh
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("b,t,w", [
+    (2, 512, 4096),                          # recurrentgemma-9b's training shape
+    (2, 2304, 4096),                         # its serving prompt
+    # the kernel's 128-step tiles and 16-step sub-chunks +-1, W - 3 (off the
+    # 32 channels a CTA and the 16-byte copies), T = 1, B = 1
+    (1, 129, 4093), (2, 127, 4096), (1, 17, 100), (3, 15, 37), (1, 1, 5), (2, 1, 4096),
+])
+@pytest.mark.parametrize("want_gh0", [True, False])
+def test_lru_scan_bwd_kernel_matches_plain(cuda_device, b, t, w, want_gh0):
+    """The backward kernel against autograd through the plain scan, from
+    the forward's own output: gx, ga and (when asked) gh0, fp32, 1e-4 of
+    max(1, max |grad|).  Through ``ops.lru_scan`` under autograd the forward
+    and backward kernels each launch once; two calls give the same bits."""
+    from repro_torch.kernels.lru_scan import lru_scan_bwd_cuda
+    a, x, h0, gh = _lru_grad_inputs(b, t, w, t + w, cuda_device)
+    ins = [a.requires_grad_(), x.requires_grad_(), h0.requires_grad_(want_gh0)]
+    want = torch.autograd.grad(ref.reference_lru_scan(*ins), [x, a] + ins[2:][:want_gh0], gh)
+    before = ops.launch_counts()
+    got = torch.autograd.grad(ops.lru_scan(*ins), [x, a] + ins[2:][:want_gh0], gh)
+    torch.cuda.synchronize()
+    after = ops.launch_counts()
+    assert (after["lru_scan"] - before["lru_scan"],
+            after["lru_scan_bwd"] - before["lru_scan_bwd"]) == (1, 1)
+    for name, g, r in zip(("gx", "ga", "gh0"), got, want):
+        _grad_close(g, r, name)
+    h = ref.reference_lru_scan(a.detach(), x.detach(), h0.detach()).contiguous()
+    first = lru_scan_bwd_cuda(a.detach(), h, h0.detach(), gh, want_gh0=want_gh0)
+    second = lru_scan_bwd_cuda(a.detach(), h, h0.detach(), gh, want_gh0=want_gh0)
+    assert (first[2] is None) == (not want_gh0)
+    for f, s in zip(first, second):
+        assert f is None or torch.equal(f, s)
+
+
+def _wkv_grad_inputs(b, t, h, k, hard, seed, device):
+    r, kk, v, dec, u, s0, gy, gs = _scan_inputs(
+        [(b, t, h, k)] * 4 + [(h, k), (b, h, k, k), (b, t, h, k), (b, h, k, k)],
+        seed, device)
+    if hard:
+        w = torch.exp(-torch.exp(torch.clamp(3.0 * dec, -9.0, 3.0)))
+        w[:, 2::5] = 1.0
+    else:
+        w = torch.exp(-torch.exp(dec - 3.0))
+    return [r, kk, v, w, 0.1 * u, s0], gy, gs
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("b,t,h,k,hard", [
+    (2, 512, 32, 64, False),                 # rwkv6-1.6b's training shape
+    (2, 512, 32, 64, True),
+    # every head size, T off the 16-step chunks, T = 1, B * H odd
+    (3, 37, 5, 32, False), (1, 77, 3, 32, True), (5, 19, 1, 16, True),
+    (2, 33, 7, 64, True), (1, 1, 2, 16, False), (2, 1, 3, 64, True), (1, 16, 2, 32, False),
+])
+@pytest.mark.parametrize("with_gs", [False, True])
+def test_wkv_scan_bwd_kernel_matches_plain(cuda_device, b, t, h, k, hard, with_gs):
+    """The backward kernel (from the forward kernel's per-chunk states)
+    against autograd through the plain recurrence: gradients of r, k, v, w,
+    u and s0 for the gradient of the output alone (training never reads
+    s_T) and with one of s_T too; the model's decays and the hard ones
+    (w down to exp(-e^3) ~ 2e-9, every fifth step's rows w = 1).  fp32, 1e-4
+    of max(1, max |grad|).  Each kernel launches once; two calls give the
+    same bits (no float atomics)."""
+    from repro_torch.kernels.wkv_scan import CHUNK, wkv_scan_bwd_cuda, wkv_scan_cuda
+    ins, gy, gs = _wkv_grad_inputs(b, t, h, k, hard, t * h + k, cuda_device)
+    ins = [x.requires_grad_() for x in ins]
+    cot = (gy, gs if with_gs else None)
+
+    def grads(out):        # at T = 1 without gs, w reaches neither output: zeros
+        outs = [o for o, c in zip(out, cot) if c is not None]
+        gs_ = torch.autograd.grad(outs, ins, [c for c in cot if c is not None],
+                                  allow_unused=True)
+        return [torch.zeros_like(x) if g is None else g for x, g in zip(ins, gs_)]
+    want = grads(ref.reference_wkv(*ins))
+    before = ops.launch_counts()
+    got = grads(ops.wkv_scan(*ins))
+    torch.cuda.synchronize()
+    after = ops.launch_counts()
+    assert (after["wkv_scan"] - before["wkv_scan"],
+            after["wkv_scan_bwd"] - before["wkv_scan_bwd"]) == (1, 1)
+    for name, g, r in zip(("gr", "gk", "gv", "gw", "gu", "gs0"), got, want):
+        _grad_close(g, r, name)
+    plain = [x.detach() for x in ins]
+    ckpt = torch.empty((b, h, -(-t // CHUNK), k, k), device=cuda_device)
+    wkv_scan_cuda(*plain, ckpt)
+    first = wkv_scan_bwd_cuda(*plain[:5], ckpt, gy, cot[1])
+    second = wkv_scan_bwd_cuda(*plain[:5], ckpt, gy, cot[1])
+    for f, s in zip(first, second):
+        assert torch.equal(f, s)
 
 
 @pytest.mark.requires_cuda

@@ -190,3 +190,49 @@ def test_sweep_lru_scan_rewrites_the_kernels_layout(layout):
     kept = dict(re.findall(r"constexpr int (k\w+) = (\d+);", src))
     assert sweep_lru_scan.LAYOUTS[0] == (int(kept["kTile"]), int(kept["kWarps"]),
                                          int(kept["kStages"]), 0)
+
+
+GRAD_TOL = 1e-4        # of max(1, max |grad|), the CPU block gradient tests' bound
+
+
+@pytest.mark.parametrize("b,t,w,lo,hi", [
+    (2, 37, 24, 0.3, 0.999),
+    (1, 1, 5, 0.3, 0.999),                  # T = 1: gh0 = a_0 gh_0
+    (2, 129, 16, 0.9, 0.999),               # the model's decays, past a 128-step tile
+    (1, 40, 8, 0.0, 1e-3),                  # a near 0: each h almost its x
+    (1, 40, 8, 0.999, 1.0),                 # a near 1: a running sum
+])
+def test_lru_scan_plain_backward_matches_autograd_and_jax(b, t, w, lo, hi):
+    """``ref.reference_lru_scan_bwd``, the reverse recurrence the backward
+    kernel runs (from the forward's a, h, h0 and the gradient of h), against
+    autograd through ``reference_lru_scan`` and ``jax.grad`` of the JAX
+    model's ``lru_scan_ref`` (an associative scan) on the same numpy inputs:
+    gx, ga and gh0, fp32, within 1e-4 of max(1, max |grad|)."""
+    from repro_torch.kernels import ref
+    a, x, h0 = _inputs(b, t, w, seed=t * w, lo=lo, hi=hi)
+    gh = np.random.default_rng(t).standard_normal((b, t, w)).astype(np.float32)
+    ta, tx, th0 = (torch.from_numpy(v).requires_grad_() for v in (a, x, h0))
+    h = ref.reference_lru_scan(ta, tx, th0)
+    auto = torch.autograd.grad(h, (tx, ta, th0), torch.from_numpy(gh))
+    got = ref.reference_lru_scan_bwd(ta.detach(), h.detach(), th0.detach(),
+                                     torch.from_numpy(gh))
+    jgrads = jax.grad(lambda a_, x_, h0_: (jax_model_scan(a_, x_, h0_) * gh).sum(),
+                      argnums=(1, 0, 2))(jnp.asarray(a), jnp.asarray(x), jnp.asarray(h0))
+    for name, g, want_auto, want_jax in zip(("gx", "ga", "gh0"), got, auto, jgrads):
+        for want in (want_auto.numpy(), np.asarray(want_jax)):
+            tol = GRAD_TOL * max(1.0, float(np.abs(want).max()))
+            np.testing.assert_allclose(g.numpy(), want, rtol=0, atol=tol, err_msg=name)
+
+
+def test_lru_scan_bwd_wrapper_refuses_what_its_kernel_does_not_take():
+    """The backward kernel's wrapper raises on CPU tensors (no fallback to
+    the plain version), on mismatched shapes and on other dtypes; the
+    kernel itself is checked on the card (``test_torch_cuda.py``)."""
+    from repro_torch.kernels.lru_scan import lru_scan_bwd_cuda
+    a, x, h0 = (torch.from_numpy(v) for v in _inputs(2, 9, 4, seed=3))
+    with pytest.raises(ValueError, match="CUDA"):
+        lru_scan_bwd_cuda(a, x, h0, x)
+    with pytest.raises(ValueError, match="want"):
+        lru_scan_bwd_cuda(a, x[:, :3], h0, x)
+    with pytest.raises(TypeError, match="float32"):
+        lru_scan_bwd_cuda(a.double(), x, h0, x)

@@ -24,9 +24,12 @@ import pytest
 import torch
 
 from _torch_model_parity import check_prefill_and_decode, converted_params
+from repro.configs.base import FSDP_TP_RULES as J_FSDP_TP_RULES
+from repro.configs.base import ShardingConfig as JShardingConfig
 from repro.models import get_config as jax_get_config
 from repro.models import get_smoke_config as jax_smoke
 from repro.models.registry import ARCHITECTURES as JAX_ARCHITECTURES
+from repro_torch.configs.base import FSDP_TP_RULES, ShardingConfig
 from repro_torch.data import make_batch
 from repro_torch.models import (apply_model, get_config, get_smoke_config,
                                 init_caches, init_model, list_architectures)
@@ -73,6 +76,10 @@ def test_configs_match_jax(arch):
         assert as_dict(ours) == as_dict(theirs)
         assert dataclasses.asdict(ours.comm) == dataclasses.asdict(theirs.comm)
         assert ours.param_count() == theirs.param_count()
+    # the logical-axis sharding rules (one copy each side, whatever the arch)
+    assert dataclasses.asdict(ShardingConfig()) == dataclasses.asdict(JShardingConfig())
+    assert ShardingConfig().lookup() == JShardingConfig().lookup()
+    assert FSDP_TP_RULES == J_FSDP_TP_RULES
 
 
 def test_registry_and_device_rules():

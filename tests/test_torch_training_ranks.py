@@ -12,6 +12,7 @@ import json
 
 import jax
 import numpy as np
+import pytest
 
 from _torch_model_parity import converted_params
 from _torch_ranks import train_rank
@@ -36,6 +37,21 @@ def test_r2ccl_sync_on_4_ranks_matches_jax():
     spec = _spec("smollm-360m", phases=[(0, "r2ccl", R2CCL)])
     out = ranks.run(train_rank, 4, "cpu", args=(spec,), timeout=600)
     jl, jparams = jax_losses_and_params("smollm-360m", steps=4, seq_len=16, batch=8)
+    for r in range(4):
+        assert max(abs(a - b) for a, b in zip(out[r]["losses"], jl)) <= TOL
+    ours = list(out[0]["params"].values())      # leaves in JAX order
+    assert len(ours) == len(jparams)
+    assert max(float(np.abs(a - b).max()) for a, b in zip(ours, jparams)) <= TOL
+
+
+@pytest.mark.parametrize("arch", ["rwkv6-1.6b", "recurrentgemma-9b"])
+def test_r2ccl_sync_on_4_ranks_matches_jax_recurrent(arch):
+    """The recurrent families trained data-parallel with ``sync="r2ccl"``
+    (degraded rank 1): losses and params after 4 steps against the JAX
+    package's ``sync="xla"`` training of the same smoke config."""
+    spec = _spec(arch, phases=[(0, "r2ccl", R2CCL)])
+    out = ranks.run(train_rank, 4, "cpu", args=(spec,), timeout=600)
+    jl, jparams = jax_losses_and_params(arch, steps=4, seq_len=16, batch=8)
     for r in range(4):
         assert max(abs(a - b) for a, b in zip(out[r]["losses"], jl)) <= TOL
     ours = list(out[0]["params"].values())      # leaves in JAX order

@@ -105,3 +105,73 @@ def test_wkv_scan_dispatch_and_gradient_on_cpu():
     want = jax.grad(jloss, argnums=tuple(range(6)))(*(jnp.asarray(t.numpy()) for t in ts))
     for g, j in zip(got, want):
         np.testing.assert_allclose(g.numpy(), np.asarray(j), atol=TOL, rtol=TOL)
+
+
+GRAD_TOL = 1e-4        # of max(1, max |grad|), the CPU block gradient tests' bound
+
+
+@pytest.mark.parametrize("b,t,h,k,decays,with_gs", [
+    (2, 37, 3, 8, "uniform", False),
+    (2, 37, 3, 8, "uniform", True),
+    (1, 1, 2, 16, "uniform", True),                 # T = 1
+    (2, 33, 2, 16, "hard", False),                  # off the kernel's 16-step chunks
+    (1, 20, 3, 8, "hard", True),
+])
+def test_wkv_plain_backward_matches_autograd_and_jax(b, t, h, k, decays, with_gs):
+    """``ref.reference_wkv_bwd``, the reverse walk the backward kernel runs
+    (from the forward's inputs, the gradient of its output and, or not,
+    that of its final state), against autograd through ``reference_wkv``
+    and ``jax.grad`` of the JAX model's ``wkv_scan_ref`` (a ``lax.scan``) on
+    the same numpy inputs, nonzero s0: the gradients of r, k, v, w, u and
+    s0, fp32, within 1e-4 of max(1, max |grad|).  ``hard``: the decays
+    ``test_wkv_scan_kernel_matches_plain_at_hard_decays`` uses on the card,
+    w = exp(-exp(dec)) with dec up to +3 (w down to ~2e-9) and every fifth
+    step's rows w = 1."""
+    from repro_torch.kernels import ref
+    r, kk, v, w, u = _inputs((b, t, h, k), k, (h, k), seed=t * h + k)
+    rng = np.random.default_rng(t)
+    if decays == "hard":
+        dec = np.clip(3.0 * rng.standard_normal((b, t, h, k)), -9.0, 3.0)
+        w = np.exp(-np.exp(dec)).astype(np.float32)
+        w[:, 2::5] = 1.0
+    s0 = (rng.standard_normal((b, h, k, k)) * 0.5).astype(np.float32)
+    gy = rng.standard_normal((b, t, h, k)).astype(np.float32)
+    gs = rng.standard_normal((b, h, k, k)).astype(np.float32) if with_gs else None
+    ins = [torch.from_numpy(a).requires_grad_() for a in (r, kk, v, w, u, s0)]
+    out, s_t = ref.reference_wkv(*ins)
+    loss = (out * torch.from_numpy(gy)).sum()
+    if with_gs:
+        loss = loss + (s_t * torch.from_numpy(gs)).sum()
+    auto = torch.autograd.grad(loss, ins)
+    got = ref.reference_wkv_bwd(*(x.detach() for x in ins), torch.from_numpy(gy),
+                                None if gs is None else torch.from_numpy(gs))
+
+    def jloss(*args):
+        o, s = jax_model_scan(*args)
+        return (o * gy).sum() + ((s * gs).sum() if with_gs else 0.0)
+    jgrads = jax.grad(jloss, argnums=tuple(range(6)))(
+        *(jnp.asarray(a) for a in (r, kk, v, w, u, s0)))
+    for name, g, want_auto, want_jax in zip(("gr", "gk", "gv", "gw", "gu", "gs0"),
+                                            got, auto, jgrads):
+        for want in (want_auto.numpy(), np.asarray(want_jax)):
+            tol = GRAD_TOL * max(1.0, float(np.abs(want).max()))
+            np.testing.assert_allclose(g.numpy(), want, rtol=0, atol=tol, err_msg=name)
+
+
+def test_wkv_scan_bwd_wrapper_refuses_what_its_kernel_does_not_take():
+    """The backward kernel's wrapper raises on CPU tensors (no fallback),
+    without the forward's per-chunk states, on a checkpoint of the wrong
+    shape and on a head size with no kernel instantiation."""
+    from repro_torch.kernels.wkv_scan import CHUNK, wkv_scan_bwd_cuda
+    B, T, H, K = 1, 20, 2, 16
+    r, k, v, w, u = (torch.from_numpy(a) for a in _inputs((B, T, H, K), K, (H, K), seed=5))
+    ckpt = torch.zeros(B, H, -(-T // CHUNK), K, K)
+    with pytest.raises(ValueError, match="CUDA"):
+        wkv_scan_bwd_cuda(r, k, v, w, u, ckpt, v)
+    with pytest.raises(ValueError, match="ckpt"):
+        wkv_scan_bwd_cuda(r, k, v, w, u, None, v)
+    with pytest.raises(ValueError, match="ckpt"):
+        wkv_scan_bwd_cuda(r, k, v, w, u, ckpt[:, :, :1], v)
+    r8, k8, v8, w8, u8 = (torch.from_numpy(a) for a in _inputs((B, T, H, 8), 8, (H, 8), seed=5))
+    with pytest.raises(ValueError, match="head sizes"):
+        wkv_scan_bwd_cuda(r8, k8, v8, w8, u8, ckpt[..., :8, :8].contiguous(), v8)
