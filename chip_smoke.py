@@ -1247,8 +1247,8 @@ def check_lru_scan_bwd(gen) -> dict:
 
 def check_wkv_scan_bwd(gen) -> dict:
     from repro_torch.kernels import ref
-    from repro_torch.kernels.wkv_scan import CHUNK, wkv_scan_bwd_cuda, wkv_scan_cuda
-    from repro_torch.launch.profile_kernels import device_ms
+    from repro_torch.kernels.wkv_scan import CHUNK, bwd_cluster, wkv_scan_bwd_cuda, wkv_scan_cuda
+    from repro_torch.launch.profile_kernels import device_profile
 
     def inputs(B, T, H, K, hard):
         """As check_wkv_scan's, plus the gradients of out and s_T."""
@@ -1317,7 +1317,23 @@ def check_wkv_scan_bwd(gen) -> dict:
     t_kernel = time_ms(run)
     t_plain = time_ms(plain, iters=3, warmup=1)
     t_kernel2 = time_ms(run)
-    dev = sum(device_ms(run).values()) or None
+    prof = device_profile(run)
+    dev = sum(v["ms"] for v in prof.values()) or None
+    kernels = {n: v for n, v in prof.items() if "memset" not in n.lower()}
+    log("kernels", f"wkv_scan_bwd training shape, per call (torch.profiler): "
+        f"{sum(v['launches'] for v in kernels.values()):g} kernel launch(es), "
+        + "; ".join(f"{n}: {v['launches']:g} x {v['ms']:.4f} ms" for n, v in prof.items()))
+    # a model of the traffic, from the design (no counter reads it): each
+    # of the P CTAs of a (b, h)'s cluster stages whole rows of r, k and w
+    # (through L2; from device memory once) and its columns' slices of v
+    # and gy, reads the checkpoints once and u (H, K) a CTA, and writes each
+    # gradient once and its part of gu to the scratch (P, B, H, K), which
+    # the last CTA of a head reads back
+    n, P, nch = B * T * H * K, bwd_cluster(K), -(-T // CHUNK)
+    ck_f, part_f = B * H * nch * K * K, P * B * H * K
+    model = dict(read_once=4 * (5 * n + ck_f + H * K + part_f),
+                 read_through_l2=4 * ((3 * P + 2) * n + ck_f + 2 * part_f),
+                 written=4 * (4 * n + H * K + part_f))
     V = K
     # what the function needs per (b, t, h): the states again (S <- w S +
     # k^T v, 3KV), the adjoint's update (3KV), and the sums gr, gk, gv, gw
@@ -1332,12 +1348,19 @@ def check_wkv_scan_bwd(gen) -> dict:
         f"ms, bound {bound:.4f} ms ({bound_by}: {flops / 1e9:.2f} GFLOP -> "
         f"{t_ops * 1e3:.4f} ms, {nbytes / 1e6:.1f} MB -> {t_bytes * 1e3:.4f} ms), "
         f"{bound / min(t_kernel, t_kernel2):.1%} of it; library: none ({NO_LIBRARY}); "
-        f"worst case err {worst:.3e}; device time per call (torch.profiler, both "
-        f"launches) {fmt_ms(dev)}")
+        f"worst case err {worst:.3e}; device time per call (torch.profiler, every "
+        f"launch) {fmt_ms(dev)}")
+    log("kernels", f"wkv_scan_bwd training shape, modelled traffic (an estimate from the "
+        f"design, not measured): read {model['read_once'] / 1e6:.1f} MB once "
+        f"({model['read_through_l2'] / 1e6:.1f} MB through L2), written "
+        f"{model['written'] / 1e6:.1f} MB, against the function's {nbytes / 1e6:.1f} MB "
+        f"(the checkpoints, {4 * ck_f / 1e6:.1f} MB, are the replay's)")
     return dict(name="wkv_scan_bwd", **KERNELS["wkv_scan_bwd"], launches=0,
                 max_abs_err=train_err[0], max_rel_err=train_err[1],
                 ms=min(t_kernel, t_kernel2), plain_ms=t_plain, bound_ms=bound,
-                bound_by=bound_by, library_ms=None, library_note=NO_LIBRARY, device_ms=dev)
+                bound_by=bound_by, library_ms=None, library_note=NO_LIBRARY, device_ms=dev,
+                device_launches={n: v["launches"] for n, v in prof.items()},
+                device_ms_by_launch={n: v["ms"] for n, v in prof.items()})
 
 
 @contextlib.contextmanager

@@ -24,7 +24,6 @@ _ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
 _BWD_ARGTYPES = [ctypes.c_void_p] * 16 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
 HEAD_SIZES = (16, 32, 64)      # K = V, one kernel instantiation each
 CHUNK = 16                     # steps between checkpoints (both kernels' kChunk)
-COLS = 16                      # state columns a backward CTA sums over (kCols)
 
 
 def _check(what: str, r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -91,14 +90,16 @@ def wkv_scan_bwd_cuda(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       w: torch.Tensor, u: torch.Tensor, ckpt: torch.Tensor,
                       gy: torch.Tensor, gs_t: torch.Tensor | None = None, *,
                       want_gs0: bool = True) -> tuple[torch.Tensor | None, ...]:
-    """Launch the backward kernel (and its pass that sums the partials) on
-    r's device and PyTorch's current stream.
+    """Launch the backward kernel on r's device and PyTorch's current
+    stream: one launch, a cluster of :func:`bwd_cluster` CTAs a (b, h).
 
     r, k, v, w, u as :func:`wkv_scan_cuda`; ``ckpt`` the states that the
     forward wrote; gy (B, T, H, K) the gradient of its output and ``gs_t``
     (B, H, K, K) that of its final state, or None (zeros).  Returns (gr, gk,
-    gv, gw, gu, gs0), float32, gs0 None unless ``want_gs0``.  Raises on
-    anything else and when a launch is refused.
+    gv, gw, gu, gs0), float32, gs0 None unless ``want_gs0``.  Besides the
+    outputs it allocates a scratch of ``bwd_cluster(K) * B * H * K``
+    floats (u's gradient before its sum over b) and ``H`` ints.  Raises on
+    anything else and when the launch is refused.
     ``wkv_scan_bwd_cuda.launches`` counts calls.
     """
     if ckpt is None:
@@ -109,9 +110,8 @@ def wkv_scan_bwd_cuda(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     gr, gk, gv, gw = (torch.empty_like(r) for _ in range(4))
     gu = torch.empty_like(u)
     gs0 = torch.empty((B, H, K, K), device=r.device) if want_gs0 else None
-    parts = K // COLS
-    part = torch.empty((3, parts) + tuple(r.shape), device=r.device)
-    gu_part = torch.empty((parts, B, H, K), device=r.device)
+    gu_part = torch.empty((bwd_cluster(K), B, H, K), device=r.device)
+    ticket = torch.empty((H,), dtype=torch.int32, device=r.device)
     fn = entry("wkv_scan_bwd", "repro_wkv_scan_bwd", _BWD_ARGTYPES)
     with torch.cuda.device(r.device):
         stream = torch.cuda.current_stream(r.device).cuda_stream
@@ -119,8 +119,8 @@ def wkv_scan_bwd_cuda(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  ckpt.data_ptr(), gy.data_ptr(),
                  None if gs_t is None else gs_t.data_ptr(), gr.data_ptr(),
                  gk.data_ptr(), gv.data_ptr(), gw.data_ptr(), gu.data_ptr(),
-                 None if gs0 is None else gs0.data_ptr(), part.data_ptr(),
-                 gu_part.data_ptr(), B, T, H, K, stream)
+                 None if gs0 is None else gs0.data_ptr(), gu_part.data_ptr(),
+                 ticket.data_ptr(), B, T, H, K, stream)
     if err != 0:
         raise RuntimeError(f"wkv_scan_bwd kernel launch failed: cudaError_t {err}")
     wkv_scan_bwd_cuda.launches += 1
@@ -128,6 +128,13 @@ def wkv_scan_bwd_cuda(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 wkv_scan_bwd_cuda.launches = 0
+
+
+def bwd_cluster(K: int) -> int:
+    """The CTAs of a (b, h)'s cluster in the backward kernel at head size
+    ``K`` in ``HEAD_SIZES``, as the built kernel reports it (its columns a
+    CTA are its own choice): the first dimension of u's gradient scratch."""
+    return entry("wkv_scan_bwd", "repro_wkv_scan_bwd_cluster", [ctypes.c_int])(K)
 
 
 class WKVScan(torch.autograd.Function):

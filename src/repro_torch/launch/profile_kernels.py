@@ -46,6 +46,7 @@ LOCAL_ATTN_SHAPE, LOCAL_WINDOW = (2, 2304, 2304, 1, 16, 256), 2048
 PAPER_7B_SHAPE = (2, 256, 256, 32, 1, 128)
 LARGEST_MERGE = (3, 13426888)
 WKV_SHAPE = (4, 512, 32, 64)
+WKV_TRAIN = (2, 512, 32, 64)
 LRU_SHAPE = (2, 2304, 4096)
 
 
@@ -68,8 +69,9 @@ def events_ms(fn, iters: int = 20, warmup: int = 3) -> float:
 MARKERS = 4
 
 
-def device_ms(fn, calls: int = 10) -> dict[str, float]:
-    """Mean device ms per call of each kernel ``fn`` launches, by name."""
+def device_profile(fn, calls: int = 10) -> dict[str, dict]:
+    """Per kernel (or memset) that ``fn`` launches, by name: its device ms
+    and its launches, each per call."""
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -84,8 +86,13 @@ def device_ms(fn, calls: int = 10) -> dict[str, float]:
         if us is None:
             us = getattr(e, "self_cuda_time_total", 0.0)
         if us > 0 and "spin_kernel" not in e.key:
-            out[e.key[:80]] = us / calls / 1e3
+            out[e.key[:80]] = dict(ms=us / calls / 1e3, launches=e.count / calls)
     return out
+
+
+def device_ms(fn, calls: int = 10) -> dict[str, float]:
+    """Mean device ms per call of each kernel ``fn`` launches, by name."""
+    return {name: v["ms"] for name, v in device_profile(fn, calls).items()}
 
 
 def host_ms(fn, calls: int = 20) -> float:
@@ -158,6 +165,20 @@ def wkv_scan(gen) -> dict:
     return dict(shape=WKV_SHAPE, kernel=three_ways(kernel), kernel_again=events_ms(kernel))
 
 
+def wkv_scan_bwd(gen) -> dict:
+    from repro_torch.kernels.wkv_scan import CHUNK, wkv_scan_bwd_cuda, wkv_scan_cuda
+    B, T, H, K = WKV_TRAIN
+    r, k, v, gy = (torch.randn(B, T, H, K, device="cuda", generator=gen) for _ in range(4))
+    w = torch.exp(-torch.exp(-6.0 + 2.0 * torch.randn(B, T, H, K, device="cuda",
+                                                      generator=gen)))
+    u = 0.1 * torch.randn(H, K, device="cuda", generator=gen)
+    s0 = torch.randn(B, H, K, K, device="cuda", generator=gen)
+    ckpt = torch.empty((B, H, -(-T // CHUNK), K, K), device="cuda")
+    wkv_scan_cuda(r, k, v, w, u, s0, ckpt)
+    kernel = lambda: wkv_scan_bwd_cuda(r, k, v, w, u, ckpt, gy, None, want_gs0=False)
+    return dict(shape=WKV_TRAIN, kernel=three_ways(kernel), kernel_again=events_ms(kernel))
+
+
 def lru_scan(gen) -> dict:
     from repro_torch.kernels.lru_scan import lru_scan_cuda
     B, T, W = LRU_SHAPE
@@ -226,7 +247,8 @@ def main(argv=None) -> dict:
                lru_scan=lru_scan(gen),
                backward_train=attention_backward(TRAIN_SHAPE, torch.float32, gen),
                backward_paper_7b=attention_backward(PAPER_7B_SHAPE, torch.bfloat16, gen),
-               chunk_combine=chunk_combine(gen))
+               chunk_combine=chunk_combine(gen),
+               wkv_scan_bwd=wkv_scan_bwd(gen))    # last: the rows above draw what they drew
     print(json.dumps(res))
     return res
 

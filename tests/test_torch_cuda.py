@@ -387,6 +387,11 @@ def _wkv_grad_inputs(b, t, h, k, hard, seed, device):
     # every head size, T off the 16-step chunks, T = 1, B * H odd
     (3, 37, 5, 32, False), (1, 77, 3, 32, True), (5, 19, 1, 16, True),
     (2, 33, 7, 64, True), (1, 1, 2, 16, False), (2, 1, 3, 64, True), (1, 16, 2, 32, False),
+    # each head size's cluster (K / min(32, K) CTAs: 1, 1, 2) with B = 1 and
+    # B = 3, u's gradient summed over b; a B * H far below a wave (one
+    # cluster, 14)
+    (1, 40, 3, 16, True), (3, 40, 3, 16, False), (1, 40, 3, 32, False), (3, 40, 3, 32, True),
+    (1, 40, 3, 64, True), (3, 40, 3, 64, False), (1, 300, 1, 64, False), (2, 100, 7, 64, True),
 ])
 @pytest.mark.parametrize("with_gs", [False, True])
 def test_wkv_scan_bwd_kernel_matches_plain(cuda_device, b, t, h, k, hard, with_gs):
@@ -423,6 +428,30 @@ def test_wkv_scan_bwd_kernel_matches_plain(cuda_device, b, t, h, k, hard, with_g
     second = wkv_scan_bwd_cuda(*plain[:5], ckpt, gy, cot[1])
     for f, s in zip(first, second):
         assert torch.equal(f, s)
+
+
+@pytest.mark.requires_cuda
+def test_wkv_scan_bwd_allocates_only_its_outputs_and_a_small_scratch(cuda_device):
+    """At rwkv6-1.6b's training shape the backward's peak memory above its
+    inputs is its outputs (gr, gk, gv, gw, gu) plus a scratch of B * H * K
+    scale (u's gradient before its sum over b, and H integer tickets): the
+    sums over the cluster's columns stay on chip, with no (3, K / 16, B, T,
+    H, K) partials (100.7 MB here)."""
+    from repro_torch.kernels.wkv_scan import CHUNK, wkv_scan_bwd_cuda, wkv_scan_cuda
+    b, t, h, k = 2, 512, 32, 64
+    ins, gy, _ = _wkv_grad_inputs(b, t, h, k, False, 0, cuda_device)
+    ckpt = torch.empty((b, h, -(-t // CHUNK), k, k), device=cuda_device)
+    wkv_scan_cuda(*ins, ckpt)
+    wkv_scan_bwd_cuda(*ins[:5], ckpt, gy, None, want_gs0=False)    # built and loaded
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    outs = wkv_scan_bwd_cuda(*ins[:5], ckpt, gy, None, want_gs0=False)
+    torch.cuda.synchronize()
+    extra = torch.cuda.max_memory_allocated() - base
+    out_bytes = sum(o.numel() * o.element_size() for o in outs if o is not None)
+    assert out_bytes == 4 * (4 * b * t * h * k + h * k)
+    assert extra - out_bytes <= 4 * 8 * b * h * k, (extra, out_bytes)
 
 
 @pytest.mark.requires_cuda

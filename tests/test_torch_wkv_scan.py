@@ -11,7 +11,12 @@ and s_T are held to the model's scan.  On the CPU ``ops.wkv_scan`` takes
 the kernel's plain version; the CUDA kernel itself is checked against it in
 ``test_torch_cuda.py``.  Tolerance: fp32 atol and rtol 1e-5 (the JAX
 test's): each output sums K products, in another order in each framework.
+The backward kernel's layout sweep (``launch/sweep_wkv_scan_bwd.py``) is
+checked here for what it can be on the CPU: the sources it builds.
 """
+
+import re
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -23,6 +28,7 @@ from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro.models.rwkv6 import wkv_scan_ref as jax_model_scan
 from repro_torch.kernels import ops
+from repro_torch.launch import sweep_wkv_scan_bwd
 
 TOL = 1e-5
 
@@ -175,3 +181,44 @@ def test_wkv_scan_bwd_wrapper_refuses_what_its_kernel_does_not_take():
     r8, k8, v8, w8, u8 = (torch.from_numpy(a) for a in _inputs((B, T, H, 8), 8, (H, 8), seed=5))
     with pytest.raises(ValueError, match="head sizes"):
         wkv_scan_bwd_cuda(r8, k8, v8, w8, u8, ckpt[..., :8, :8].contiguous(), v8)
+
+
+_CSRC = Path(__file__).resolve().parents[1] / "src/repro_torch/kernels/csrc"
+_CONSTS = ("kCols", "kCpt", "kSteps", "kHist", "kExch", "kMinBlocks")
+
+
+@pytest.mark.parametrize("layout", sweep_wkv_scan_bwd.LAYOUTS,
+                         ids=lambda l: "_".join(map(str, l)))
+def test_sweep_wkv_scan_bwd_rewrites_the_kernels_layout(layout):
+    """Each layout the sweep times is the backward kernel's source with its
+    columns a CTA and a thread, steps a reduction, states held, chunks an
+    exchange and CTAs an SM replaced; the first is the kernel as committed."""
+    consts = dict(re.findall(r"constexpr int (k\w+) = (\d+);",
+                             sweep_wkv_scan_bwd.variant_source(*layout)))
+    assert tuple(int(consts[n]) for n in _CONSTS) == layout
+    kept = dict(re.findall(r"constexpr int (k\w+) = (\d+);",
+                           (_CSRC / "wkv_scan_bwd.cu").read_text()))
+    assert sweep_wkv_scan_bwd.LAYOUTS[0] == tuple(int(kept[n]) for n in _CONSTS)
+
+
+@pytest.mark.parametrize("ablation", sorted(sweep_wkv_scan_bwd.ABLATIONS))
+def test_sweep_wkv_scan_bwd_ablations_cut_their_stage(ablation, tmp_path, monkeypatch):
+    """An ablation replaces its stage's text everywhere it occurs in the
+    source, beside the layout's constants, and the sweep refuses a source
+    that lacks the text.  Held on a stand-in source, not the kernel's own
+    text, which the ablations need only on the card."""
+    from repro_torch.kernels import build
+    monkeypatch.setattr(build, "CSRC", tmp_path)
+    consts = "".join(f"constexpr int {n} = 1;\n" for n in _CONSTS)
+    src = tmp_path / "wkv_scan_bwd.cu"
+    src.write_text(consts)
+    first = sweep_wkv_scan_bwd.ABLATIONS[ablation][0][0]
+    with pytest.raises(RuntimeError, match=re.escape(repr(first))):
+        sweep_wkv_scan_bwd.variant_source(*sweep_wkv_scan_bwd.LAYOUTS[0], ablation)
+    src.write_text(consts + "".join(f"{old} a;\n{old} b;\n"
+                                    for old, _ in sweep_wkv_scan_bwd.ABLATIONS[ablation]))
+    cut = sweep_wkv_scan_bwd.variant_source(*sweep_wkv_scan_bwd.LAYOUTS[0], ablation)
+    for old, new in sweep_wkv_scan_bwd.ABLATIONS[ablation]:
+        assert f"{new} a;\n" in cut and f"{new} b;\n" in cut
+    assert dict(re.findall(r"constexpr int (k\w+) = (\d+);", cut)) == {
+        n: str(x) for n, x in zip(_CONSTS, sweep_wkv_scan_bwd.LAYOUTS[0])}
