@@ -20,6 +20,18 @@ Phases, each printing its own lines and seconds, and raising on failure
                step 4; tokens must be identical, launch counts are read around
                the two runs, and prefill logits through the kernel are held
                against the plain attention on the card;
+ 4b. roofline — the dry run (``launch/dryrun.py``: the step counted on the
+               meta device by the kernels' formulas, ``cost_analysis`` at the
+               datasheet peaks) against the card: smollm-360m's serve
+               prefill and one training rank's step run under
+               FlopCounterMode with the kernels live count exactly the meta
+               run's FLOPs and launches; TTFT and the step time read at most
+               1.05x their bounds; the bytes init_model, init_caches and
+               the batch request equal the predicted argument bytes
+               (memory_allocated's gain printed beside them, with the
+               allocator's rounding); then the bounds of every
+               configuration served or trained here.  Every serve phase
+               prints its TTFT and TPOT as a share of the dry run's bound;
   5. serve_recurrentgemma — the same for full-width recurrentgemma-9b (38
                layers, 9.4B fp32 params): 2 requests of 2304-token prompts, more
                than the 2048-token local-attention window, so prefill wraps the
@@ -118,17 +130,12 @@ import torch
 REPO = Path(__file__).resolve().parent
 SRC = REPO / "src"
 
-# H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit).  An
-# attention kernel's least time counts its products at the tensor cores'
-# rate for work of its accuracy: fp32-accurate as 3xTF32 (three TF32
-# products per product at 495 TFLOP/s), bf16 at 989 TFLOP/s.  The fp32
-# CUDA-core rate, the attention yardstick before the backward moved to the
-# tensor cores, is printed beside it; the scans' work is no matrix product
-# and keeps it.
-PEAK_FLOPS = {torch.float32: (495e12 / 3, "3xTF32 on the tensor cores at 495/3 TFLOP/s"),
-              torch.bfloat16: (989e12, "bf16 tensor cores at 989 TFLOP/s")}
-PEAK_FP32_CUDA_CORES = 67e12
-PEAK_BYTES = 3.35e12
+# Every bound below is a kernel's FLOP and byte formula in
+# ``repro_torch.launch.cost_analysis`` at the H100 SXM's datasheet peaks
+# there (``H100_SXM``): an attention kernel's products at the tensor cores'
+# rate for work of its accuracy (fp32-accurate as 3xTF32, bf16 at the bf16
+# rate), with the fp32 CUDA-core rate printed beside it; the scans' work is
+# no matrix product and takes the CUDA cores' rate.
 
 #: kernels of the main paths: wrapper count key (and csrc/<key>.cu) ->
 #: where it lives / which TPU kernel it replaces
@@ -374,47 +381,36 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def attention_bound(q, k, ref, kw, backward: bool = False) -> dict:
-    """Least time for the work: each input read once and each output written
-    once at the memory rate, against the matmul operations that this mask
-    leaves at the tensor cores' peak for the dtype (``PEAK_FLOPS``), with the
-    peak named; for fp32 also the same at the CUDA cores' 67 TFLOP/s.
-    Forward: q, k, v in and o out, 4 * D operations per visible (query,
-    key) pair and query head.  Backward: q, k, v, o, dO and the fp32 row lse
-    in, dq, dk, dv out, and five products of 2 * D per visible pair instead
-    of two (2.5x the forward's)."""
-    B, Tq, KVH, G, D = q.shape
-    Tk = k.shape[1]
-    mask = ref.attention_mask(
-        kw.get("q_offset", 0) + torch.arange(Tq), torch.arange(Tk),
-        causal=kw.get("causal", True), window=kw.get("window"),
-        prefix_len=kw.get("prefix_len"), k_valid_len=kw.get("k_valid_len"),
-        k_len=Tk)
-    # (a mask without causal or window terms comes back (1, Tk): broadcast)
-    flops = 4.0 * D * int(mask.expand(Tq, Tk).sum()) * B * KVH * G
-    nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size()
+def attention_bound(q, k, kw, backward: bool = False) -> dict:
+    """Least time for the work, by the flash kernels' formulas
+    (``cost_analysis.flash_fwd_cost``, ``flash_bwd_cost``: the visible
+    (query, key) pairs of this mask, in closed form): the larger of the
+    products at the tensor cores' peak for the dtype and the bytes (each
+    input read once, each output written once) at the memory rate, with
+    the peak named; for fp32 also the same at the CUDA cores' rate."""
+    from repro_torch.launch import cost_analysis as CA
+    mask = dict(causal=kw.get("causal", True), window=kw.get("window"),
+                prefix_len=kw.get("prefix_len"))
     if backward:
-        flops *= 2.5
-        nbytes = (4 * q.numel() + 4 * k.numel()) * q.element_size() \
-            + B * Tq * KVH * G * 4
-    peak, peak_name = PEAK_FLOPS[q.dtype]
-    t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
-    out = dict(bound_ms=max(t_ops, t_bytes) * 1e3,
-               bound_by="operations" if t_ops >= t_bytes else "bytes",
-               bound_peak=peak_name, ops_ms=t_ops * 1e3, bytes_ms=t_bytes * 1e3,
-               gflop=flops / 1e9, mbytes=nbytes / 1e6)
+        cost = CA.flash_bwd_cost(q.shape, k.shape, q.dtype, **mask)
+    else:
+        cost = CA.flash_fwd_cost(q.shape, k.shape, q.dtype, q_offset=kw.get("q_offset", 0),
+                                 k_valid_len=kw.get("k_valid_len"), **mask)
+    out = cost.bound()
     if q.dtype == torch.float32:
-        out["bound_ms_fp32_cuda_cores"] = max(flops / PEAK_FP32_CUDA_CORES, t_bytes) * 1e3
+        out["bound_ms_fp32_cuda_cores"] = dataclasses.replace(cost, peak="fp32").bound()[
+            "bound_ms"]
     return out
 
 
 def bound_text(b: dict) -> str:
+    from repro_torch.launch.cost_analysis import H100_SXM
     text = (f"bound {b['bound_ms']:.4f} ms ({b['bound_by']}; {b['gflop']:.3f} GFLOP, "
-            f"{b['bound_peak']}: {b['ops_ms']:.4f} ms; {b['mbytes']:.1f} MB at 3.35 TB/s: "
-            f"{b['bytes_ms']:.4f} ms)")
+            f"{b['bound_peak']}: {b['ops_ms']:.4f} ms; {b['mbytes']:.1f} MB at "
+            f"{H100_SXM.hbm_bw / 1e12:g} TB/s: {b['bytes_ms']:.4f} ms)")
     if "bound_ms_fp32_cuda_cores" in b:
-        text += (f", fp32 on the CUDA cores at 67 TFLOP/s "
-                 f"{b['bound_ms_fp32_cuda_cores']:.4f} ms")
+        text += (f", fp32 on the CUDA cores at {H100_SXM.peak_flops['fp32'] / 1e12:g} "
+                 f"TFLOP/s {b['bound_ms_fp32_cuda_cores']:.4f} ms")
     return text
 
 
@@ -573,7 +569,7 @@ def time_forward(q, k, v, ref, flash_attention_cuda, kw, iters, plain_iters=None
     dev = sum(device_ms(kernel).values()) or None
     lib_dev = sum(device_ms(library).values()) or None
     return dict(ms=min(t_kernel, t_kernel2), ms_again=max(t_kernel, t_kernel2),
-                plain_ms=t_plain, **attention_bound(q, k, ref, kw), library_ms=t_lib,
+                plain_ms=t_plain, **attention_bound(q, k, kw), library_ms=t_lib,
                 library_err=lib_err, device_ms=dev, library_device_ms=lib_dev)
 
 
@@ -678,7 +674,7 @@ def time_gemma2_attention(gen, ref, flash_attention_cuda) -> dict:
     t_lib = time_ms(library, iters=10)
     t_kernel2 = time_ms(kernel, iters=10)
     t = dict(ms=min(t_kernel, t_kernel2), ms_again=max(t_kernel, t_kernel2),
-             plain_ms=t_plain, **attention_bound(q, k, ref, kw), library_ms=t_lib,
+             plain_ms=t_plain, **attention_bound(q, k, kw), library_ms=t_lib,
              library_err=lib_err, library_note="flex_attention, torch.compile",
              device_ms=sum(device_ms(kernel).values()) or None,
              library_device_ms=sum(device_ms(library).values()) or None)
@@ -852,7 +848,7 @@ def time_backward(inputs, kw, kernel, ref) -> dict:
     t_kernel2 = time_ms(bwd, iters=10)
     passes = {bwd_pass(n): t for n, t in device_ms(bwd).items()}
     return dict(ms=min(t_kernel, t_kernel2), ms_again=max(t_kernel, t_kernel2),
-                plain_ms=t_plain, **attention_bound(q, k, ref, kw, backward=True),
+                plain_ms=t_plain, **attention_bound(q, k, kw, backward=True),
                 library_ms=t_lib, passes_ms=passes,
                 library_device_ms=sum(device_ms(library).values()) or None)
 
@@ -925,6 +921,7 @@ def check_chunk_combine(gen) -> dict:
     from repro_torch.core.collectives import VEC_BYTES, StagingBuffers
     from repro_torch.kernels import ref
     from repro_torch.kernels.chunk_combine import chunk_combine_cuda
+    from repro_torch.launch import cost_analysis as CA
     from repro_torch.launch.profile_kernels import device_ms, host_ms
 
     def rand(n, dtype, offset=0):
@@ -979,7 +976,7 @@ def check_chunk_combine(gen) -> dict:
     t_lib = time_ms(lambda: torch.add(local, recv, out=local))
     t_kernel2 = time_ms(lambda: chunk_combine_cuda(local, recv, seg, acc, out=local))
     t_lib2 = time_ms(lambda: torch.add(local, recv, out=local))
-    bound = 3 * rows * M * 2 / PEAK_BYTES * 1e3
+    bound = CA.chunk_combine_cost((rows, M), torch.bfloat16, seg, acc).bound()["bound_ms"]
     log("kernels", f"chunk_combine largest training merge ({rows}, {M}) bf16: kernel "
         f"{t_kernel:.4f} / {t_kernel2:.4f} ms, plain {t_plain:.4f} ms, in-place "
         f"torch.add {t_lib:.4f} / {t_lib2:.4f} ms (events, back to back), bound "
@@ -1018,7 +1015,9 @@ def check_chunk_combine(gen) -> dict:
     t_zero = time_ms(lambda: chunk_combine_cuda(row, at_zero, [1], [1], out=row))
     log("kernels", f"chunk_combine largest chunked merge (1, {M1}) bf16, row off the "
         f"16-byte grid: received at the row's phase {t_phase:.4f} ms, at offset 0 "
-        f"{t_zero:.4f} ms, bound {3 * M1 * 2 / PEAK_BYTES * 1e3:.4f} ms (bytes)")
+        f"{t_zero:.4f} ms, bound "
+        f"{CA.chunk_combine_cost((1, M1), torch.bfloat16, [1], [1]).bound()['bound_ms']:.4f} "
+        f"ms (bytes)")
     return dict(name="chunk_combine", **KERNELS["chunk_combine"], launches=0,
                 max_abs_err=worst, ms=min(t_kernel, t_kernel2), plain_ms=t_plain,
                 bound_ms=bound, bound_by="bytes", library_ms=min(t_lib, t_lib2),
@@ -1038,6 +1037,7 @@ def scan_err(got, want) -> tuple[float, float]:
 def check_lru_scan(gen) -> dict:
     from repro_torch.kernels import ref
     from repro_torch.kernels.lru_scan import TILE, WARPS, lru_scan_cuda
+    from repro_torch.launch import cost_analysis as CA
     from repro_torch.launch.profile_kernels import device_ms
     from repro_torch.models import get_config
     from repro_torch.models.rglru import _gates, init_rglru_block
@@ -1096,8 +1096,8 @@ def check_lru_scan(gen) -> dict:
     t_plain = time_ms(lambda: ref.reference_lru_scan(a, x, h0), iters=3, warmup=1)
     t_kernel2 = time_ms(lambda: lru_scan_cuda(a, x, h0))
     dev = sum(device_ms(lambda: lru_scan_cuda(a, x, h0)).values()) or None
-    nbytes = 12 * a.numel() + 4 * h0.numel()      # a, x in, h out; h0 in
-    bound = nbytes / PEAK_BYTES * 1e3
+    cost = CA.lru_scan_cost(*a.shape)               # a, x in, h out; h0 in
+    nbytes, bound = cost.nbytes, cost.bound()["bound_ms"]
     log("kernels", f"lru_scan serve shape {serve_shape} fp32: kernel {t_kernel:.4f} / "
         f"{t_kernel2:.4f} ms, plain {t_plain:.4f} ms, bound {bound:.4f} ms (bytes, "
         f"{nbytes / 1e6:.1f} MB), {bound / min(t_kernel, t_kernel2):.1%} of it; "
@@ -1111,6 +1111,7 @@ def check_lru_scan(gen) -> dict:
 def check_wkv_scan(gen) -> dict:
     from repro_torch.kernels import ref
     from repro_torch.kernels.wkv_scan import wkv_scan_cuda
+    from repro_torch.launch import cost_analysis as CA
     from repro_torch.launch.profile_kernels import device_ms
 
     def inputs(B, T, H, K, hard=False):
@@ -1155,15 +1156,11 @@ def check_wkv_scan(gen) -> dict:
     t_plain = time_ms(lambda: ref.reference_wkv(*timed), iters=3, warmup=1)
     t_kernel2 = time_ms(lambda: wkv_scan_cuda(*timed))
     dev = sum(device_ms(lambda: wkv_scan_cuda(*timed)).values()) or None
-    B, T, H, K = serve_shape
-    V = K
-    # what the function needs per (b, t, h): out_t[j] = sum_k r_k S[k,j]
-    # + v_j sum_k r_k u_k k_k is 2KV + 3K + 2V, S <- w*S + k v^T is 3KV
-    flops = (5.0 * K * V + 3 * K + 2 * V) * B * T * H
-    nbytes = 4 * (5 * B * T * H * K + H * K + 2 * B * H * K * K)
-    t_ops, t_bytes = flops / PEAK_FP32_CUDA_CORES, nbytes / PEAK_BYTES
-    bound, bound_by = max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
-                                                   else "bytes")
+    # what the function needs (cost_analysis.wkv_scan_cost)
+    b = CA.wkv_scan_cost(*serve_shape).bound()
+    bound, bound_by = b["bound_ms"], b["bound_by"]
+    flops, nbytes, t_ops, t_bytes = b["gflop"] * 1e9, b["mbytes"] * 1e6, \
+        b["ops_ms"] / 1e3, b["bytes_ms"] / 1e3
     log("kernels", f"wkv_scan serve shape {serve_shape} fp32: kernel {t_kernel:.4f} / "
         f"{t_kernel2:.4f} ms, plain {t_plain:.4f} ms, bound {bound:.4f} ms ({bound_by}: "
         f"{flops / 1e9:.2f} GFLOP -> {t_ops * 1e3:.4f} ms, {nbytes / 1e6:.1f} MB -> "
@@ -1185,6 +1182,7 @@ def grads_err(got, want) -> tuple[float, float]:
 def check_lru_scan_bwd(gen) -> dict:
     from repro_torch.kernels import ref
     from repro_torch.kernels.lru_scan import lru_scan_bwd_cuda, lru_scan_cuda
+    from repro_torch.launch import cost_analysis as CA
     from repro_torch.launch.profile_kernels import device_ms
 
     def inputs(B, T, W):
@@ -1232,8 +1230,8 @@ def check_lru_scan_bwd(gen) -> dict:
     t_kernel2 = time_ms(run)
     dev = sum(device_ms(run).values()) or None
     # a, h, gh in, gx, ga out (each once), h0 in
-    nbytes = 4 * (5 * a.numel() + h0.numel())
-    bound = nbytes / PEAK_BYTES * 1e3
+    cost = CA.lru_scan_bwd_cost(*a.shape, want_gh0=False)
+    nbytes, bound = cost.nbytes, cost.bound()["bound_ms"]
     log("kernels", f"lru_scan_bwd training shape {LRU_TRAIN} fp32: kernel {t_kernel:.4f} / "
         f"{t_kernel2:.4f} ms, plain (autograd through the plain scan) {t_plain:.4f} ms, "
         f"bound {bound:.4f} ms (bytes, {nbytes / 1e6:.1f} MB), "
@@ -1248,6 +1246,7 @@ def check_lru_scan_bwd(gen) -> dict:
 def check_wkv_scan_bwd(gen) -> dict:
     from repro_torch.kernels import ref
     from repro_torch.kernels.wkv_scan import CHUNK, bwd_cluster, wkv_scan_bwd_cuda, wkv_scan_cuda
+    from repro_torch.launch import cost_analysis as CA
     from repro_torch.launch.profile_kernels import device_profile
 
     def inputs(B, T, H, K, hard):
@@ -1334,15 +1333,11 @@ def check_wkv_scan_bwd(gen) -> dict:
     model = dict(read_once=4 * (5 * n + ck_f + H * K + part_f),
                  read_through_l2=4 * ((3 * P + 2) * n + ck_f + 2 * part_f),
                  written=4 * (4 * n + H * K + part_f))
-    V = K
-    # what the function needs per (b, t, h): the states again (S <- w S +
-    # k^T v, 3KV), the adjoint's update (3KV), and the sums gr, gk, gv, gw
-    # (2KV each); r, k, v, w, gy in and gr, gk, gv, gw out, u and s0 in, gu out
-    flops = 14.0 * K * V * B * T * H
-    nbytes = 4 * (9 * B * T * H * K + 2 * H * K + B * H * K * V)
-    t_ops, t_bytes = flops / PEAK_FP32_CUDA_CORES, nbytes / PEAK_BYTES
-    bound, bound_by = max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
-                                                   else "bytes")
+    # what the function needs (cost_analysis.wkv_scan_bwd_cost)
+    b = CA.wkv_scan_bwd_cost(B, T, H, K).bound()
+    bound, bound_by = b["bound_ms"], b["bound_by"]
+    flops, nbytes, t_ops, t_bytes = b["gflop"] * 1e9, b["mbytes"] * 1e6, \
+        b["ops_ms"] / 1e3, b["bytes_ms"] / 1e3
     log("kernels", f"wkv_scan_bwd training shape {WKV_TRAIN} fp32: kernel {t_kernel:.4f} / "
         f"{t_kernel2:.4f} ms, plain (autograd through the plain recurrence) {t_plain:.4f} "
         f"ms, bound {bound:.4f} ms ({bound_by}: {flops / 1e9:.2f} GFLOP -> "
@@ -1471,6 +1466,10 @@ def serve(card: str, phase: str, arch: str, batch: int, prompt: int, context: in
         f"TPOT {failed[0].tpot * 1e3:.3f} ms, total {failed[0].total_latency * 1e3:.3f} ms "
         f"[B={batch}, prompt {prompt}, {NEW_TOKENS} new tokens; {card}]")
     log(phase, f"first tokens of request 0: {healthy[0].tokens[:8]}")
+    log(phase, share_text("TTFT", healthy[0].ttft, dry_bound(cfg, "prefill", batch, prompt,
+                                                            context))
+        + "; " + share_text("TPOT", healthy[0].tpot, dry_bound(cfg, "decode", batch, prompt,
+                                                               context)) + f" [{card}]")
 
     # prefill logits through the kernels vs the same model with the plain
     # version of every kernel: with a float32 residual stream, where the gap
@@ -1779,6 +1778,209 @@ def split(stats: list[dict]) -> str:
     return ", ".join(f"{k[:-2]} {np.mean([s.get(k, 0.0) for s in stats]) * 1e3:.1f} ms"
                      for k in keys)
 
+def dry_bound(cfg, mode: str, batch: int, length: int, context: int | None = None) -> dict:
+    """The dry run's least time for one step on one card
+    (``launch/dryrun.one_card_bound``: the step counted on the meta device,
+    ``cost_analysis`` at the datasheet peaks), with the phases' fp32
+    caches: the roofline terms."""
+    from repro_torch.launch.dryrun import one_card_bound
+    return one_card_bound(cfg, mode, batch, length, context_len=context,
+                          cache_dtype=torch.float32)[1]
+
+
+def share_text(name: str, seconds: float, terms: dict) -> str:
+    return (f"{name} {seconds * 1e3:.3f} ms against the dry run's bound "
+            f"{terms['bound_s'] * 1e3:.3f} ms ({terms['bottleneck']}): "
+            f"{terms['bound_s'] / seconds:.1%} of it")
+
+
+def roofline_rows() -> list[tuple]:
+    """(label, arch, layers or None, overrides, mode, batch, positions,
+    context) of every configuration the phases serve or train, each at its
+    phase's shape; glm4-9b and paper-7b, which no phase serves, at smollm's.
+    A training row is one rank's step (LOCAL_BATCH x SEQ)."""
+    rows = [("serve", a, None, {}, "prefill", BATCH, PROMPT, CONTEXT)
+            for a in (ARCH, "glm4-9b", "paper-7b")]
+    rows += [("serve", a, None, {}, "prefill", b, p, c)
+             for a, b, p, c, _ in RECURRENT.values()]
+    rows += [("serve", a, n, {}, "prefill", b, p, c) for a, n, b, p, c, _ in GQA.values()]
+    rows += [("serve", a, n, o, "prefill", b, p, c) for a, n, b, p, c, _, o in
+             MLA_PHASES.values()]
+    arch, b, text, _, c = PALIGEMMA
+    rows.append(("serve", arch, None, {}, "prefill", b, 256 + text, c))
+    rows.append(("serve", HUBERT[0], None, {}, "prefill", HUBERT[1], HUBERT[2], HUBERT[2]))
+    for arch, layers in ((ARCH, None), (PALIGEMMA[0], None), (HUBERT[0], None),
+                         (HUBERT[0], HUBERT_TRAIN_LAYERS), ("recurrentgemma-9b", RG_GRAD_LAYERS),
+                         ("rwkv6-1.6b", None), ("rwkv6-1.6b", RWKV_TRAIN_LAYERS)):
+        rows.append(("train", arch, layers, {}, "train", LOCAL_BATCH, SEQ, None))
+    return rows
+
+
+def roofline(card: str) -> dict[str, int]:
+    """The dry run against the card: smollm-360m's serve prefill (BATCH x
+    PROMPT, CONTEXT fp32 cache slots) and one training rank's step
+    (LOCAL_BATCH x SEQ: forward, backward under remat, AdamW) counted on the
+    meta device, then run on the card under ``FlopCounterMode`` with the
+    kernels live: the FLOP totals must be equal (one formula a kernel,
+    whatever runs it), the kernels launched as often as the meta run
+    dispatched them, TTFT and the step time at most 1.05x faster than their
+    bounds (a larger share means a count is wrong), and the bytes
+    ``init_model``, ``init_caches`` and the batch request of the allocator
+    equal to the predicted argument bytes (``memory_allocated``'s gain
+    printed beside them, with the allocator's rounding).  Then the dry run's bounds for every
+    configuration the phases serve or train.  Returns the launch counts of
+    the two counted runs."""
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch.configs.base import InputShape
+    from repro_torch.kernels import ops
+    from repro_torch.launch import dryrun as DR
+    from repro_torch.launch.cost_analysis import H100_SXM, roofline_terms
+    from repro_torch.launch.mesh import MeshShape, rules_for
+    from repro_torch.models import get_config, init_caches, init_model
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.serving.engine import make_prefill_fn
+    from repro_torch.training import init_train_state, make_train_step
+    from repro_torch.tree import leaves
+
+    phase = "roofline"
+    cfg = get_config(ARCH)
+    shapes = {"prefill": InputShape("serve_prefill", PROMPT, BATCH, "prefill"),
+              "train": InputShape("rank_step", SEQ, LOCAL_BATCH, "train")}
+    meta = init_model(cfg, device="meta")
+    traces = {"prefill": DR.trace_step(cfg, shapes["prefill"], params=meta,
+                                       cache_dtype=torch.float32, context_len=CONTEXT),
+              "train": DR.trace_step(cfg, shapes["train"], params=meta)}
+    terms = {k: roofline_terms(flops_per_device=t.flops_by_class,
+                               hbm_bytes_per_device=t.hbm_bytes,
+                               wire_bytes_per_device=0.0, chips=1)
+             for k, t in traces.items()}
+    one_card = MeshShape(("data", "model"), {"data": 1, "model": 1})
+    args = DR.argument_bytes(cfg, shapes["prefill"], one_card, rules_for(cfg), meta,
+                             cache_dtype=torch.float32, context_len=CONTEXT)
+    for k, t in traces.items():
+        log(phase, f"dry run, {ARCH} {k} ({shapes[k].global_batch} x {shapes[k].seq_len}; "
+            f"meta device, {t.seconds:.1f} s): {t.flops} FLOPs "
+            f"{ {c: n for c, n in t.flops_by_class.items()} }, {t.hbm_bytes / 1e9:.3f} GB "
+            f"unfused, kernels {t.kernel_calls}; bound {terms[k]['bound_s'] * 1e3:.3f} ms "
+            f"({terms[k]['bottleneck']}; compute {terms[k]['compute_s'] * 1e3:.3f} ms, "
+            f"memory {terms[k]['memory_s'] * 1e3:.3f} ms at {H100_SXM.name})")
+
+    # the arguments: what init_model, init_caches and the batch allocate.
+    # memory_allocated counts the caching allocator's blocks: each request
+    # rounded up to 512 B, and a request served from a large segment whose
+    # rest would be 1 MiB or less takes the whole rest (should_split in
+    # CUDACachingAllocator.cpp); its requested_bytes stat counts the
+    # requests themselves.  The requests must equal the prediction exactly
+    # (but for the caches' int32 index, a Python int in the port), and the
+    # blocks may exceed them by that rounding alone
+    def stats() -> tuple[int, int]:
+        torch.cuda.synchronize()
+        m = torch.cuda.memory_stats()
+        return m["allocated_bytes.all.current"], m["requested_bytes.all.current"]
+
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    before = stats()
+    params = init_model(cfg, seed=0, device="cuda")
+    caches = init_caches(cfg, BATCH, CONTEXT, dtype=torch.float32, device="cuda")
+    batch = DR.input_specs(cfg, shapes["prefill"], device="cuda")
+    allocated, requested = (a - b for a, b in zip(stats(), before))
+    tensors = (leaves(params) + [t for t in leaves(caches) if isinstance(t, torch.Tensor)]
+               + list(batch.values()))
+    index_bytes = args["cache_index"]
+    predicted = args["total"]
+    log(phase, f"arguments: the dry run predicts {predicted} B {args}; init_model, "
+        f"init_caches and the batch requested {requested} B (+ {index_bytes} B of cache "
+        f"indices the port keeps as ints), memory_allocated gained {allocated} B "
+        f"({allocated - requested} B of the allocator's rounding over {len(tensors)} "
+        f"tensors; 512 B a tensor would be {512 * len(tensors)} B)")
+    if requested + index_bytes != predicted or not 0 <= allocated - requested:
+        raise RuntimeError(f"argument bytes: requested {requested} + {index_bytes}, "
+                           f"allocated {allocated}, predicted {predicted}")
+    batch["tokens"].random_(0, cfg.vocab_size, generator=gen)
+
+    def counted(name, step) -> dict[str, int]:
+        """One run of ``step`` under FlopCounterMode, its FLOPs and the
+        kernels' launches held to the meta run's."""
+        ops.reset_launch_counts()
+        with FlopCounterMode(display=False) as fc:
+            step()
+        torch.cuda.synchronize()
+        got, launches = fc.get_total_flops(), ops.launch_counts()
+        trace = traces[name]
+        want = counts(**{k.removesuffix("_fwd"): n for k, n in trace.kernel_calls.items()})
+        log(phase, f"{name} on the card under FlopCounterMode, kernels live: {got} FLOPs "
+            f"(meta {trace.flops}: {'equal' if got == trace.flops else 'DIFFERENT'}); "
+            f"launches {launches} (meta dispatches {trace.kernel_calls})")
+        if got != trace.flops or launches != want:
+            raise RuntimeError(f"{name}: card {got} FLOPs, launches {launches}; meta "
+                               f"{trace.flops}, {want}")
+        return launches
+
+    def median_s(step, reps: int) -> float:
+        times = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step()
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        return float(np.median(times))
+
+    prefill = make_prefill_fn(cfg)
+    do_prefill = lambda: prefill(params, batch, caches)  # noqa: E731
+    do_prefill()                                             # warm-up
+    total = counted("prefill", do_prefill)
+    ttft = median_s(do_prefill, 5)
+
+    state = {"s": init_train_state(params)}
+    step = make_train_step(cfg, AdamWConfig())
+    tb = DR.input_specs(cfg, shapes["train"], device="cuda")
+    for k in ("tokens", "labels"):
+        tb[k].random_(0, cfg.vocab_size, generator=gen)
+
+    def do_step():
+        state["s"], _ = step(state["s"], tb)
+
+    do_step()                                                # warm-up
+    for k, n in counted("train", do_step).items():
+        total[k] += n
+    step_s = median_s(do_step, 3)
+    for name, seconds, key in (("TTFT", ttft, "prefill"), ("step", step_s, "train")):
+        share = terms[key]["bound_s"] / seconds
+        log(phase, f"{ARCH} {share_text(name, seconds, terms[key])} (limit 105%) [{card}]")
+        if share > 1.05:
+            raise RuntimeError(f"{name} {seconds} s beats its bound "
+                               f"{terms[key]['bound_s']} s by more than 5%: a count is wrong")
+    del params, caches, batch, state, tb
+    torch.cuda.empty_cache()
+
+    log(phase, f"the dry run's bounds of every configuration served or trained here "
+        f"(one card, {H100_SXM.name} peaks; fp32 weights and caches as the phases hold "
+        f"them; a train row is one rank's step, and the 4-rank phases put four on the card); "
+        f"torch.cuda.get_device_properties(0).total_memory "
+        f"{torch.cuda.get_device_properties(0).total_memory} B [{card}]")
+    log(phase, "| path | arch | layers | batch x positions | prefill or step bound | "
+        "decode bound | argument GB | fits |")
+    for label, arch, layers, overrides, mode, b, length, context in roofline_rows():
+        c = get_config(arch)
+        c = dataclasses.replace(c, num_layers=layers or c.num_layers, **overrides)
+        t0 = time.perf_counter()
+        main = dry_bound(c, mode, b, length, context)
+        dec = (dry_bound(c, "decode", b, length, context)
+               if mode == "prefill" and not c.encoder_only else None)
+        m = init_model(c, device="meta")
+        shape = InputShape(label, length, b, mode)
+        arg = DR.argument_bytes(c, shape, one_card, rules_for(c), m,
+                                cache_dtype=torch.float32, context_len=context)["total"]
+        fits = arg <= torch.cuda.get_device_properties(0).total_memory
+        log(phase, f"| {label} | {arch} | {c.num_layers} | {b} x {length} | "
+            f"{main['bound_s'] * 1e3:.3f} ms ({main['bottleneck']}) | "
+            + (f"{dec['bound_s'] * 1e3:.3f} ms ({dec['bottleneck']})" if dec else "—")
+            + f" | {arg / 1e9:.2f} | {'yes' if fits else 'no'} | "
+            f"({time.perf_counter() - t0:.1f} s)")
+    return total
+
 
 def train(card: str) -> dict[str, int]:
     """The training phase; returns rank 0's launch counts of the CLI run."""
@@ -1947,6 +2149,10 @@ def serve_paligemma(card: str) -> dict[str, int]:
         f"stream; {card}]; launches per prefill {run['prefill_launches']}, in decode "
         f"{run['decode_launches']} (as predicted); first tokens of request 0: "
         f"{toks[0, :8].tolist()}")
+    log(phase, share_text("TTFT", run["ttft"], dry_bound(cfg, "prefill", batch, P + text,
+                                                        context))
+        + "; " + share_text("TPOT", run["tpot"], dry_bound(cfg, "decode", batch, P + text,
+                                                           context)) + f" [{card}]")
 
     c32 = dataclasses.replace(cfg, dtype="float32")
     kern = generate(params, c32, feed, new, context, "auto")
@@ -2025,6 +2231,16 @@ def serve_hubert(card: str) -> dict[str, int]:
         raise RuntimeError(f"launches {launches}, want {cfg.num_layers} flash_attention")
     log(phase, f"encoder forward {fwd_ms:.3f} ms [B={batch} clips of {frames} frames, "
         f"{cfg.dtype} residual stream; {card}]; launches {launches} (as predicted)")
+    # the same forward counted on the meta device
+    from repro_torch.launch.cost_analysis import roofline_terms
+    from repro_torch.launch.dryrun import count
+    meta, meta_feed = init_model(cfg, device="meta"), {
+        k: torch.empty(v.shape, dtype=v.dtype, device="meta") for k, v in feed.items()}
+    with torch.no_grad():
+        tr = count(lambda: apply_model(meta, cfg, meta_feed, mode="train"))
+    log(phase, share_text("encoder forward", fwd_ms / 1e3, roofline_terms(
+        flops_per_device=tr.flops_by_class, hbm_bytes_per_device=tr.hbm_bytes,
+        wire_bytes_per_device=0.0, chips=1)) + f" [{card}]")
     for dtype, tol in (("float32", LOGIT_ATOL_F32), (cfg.dtype, LOGIT_ATOL[phase])):
         c = dataclasses.replace(cfg, dtype=dtype)
         got, want = encode(c, "auto"), encode(c, "reference")
@@ -2216,6 +2432,9 @@ def main() -> int:
                              dict(flash_attention=get_config(ARCH).num_layers),
                              LOGIT_ATOL["serve"])
     log("serve", f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    by_path["roofline"] = roofline(card)
+    log("roofline", f"{time.perf_counter() - t0:.1f} s")
     for phase, (arch, batch, prompt, context, per_prefill) in RECURRENT.items():
         t0 = time.perf_counter()
         by_path[phase] = serve(card, phase, arch, batch, prompt, context, per_prefill,

@@ -334,7 +334,9 @@ flash_attention_bwd_cuda.launches = 0
 
 
 class FlashAttention(torch.autograd.Function):
-    """Attention whose forward and backward are the hand-written kernels.
+    """Attention whose forward and backward are the hand-written kernels,
+    through their dispatcher ops (``kernels/library.py``: the kernels on the
+    card, the fakes on the meta device, the plain versions on the CPU).
 
     ``apply(q, k, v, causal, window, prefix_len, logit_cap, scale)``; the
     forward keeps the row log-sum-exp for the backward, which recomputes
@@ -345,17 +347,15 @@ class FlashAttention(torch.autograd.Function):
     def forward(ctx, q, k, v, causal, window, prefix_len, logit_cap, scale):
         B, Tq, KVH, G, _ = q.shape
         lse = torch.empty((B, Tq, KVH, G), dtype=torch.float32, device=q.device)
-        out = flash_attention_cuda(q, k, v, causal=causal, window=window,
-                                   prefix_len=prefix_len, logit_cap=logit_cap,
-                                   scale=scale, lse=lse)
+        out = torch.ops.repro_torch.flash_attention_fwd(
+            q, k, v, lse, causal, window, prefix_len, logit_cap, scale, 0, None)
         ctx.save_for_backward(q, k, v, out, lse)
-        ctx.kw = dict(causal=causal, window=window, prefix_len=prefix_len,
-                      logit_cap=logit_cap, scale=scale)
+        ctx.kw = (causal, window, prefix_len, logit_cap, scale)
         return out
 
     @staticmethod
     def backward(ctx, dout):
         q, k, v, out, lse = ctx.saved_tensors
-        dq, dk, dv = flash_attention_bwd_cuda(q, k, v, out, dout.contiguous(),
-                                              lse, **ctx.kw)
+        dq, dk, dv = torch.ops.repro_torch.flash_attention_bwd(
+            q, k, v, out, dout.contiguous(), lse, *ctx.kw)
         return dq, dk, dv, None, None, None, None, None

@@ -148,19 +148,21 @@ lru_scan_bwd_cuda.launches = 0
 
 
 class LRUScan(torch.autograd.Function):
-    """The kernels under autograd: ``apply(a, x, h0)``.  The forward saves
-    a, h0 and its output; the backward is :func:`lru_scan_bwd_cuda`, and
-    computes h0's gradient only where it is asked for."""
+    """The kernels under autograd, through their dispatcher ops
+    (``kernels/library.py``): ``apply(a, x, h0)``.  The forward saves a, h0
+    and its output; the backward is the ``lru_scan_bwd`` op, and computes
+    h0's gradient only where it is asked for."""
 
     @staticmethod
     def forward(ctx, a, x, h0):
-        h = lru_scan_cuda(a, x, h0)
+        h = torch.ops.repro_torch.lru_scan(a, x, h0)
         ctx.save_for_backward(a, h, h0)
         return h
 
     @staticmethod
     def backward(ctx, grad):
         a, h, h0 = ctx.saved_tensors
-        gx, ga, gh0 = lru_scan_bwd_cuda(a, h, h0, grad.contiguous(),
-                                        want_gh0=ctx.needs_input_grad[2])
-        return ga, gx, gh0
+        want_gh0 = ctx.needs_input_grad[2]
+        gx, ga, gh0 = torch.ops.repro_torch.lru_scan_bwd(a, h, h0, grad.contiguous(),
+                                                         want_gh0)
+        return ga, gx, gh0 if want_gh0 else None

@@ -1,10 +1,15 @@
 """Dispatch for the port's kernels, by the device of the tensors given.
 
 A CPU tensor goes to the kernel's plain PyTorch version (``ref.py``); a
-CUDA tensor goes to the hand-written Hopper kernel, which either launches or
-raises: there is no fallback from the card to the plain version.
-``impl="reference"`` asks for the plain version on any device, for checks
-that hold a model through the kernels against it.  On the card, inputs that
+CUDA tensor goes to the kernel's dispatcher op (``library.py``), which
+launches the hand-written Hopper kernel or raises: there is no fallback from
+the card to the plain version.  A meta tensor goes to the op too, whose fake
+gives the output's shape and dtype, so a dry run never walks a plain scan's
+time loop.  ``impl="reference"`` asks for the plain version on any device,
+for checks that hold a model through the kernels against it;
+``impl="op"`` sends a CPU tensor through the op as well (its CPU
+implementation is the plain version), so that a CPU run counts the kernels'
+work by their formulas as the card's does.  Off the CPU path, inputs that
 require grad (with grad mode on) go through the kernel's
 ``autograd.Function``.
 """
@@ -13,18 +18,24 @@ from __future__ import annotations
 
 import torch
 
-from . import ref
+from . import library, ref  # noqa: F401  (library registers the ops)
 from .chunk_combine import chunk_combine_cuda
 from .flash_attention import FlashAttention, flash_attention_bwd_cuda, flash_attention_cuda
 from .lru_scan import LRUScan, lru_scan_bwd_cuda, lru_scan_cuda
 from .wkv_scan import WKVScan, wkv_scan_bwd_cuda, wkv_scan_cuda
 
-IMPLS = ("auto", "reference")
+IMPLS = ("auto", "reference", "op")
+DEVICES = ("cpu", "cuda", "meta")
 
 
-def _check_impl(impl: str) -> None:
+def _plain(impl: str, name: str, t: torch.Tensor) -> bool:
+    """Whether ``impl`` and ``t``'s device take the plain version (else the
+    op); raises on an unknown impl or a device with no kernel."""
     if impl not in IMPLS:
         raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
+    if t.device.type not in DEVICES:
+        raise ValueError(f"no {name} kernel for device {t.device}")
+    return impl == "reference" or (impl == "auto" and t.device.type == "cpu")
 
 
 def _wants_grad(*ts: torch.Tensor) -> bool:
@@ -47,55 +58,61 @@ def flash_attention(
 ) -> torch.Tensor:
     """(B,Tq,KVH,G,D) x (B,Tk,KVH,D)^2 -> (B,Tq,KVH,G,D), in q's dtype.
 
-    On the card, inputs that require grad (with grad mode on) go through
+    Through the op, inputs that require grad (with grad mode on) go through
     :class:`FlashAttention`, whose backward is the backward kernel; it takes
     no ``q_offset`` or ``k_valid_len`` (decode and cache reads are
     inference-only) and raises if given them.
     """
-    _check_impl(impl)
-    kw = dict(causal=causal, window=window, prefix_len=prefix_len,
-              logit_cap=logit_cap, scale=scale, q_offset=q_offset,
-              k_valid_len=k_valid_len)
-    if impl == "reference" or q.device.type == "cpu":
-        return ref.reference_attention(q, k, v, **kw)
-    if q.device.type != "cuda":
-        raise ValueError(f"no flash_attention kernel for device {q.device}")
+    if _plain(impl, "flash_attention", q):
+        return ref.reference_attention(q, k, v, causal=causal, window=window,
+                                       prefix_len=prefix_len, logit_cap=logit_cap,
+                                       scale=scale, q_offset=q_offset,
+                                       k_valid_len=k_valid_len)
     if _wants_grad(q, k, v):
         if q_offset != 0 or k_valid_len is not None:
             raise ValueError("the flash_attention backward kernel takes no "
                              "q_offset or k_valid_len")
         return FlashAttention.apply(q, k, v, causal, window, prefix_len,
                                     logit_cap, scale)
-    return flash_attention_cuda(q, k, v, **kw)
+    return torch.ops.repro_torch.flash_attention_fwd(
+        q, k, v, None, causal, window, prefix_len, logit_cap, scale, q_offset,
+        k_valid_len)
 
 
 def chunk_combine(local: torch.Tensor, recv: torch.Tensor, seg_mask, accumulate,
                   *, out: torch.Tensor | None = None) -> torch.Tensor:
-    """Fused R2CCL stage-2 merge of (C, M) buffers with (C,) row masks;
-    ``out=local`` merges in place.  Returns ``out`` (a new tensor if not
-    given)."""
-    if local.device.type == "cpu":
+    """Fused R2CCL stage-2 merge of (C, M) buffers with (C,) row masks
+    (sequences of bools); ``out=local`` merges in place.  Returns ``out`` (a
+    new tensor if not given)."""
+    if _plain("auto", "chunk_combine", local):
         res = ref.reference_chunk_combine(local, recv, seg_mask, accumulate)
         return res if out is None else out.copy_(res)
-    if local.device.type != "cuda":
-        raise ValueError(f"no chunk_combine kernel for device {local.device}")
-    return chunk_combine_cuda(local, recv, seg_mask, accumulate, out=out)
+    if out is None:
+        out = torch.empty_like(local)
+    torch.ops.repro_torch.chunk_combine(local, recv, _bools(seg_mask), _bools(accumulate),
+                                        out)
+    return out
+
+
+def _bools(mask) -> list | tuple:
+    """A (C,) mask as the op's ``bool[]``: a list or tuple as it is, an
+    array or tensor as a list (a CUDA tensor is copied to the host)."""
+    if isinstance(mask, (list, tuple)):
+        return mask
+    return torch.as_tensor(mask).bool().tolist()
 
 
 def lru_scan(a: torch.Tensor, x: torch.Tensor, h0: torch.Tensor, *,
              impl: str = "auto") -> torch.Tensor:
     """RG-LRU states ``h_t = a_t * h_{t-1} + x_t`` from ``h0``: a, x
-    (B, T, W), h0 (B, W) -> (B, T, W) float32.  On the card, inputs that
+    (B, T, W), h0 (B, W) -> (B, T, W) float32.  Through the op, inputs that
     require grad go through :class:`LRUScan`, whose backward is the
     ``lru_scan_bwd`` kernel."""
-    _check_impl(impl)
-    if impl == "reference" or a.device.type == "cpu":
+    if _plain(impl, "lru_scan", a):
         return ref.reference_lru_scan(a, x, h0)
-    if a.device.type != "cuda":
-        raise ValueError(f"no lru_scan kernel for device {a.device}")
     if _wants_grad(a, x, h0):
         return LRUScan.apply(a, x, h0)
-    return lru_scan_cuda(a, x, h0)
+    return torch.ops.repro_torch.lru_scan(a, x, h0)
 
 
 def wkv_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
@@ -103,16 +120,13 @@ def wkv_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
              ) -> tuple[torch.Tensor, torch.Tensor]:
     """RWKV-6 WKV recurrence in the model's layout: r, k, v, w (B, T, H, K),
     u (H, K), s0 (B, H, K, K) -> (out (B, T, H, K), s_T (B, H, K, K)),
-    float32.  On the card, inputs that require grad go through
+    float32.  Through the op, inputs that require grad go through
     :class:`WKVScan`, whose backward is the ``wkv_scan_bwd`` kernel."""
-    _check_impl(impl)
-    if impl == "reference" or r.device.type == "cpu":
+    if _plain(impl, "wkv_scan", r):
         return ref.reference_wkv(r, k, v, w, u, s0)
-    if r.device.type != "cuda":
-        raise ValueError(f"no wkv_scan kernel for device {r.device}")
     if _wants_grad(r, k, v, w, u, s0):
         return WKVScan.apply(r, k, v, w, u, s0)
-    return wkv_scan_cuda(r, k, v, w, u, s0)
+    return torch.ops.repro_torch.wkv_scan(r, k, v, w, u, s0, None)
 
 
 _WRAPPERS = {"flash_attention": flash_attention_cuda,

@@ -51,7 +51,19 @@ def reference_attention(
     the online-softmax guards of its kernel: a query row that sees no key
     gives zeros (``acc / max(l, 1e-30)``), not a uniform average.
     """
-    B, Tq, KVH, G, D = q.shape
+    p, _ = _probabilities(q, k, causal=causal, window=window, prefix_len=prefix_len,
+                          logit_cap=logit_cap, scale=scale, q_offset=q_offset,
+                          k_valid_len=k_valid_len)
+    out = torch.einsum("bhgqk,bkhd->bqhgd", p, v.float())
+    return out.to(q.dtype)
+
+
+def _probabilities(q, k, *, causal=True, window=None, prefix_len=None, logit_cap=None,
+                   scale=None, q_offset=0, k_valid_len=None):
+    """(softmax probabilities (B, KVH, G, Tq, Tk), zeros where masked and in
+    a row that sees no key; the row log-sum-exp (B, KVH, G, Tq, 1), -inf
+    for such a row), in float32."""
+    Tq, D = q.shape[1], q.shape[-1]
     Tk = k.shape[1]
     scale = scale if scale is not None else 1.0 / math.sqrt(D)
     s = torch.einsum("bqhgd,bkhd->bhgqk", q.float() * scale, k.float())
@@ -66,9 +78,45 @@ def reference_attention(
     m = s.amax(dim=-1, keepdim=True)
     p = torch.where(mask, torch.exp(s - m), 0.0)
     l = p.sum(dim=-1, keepdim=True)
-    out = torch.einsum("bhgqk,bkhd->bqhgd", p / torch.clamp(l, min=1e-30),
-                       v.float())
-    return out.to(q.dtype)
+    lse = torch.where(l > 0, m + torch.log(l), -math.inf)
+    return p / torch.clamp(l, min=1e-30), lse
+
+
+def reference_attention_lse(q, k, **kw) -> torch.Tensor:
+    """The row log-sum-exp of the scores that :func:`reference_attention`
+    softmaxes, (B, Tq, KVH, G) float32, -inf for a row that sees no key:
+    what the flash forward writes for its backward."""
+    _, lse = _probabilities(q, k, **kw)
+    return lse[..., 0].permute(0, 3, 1, 2).contiguous()
+
+
+def reference_attention_bwd(q, k, v, dout, *, causal: bool = True,
+                            window: int | None = None, prefix_len: int | None = None,
+                            logit_cap: float | None = None, scale: float | None = None
+                            ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain version of the flash backward: (dq, dk, dv) of
+    :func:`reference_attention` for the output gradient ``dout``, in
+    float32 and returned in q's dtype.  With P the probabilities and O the
+    output: dV = P^T dO, dP = dO V^T, dS = P (dP - rowsum(dO O)), through
+    the softcap's tanh, then dQ = dS K scale and dK = dS^T Q scale."""
+    D = q.shape[-1]
+    scale = scale if scale is not None else 1.0 / math.sqrt(D)
+    kw = dict(causal=causal, window=window, prefix_len=prefix_len, logit_cap=logit_cap,
+              scale=scale, q_offset=0, k_valid_len=None)
+    p, _ = _probabilities(q, k, **kw)
+    do = dout.float()
+    vf, kf, qf = v.float(), k.float(), q.float()
+    out = torch.einsum("bhgqk,bkhd->bqhgd", p, vf)
+    dv = torch.einsum("bhgqk,bqhgd->bkhd", p, do)
+    dp = torch.einsum("bqhgd,bkhd->bhgqk", do, vf)
+    delta = torch.einsum("bqhgd,bqhgd->bhgq", do, out)[..., None]
+    ds = p * (dp - delta)
+    if logit_cap is not None:
+        raw = torch.einsum("bqhgd,bkhd->bhgqk", qf * scale, kf)
+        ds = ds * (1.0 - torch.tanh(raw / logit_cap).square())
+    dq = torch.einsum("bhgqk,bkhd->bqhgd", ds, kf) * scale
+    dk = torch.einsum("bhgqk,bqhgd->bkhd", ds, qf) * scale
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 def reference_chunk_combine(local: torch.Tensor, recv: torch.Tensor,

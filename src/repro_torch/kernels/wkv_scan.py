@@ -138,16 +138,17 @@ def bwd_cluster(K: int) -> int:
 
 
 class WKVScan(torch.autograd.Function):
-    """The kernels under autograd: ``apply(r, k, v, w, u, s0)`` returns
-    ``(out, s_T)``.  The forward writes the per-chunk states and saves them
-    with its inputs; the backward is :func:`wkv_scan_bwd_cuda`, and
-    computes s0's gradient only where it is asked for."""
+    """The kernels under autograd, through their dispatcher ops
+    (``kernels/library.py``): ``apply(r, k, v, w, u, s0)`` returns ``(out,
+    s_T)``.  The forward writes the per-chunk states and saves them with its
+    inputs; the backward is the ``wkv_scan_bwd`` op, and computes s0's
+    gradient only where it is asked for."""
 
     @staticmethod
     def forward(ctx, r, k, v, w, u, s0):
         B, T, H, K = r.shape
         ckpt = torch.empty((B, H, -(-T // CHUNK), K, K), device=r.device)
-        out, s_t = wkv_scan_cuda(r, k, v, w, u, s0, ckpt)
+        out, s_t = torch.ops.repro_torch.wkv_scan(r, k, v, w, u, s0, ckpt)
         ctx.save_for_backward(r, k, v, w, u, ckpt)
         ctx.set_materialize_grads(False)      # an unread s_T's gradient stays None
         return out, s_t
@@ -157,5 +158,7 @@ class WKVScan(torch.autograd.Function):
         r, k, v, w, u, ckpt = ctx.saved_tensors
         gy = torch.zeros_like(r) if grad_out is None else grad_out.contiguous()
         gs_t = None if grad_s is None else grad_s.contiguous()
-        return wkv_scan_bwd_cuda(r, k, v, w, u, ckpt, gy, gs_t,
-                                 want_gs0=ctx.needs_input_grad[5])
+        want_gs0 = ctx.needs_input_grad[5]
+        *grads, gs0 = torch.ops.repro_torch.wkv_scan_bwd(r, k, v, w, u, ckpt, gy, gs_t,
+                                                         want_gs0)
+        return (*grads, gs0 if want_gs0 else None)

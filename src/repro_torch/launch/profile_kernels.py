@@ -24,7 +24,10 @@ computes the same function, on the card:
 Each is timed three ways: CUDA events around 20 back-to-back calls (5 at
 recurrentgemma's shape), the device time of each kernel from
 ``torch.profiler``, and the host's time per call while the card is kept
-busy.  It uses only the wrappers' public signatures, so the same file times
+busy.  The flash forward and ``chunk_combine`` also give the host's time
+per call through ``kernels.ops`` (``ops_host_ms``), the path the models and
+the collectives take: since the kernels became dispatcher ops
+(``kernels/library.py``) it includes the dispatch to the op.  It uses only the wrappers' public signatures, so the same file times
 an older checkout's package when that checkout's ``src`` comes first on
 ``PYTHONPATH`` (run it by path then).  Prints one JSON line, with the card's
 name and power limit.  Needs a CUDA device.
@@ -148,9 +151,11 @@ def attention_forward(shape, dtype, gen, window=None, iters=20) -> dict:
     kw = {} if window is None else dict(window=window)
     library = sdpa_forward(q, k, v, kw)
     kernel = lambda: flash_attention_cuda(q, k, v, **kw)
+    from repro_torch.kernels import ops
     return dict(shape=shape, dtype=str(dtype)[6:], window=window,
                 kernel=three_ways(kernel, iters), sdpa=three_ways(library, iters),
-                kernel_again=events_ms(kernel, iters))
+                kernel_again=events_ms(kernel, iters),
+                ops_host_ms=host_ms(lambda: ops.flash_attention(q, k, v, **kw)))
 
 
 def wkv_scan(gen) -> dict:
@@ -222,8 +227,11 @@ def chunk_combine(gen) -> dict:
     seg = acc = [1] * rows
     kernel = lambda: chunk_combine_cuda(local, recv, seg, acc, out=local)
     library = lambda: torch.add(local, recv, out=local)
+    from repro_torch.kernels import ops
     return dict(shape=LARGEST_MERGE, kernel=three_ways(kernel), torch_add=three_ways(library),
-                kernel_again=events_ms(kernel), torch_add_again=events_ms(library))
+                kernel_again=events_ms(kernel), torch_add_again=events_ms(library),
+                ops_host_ms=host_ms(lambda: ops.chunk_combine(local, recv, seg, acc,
+                                                              out=local)))
 
 
 def main(argv=None) -> dict:

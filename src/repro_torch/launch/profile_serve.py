@@ -11,13 +11,22 @@ turns off a multi-token-prediction head (``cfg.mtp``, deepseek-v3-671b):
 it runs in train mode only, and its block (a whole MoE layer) would not
 fit beside the layers kept.
 
+The batch follows the model's modality: token prompts of ``--prompt-len``;
+for paligemma-3b its image patches (``num_prefix_tokens`` random patch
+embeddings from seed 0) before ``--prompt-len`` text tokens, as
+``chip_smoke.py`` feeds them; for hubert-xlarge ``--prompt-len`` random
+frames, and no decode phase (an encoder has none).
+
 For each phase it prints the step's host-clock time (median of five
 untraced steps, each ending in a synchronize), the device's busy time (the
 sum of kernel times in one traced step), the idle share of the step, the
 kernel launches, the flash-attention forward's device time and share, and
-the kernels taking the most device time; then one JSON
-line with the same numbers and the card's name and power limit.  Needs a
-CUDA device: a traced CPU run says nothing about the card.
+the kernels taking the most device time, and the dry run's bound for the same
+step (``launch/dryrun.one_card_bound``: the step counted on the meta device,
+``cost_analysis`` at the H100's datasheet peaks) with the host time's share
+of it; then one JSON line with the same numbers and the card's name and
+power limit.  Needs a CUDA device: a traced CPU run says nothing about the
+card.
 """
 
 from __future__ import annotations
@@ -33,6 +42,7 @@ import numpy as np
 import torch
 from torch.profiler import ProfilerActivity, profile
 
+from repro_torch.launch.dryrun import one_card_bound
 from repro_torch.models import get_config, init_caches, init_model
 from repro_torch.serving.engine import make_decode_fn, make_prefill_fn
 
@@ -68,6 +78,26 @@ def trace(step) -> dict:
     }
 
 
+def feed(cfg, batch: int, prompt_len: int) -> tuple[dict, int]:
+    """(the prefill batch on the card, its positions) by the model's
+    modality, random from seed 0: token prompts; image patches before the
+    text tokens; audio frames."""
+    rng = np.random.default_rng(0)
+    kind = cfg.modality.kind
+    if kind == "audio_frames":
+        frames = rng.standard_normal((batch, prompt_len, cfg.modality.frontend_dim))
+        return {"frames": torch.as_tensor(frames, dtype=torch.float32, device="cuda")}, \
+            prompt_len
+    toks = {"tokens": torch.as_tensor(rng.integers(0, cfg.vocab_size, (batch, prompt_len)),
+                                      device="cuda")}
+    if kind != "vision_text":
+        return toks, prompt_len
+    P = cfg.modality.num_prefix_tokens
+    patches = rng.standard_normal((batch, P, cfg.modality.frontend_dim))
+    return {"patches": torch.as_tensor(patches, dtype=torch.float32, device="cuda"),
+            **toks}, P + prompt_len
+
+
 def main(argv: list[str] | None = None) -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="smollm-360m")
@@ -91,9 +121,7 @@ def main(argv: list[str] | None = None) -> None:
         cfg = dataclasses.replace(cfg, num_layers=args.num_layers, mtp=False)
     params = init_model(cfg, seed=0, device="cuda")
     prefill, decode = make_prefill_fn(cfg), make_decode_fn(cfg)
-    rng = np.random.default_rng(0)
-    toks = torch.as_tensor(
-        rng.integers(0, cfg.vocab_size, (args.batch, args.prompt_len)), device="cuda")
+    batch, positions = feed(cfg, args.batch, args.prompt_len)
 
     def fresh():
         return init_caches(cfg, args.batch, args.context_len,
@@ -102,7 +130,7 @@ def main(argv: list[str] | None = None) -> None:
     state = {}
 
     def do_prefill():
-        state["tok"], state["caches"] = prefill(params, {"tokens": toks}, state["caches"])
+        state["tok"], state["caches"] = prefill(params, batch, state["caches"])
 
     def do_decode():
         state["tok"], state["caches"] = decode(params, state["tok"], state["caches"])
@@ -122,12 +150,14 @@ def main(argv: list[str] | None = None) -> None:
     def reset():
         state["caches"] = fresh()
 
+    phases = [("prefill", do_prefill, reset), ("decode", do_decode, None)]
+    if cfg.encoder_only:
+        phases = phases[:1]
     reset()
-    do_prefill()                                  # warm-up: handles, kernel load
-    do_decode()
+    for _, step, _ in phases:                     # warm-up: handles, kernel load
+        step()
     out = {}
-    for phase, step, before in (("prefill", do_prefill, reset),
-                                ("decode", do_decode, None)):
+    for phase, step, before in phases:
         if phase == "decode":
             reset()
             do_prefill()
@@ -144,6 +174,13 @@ def main(argv: list[str] | None = None) -> None:
               f"{traced['flash_ms']:.3f} ms ({traced['flash_share']:.1%})")
         for k in traced["top_kernels"]:
             print(f"  {k['ms']:9.3f} ms {k['share']:6.1%} x{k['calls']:<5d} {k['name']}")
+        _, terms = one_card_bound(cfg, phase, args.batch, positions,
+                                  context_len=args.context_len, cache_dtype=torch.float32)
+        traced.update(bound_ms=terms["bound_s"] * 1e3, bound_by=terms["bottleneck"],
+                      share_of_bound=terms["bound_s"] * 1e3 / wall)
+        print(f"  dry-run bound {traced['bound_ms']:.3f} ms ({terms['bottleneck']}; compute "
+              f"{terms['compute_s'] * 1e3:.3f} ms, memory {terms['memory_s'] * 1e3:.3f} ms): "
+              f"{traced['share_of_bound']:.1%} of the host time")
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60).stdout.strip()

@@ -33,15 +33,35 @@ Params = dict
 # init helpers (the JAX package's distributions, from a torch.Generator)
 # ---------------------------------------------------------------------------
 
+class ShapeOnly:
+    """Stands in for the init functions' ``torch.Generator`` on the meta
+    device, where no generator can be made: draws from it are shapes and
+    dtypes only (``init_model(device="meta")``)."""
+
+    device = torch.device("meta")
+
+
+def randn(gen, shape) -> torch.Tensor:
+    """Standard normal draws from ``gen`` on its device."""
+    return torch.randn(shape, generator=None if isinstance(gen, ShapeOnly) else gen,
+                       device=gen.device)
+
+
+def rand(gen, shape) -> torch.Tensor:
+    """Uniform [0, 1) draws from ``gen`` on its device."""
+    return torch.rand(shape, generator=None if isinstance(gen, ShapeOnly) else gen,
+                      device=gen.device)
+
+
 def dense_init(gen: torch.Generator, shape, in_axis_size: int,
                dtype=torch.float32) -> torch.Tensor:
     scale = 1.0 / math.sqrt(max(in_axis_size, 1))
     # scaled in place: a 15 GB expert weight needs no second 15 GB buffer
-    return torch.randn(shape, generator=gen, device=gen.device).mul_(scale).to(dtype)
+    return randn(gen, shape).mul_(scale).to(dtype)
 
 
 def embed_init(gen: torch.Generator, shape, dtype=torch.float32) -> torch.Tensor:
-    return (torch.randn(shape, generator=gen, device=gen.device) * 0.02).to(dtype)
+    return (randn(gen, shape) * 0.02).to(dtype)
 
 
 def _mm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:

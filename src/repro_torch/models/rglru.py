@@ -25,7 +25,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops
-from .layers import _mm, dense_init
+from .layers import _mm, dense_init, rand, randn
 
 C_CONST = 8.0
 
@@ -35,12 +35,12 @@ def init_rglru_block(gen: torch.Generator, d_model: int, lru_width: int,
     w, dev = lru_width, gen.device
     # Lambda init so a = exp(-c*softplus(L)) is spread in (0.9, 0.999), the
     # Griffin init: softplus^-1(-ln(u)/c) for u ~ U(0.9, 0.999)
-    u = 0.9 + 0.099 * torch.rand((*lead, w), generator=gen, device=dev)
+    u = 0.9 + 0.099 * rand(gen, (*lead, w))
     lam = torch.log(torch.expm1(-torch.log(u) / C_CONST))
     return {
         "w_x": dense_init(gen, (*lead, d_model, w), d_model, dtype),
         "w_gate": dense_init(gen, (*lead, d_model, w), d_model, dtype),
-        "conv_w": (torch.randn((*lead, conv_width, w), generator=gen, device=dev)
+        "conv_w": (randn(gen, (*lead, conv_width, w))
                    * 0.1).to(dtype),
         "conv_b": torch.zeros((*lead, w), dtype=dtype, device=dev),
         "w_rg": dense_init(gen, (*lead, w, w), w, dtype),

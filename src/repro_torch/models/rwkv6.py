@@ -25,7 +25,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops, ref
-from .layers import dense_init
+from .layers import dense_init, rand, randn
 
 GROUP_NORM_EPS = 64e-5        # RWKV's ln_x, per head
 
@@ -49,16 +49,16 @@ def init_rwkv_block(gen: torch.Generator, d_model: int, head_size: int,
         "decay_a": dense((d, decay_lora), d),
         "decay_b": dense((decay_lora, d), decay_lora),
         # per-channel bonus for the current token
-        "u": torch.randn((*lead, d), generator=gen, device=dev) * 0.1,
+        "u": randn(gen, (*lead, d)) * 0.1,
         # token-shift interpolation (one mu per projection role + lora)
-        "mu": torch.rand((*lead, 5, d), generator=gen, device=dev),
+        "mu": rand(gen, (*lead, 5, d)),
         "ts_a": dense((d, tokenshift_lora), d),
         "ts_b": dense((tokenshift_lora, 5 * d), tokenshift_lora),
         "ln_x_scale": torch.ones((*lead, d), device=dev),
         # channel-mix
         "cm_k": dense((d, ff), d),
         "cm_v": dense((ff, d), ff),
-        "cm_mu": torch.rand((*lead, d), generator=gen, device=dev),
+        "cm_mu": rand(gen, (*lead, d)),
     }
 
 

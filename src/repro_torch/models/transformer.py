@@ -205,10 +205,12 @@ def init_model(cfg: ModelConfig, *, seed: int = 0,
     """Random float32 weights with the JAX package's distributions, drawn
     from a ``torch.Generator`` seeded with ``seed`` on ``device``.  Returns
     the params dict; its logical sharding axes, which the JAX package's
-    ``init_model`` returns beside it, are :func:`model_axes`."""
+    ``init_model`` returns beside it, are :func:`model_axes`.  On
+    ``device="meta"`` the tree holds shapes and dtypes only, and no
+    generator is made (a dry run's weights)."""
     _check_supported(cfg)
     dev = resolve_device(device)
-    gen = torch.Generator(device=dev).manual_seed(seed)
+    gen = L.ShapeOnly() if dev.type == "meta" else torch.Generator(device=dev).manual_seed(seed)
     params: dict[str, Any] = {
         "embed": L.init_embedding(gen, cfg.vocab_size, cfg.d_model,
                                   cfg.tie_embeddings)}

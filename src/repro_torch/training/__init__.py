@@ -1,4 +1,4 @@
-from .checkpoint import save_checkpoint  # noqa: F401
+from .checkpoint import latest_step, restore_checkpoint, save_checkpoint  # noqa: F401
 from .losses import task_loss  # noqa: F401
 from .train_step import (  # noqa: F401
     TrainState,

@@ -84,5 +84,5 @@ def test_kernel_wrapper_refuses_what_it_does_not_take():
         chunk_combine_cuda(local, recv.bfloat16(), [1, 1], [1, 1])
     with pytest.raises(ValueError, match="C, M"):
         chunk_combine_cuda(local, torch.zeros(2, 6), [1, 1], [1, 1])
-    with pytest.raises(ValueError, match="device"):
-        ops.chunk_combine(local.to("meta"), recv.to("meta"), [1, 1], [1, 1])
+    # a meta tensor goes to the op's fake: the output's shape, no values
+    assert ops.chunk_combine(local.to("meta"), recv.to("meta"), [1, 1], [1, 1]).shape == (2, 5)

@@ -105,3 +105,26 @@ def test_train_step_refuses_bad_sync():
     with pytest.raises(ValueError, match="axis"):
         make_train_step(cfg, AdamWConfig(), sync="r2ccl")
     assert dataclasses.is_dataclass(init_train_state({"w": torch.zeros(2)}))
+
+
+def test_port_restores_a_checkpoint_jax_writes(tmp_path):
+    """The port's ``restore_checkpoint`` (the quickstart example's round
+    trip) reads a checkpoint the JAX package writes into a port train
+    state: tensors value for value in the template's dtype, the step and
+    the optimizer count as ints."""
+    from repro.training import save_checkpoint as jax_save_checkpoint
+    from repro_torch.training import restore_checkpoint as port_restore_checkpoint
+
+    _, jp, _ = converted_params("glm4-9b")
+    jstate = jax_init_train_state(jax.tree_util.tree_map(lambda x: x + 1.0, jp))
+    jstate = dataclasses.replace(jstate, step=jnp.asarray(5, jnp.int32),
+                                 opt_state=dict(jstate.opt_state,
+                                                count=jnp.asarray(5, jnp.int32)))
+    jax_save_checkpoint(str(tmp_path), jstate, 5)
+    template = init_train_state(params_from_jax(jax.tree_util.tree_map(np.asarray, jp),
+                                                device="cpu"))
+    restored, at = port_restore_checkpoint(str(tmp_path), template)
+    assert at == 5 and restored.step == 5 and restored.opt_state["count"] == 5
+    for a, b in zip(leaves(restored.params), jax.tree_util.tree_leaves(jstate.params)):
+        assert a.dtype == torch.float32
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b))

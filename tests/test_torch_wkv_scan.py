@@ -82,8 +82,9 @@ def test_wkv_matches_model_scan(zero_state):
 
 
 def test_wkv_scan_dispatch_and_gradient_on_cpu():
-    """``impl="reference"`` is the CPU path itself; an unknown impl or a
-    device with no kernel raises; on the CPU the plain recurrence is
+    """``impl="reference"`` is the CPU path itself, and so is the op's CPU
+    implementation (``impl="op"``); an unknown impl raises; a meta tensor
+    goes to the op's fake; on the CPU the plain recurrence is
     differentiable, with the gradients of ``jax.grad`` through the model's
     scan (of output and final state)."""
     B, T, H, K = 1, 4, 2, 3
@@ -95,8 +96,10 @@ def test_wkv_scan_dispatch_and_gradient_on_cpu():
         torch.testing.assert_close(x, y, rtol=0, atol=0)
     with pytest.raises(ValueError, match="impl"):
         ops.wkv_scan(*ts, impl="pallas")
-    with pytest.raises(ValueError, match="device"):
-        ops.wkv_scan(*(t.to("meta") for t in ts))
+    for x, y in zip(ops.wkv_scan(*ts, impl="op"), b):
+        torch.testing.assert_close(x, y, rtol=0, atol=0)
+    fake = ops.wkv_scan(*(t.to("meta") for t in ts))
+    assert [(t.device.type, t.shape) for t in fake] == [("meta", y.shape) for y in b]
     rng = np.random.default_rng(7)
     c_out = rng.standard_normal((B, T, H, K)).astype(np.float32)
     c_s = rng.standard_normal((B, H, K, K)).astype(np.float32)
