@@ -99,7 +99,20 @@ Phases, each printing its own lines and seconds, and raising on failure
                sharing the card, sync r2ccl, a ring switched to the degraded
                program after a NIC failure on node 1 at step 2; every loss
                and gradient norm finite, the loss falling, the launches as
-               planned.
+               planned;
+ 14. recovery_sim — the framework-free runtime, on a machine with no JAX:
+               ``python -m repro_torch.analysis`` (verify + lint) and
+               ``cost --corpus`` in process (210 entries, 182 bit-exact); a
+               1 GB ring AllReduce on 4 nodes of 4 InfiniBand NICs
+               co-simulated through a NIC failure and flaps of node 1, the
+               control plane replanning mid-collective with
+               score="alpha_beta", then "static", its fp32 payloads equal to
+               all_reduce_oracle; chunk_combine against its plain version at
+               the swapped-in programs' merge shapes; those two programs
+               run on 4 gloo ranks with 16 MiB buffers on the card, every
+               round merged by chunk_combine, equal to executor_np, the
+               launches as planned; and the training-campaign overhead of
+               the paper's 2.7B job across one NIC failure.
 
 The kernels phase checks the two backward kernels of the scans (no Pallas
 counterpart) against autograd through the plain versions at the training
@@ -117,6 +130,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import io
 import json
 import os
 import subprocess
@@ -887,24 +901,27 @@ def leaf_sizes(cfg=None) -> list[int]:
     return sizes
 
 
+def program_merges(prog, total: int) -> list[tuple[int, int]]:
+    """(rows, M) of every chunk_combine launch one rank makes running
+    ``prog`` on ``total`` elements (``execute_program``): one launch per step
+    of each non-empty segment (on every rank, destination or not), from the
+    IR alone."""
+    merges, start = [], 0
+    for i, seg in enumerate(prog.segments):
+        end = total if i == len(prog.segments) - 1 else start + int(round(seg.frac * total))
+        n, C = max(end - start, 0), seg.schedule.num_chunks
+        start = end
+        if n:
+            merges += [(C if st.whole_buffer else 1, -(-n // C)) for st in seg.schedule.steps]
+    return merges
+
+
 def planned_merges(sizes: list[int], comm) -> list[tuple[int, int]]:
     """(rows, M) of every chunk_combine launch one rank makes in one gradient
-    sync: each leaf through each non-empty segment of the program, one launch
-    per step (on every rank, destination or not), from the IR alone."""
+    sync: each leaf through the program ``comm`` selects."""
     from repro_torch.core.collectives import program_for
     prog = program_for(WORLD, **comm.kwargs())
-    merges = []
-    for total in sizes:
-        start = 0
-        for i, seg in enumerate(prog.segments):
-            end = total if i == len(prog.segments) - 1 else start + int(round(seg.frac * total))
-            n = max(end - start, 0)
-            start = end
-            C = seg.schedule.num_chunks
-            if n:
-                merges += [(C if st.whole_buffer else 1, -(-n // C))
-                           for st in seg.schedule.steps]
-    return merges
+    return [m for total in sizes for m in program_merges(prog, total)]
 
 
 def largest_merges() -> tuple[tuple[int, int], tuple[int, int]]:
@@ -2390,6 +2407,204 @@ def train_recurrent(card: str) -> dict[str, int]:
     return {k: launched[k] + got[k] for k in launched}
 
 
+#: the recovery_sim phase's co-simulated cluster: 4 nodes of 4 InfiniBand
+#: NICs (50 GB/s each), a ring AllReduce of 1 GB, and the buffer each of
+#: the 4 gloo ranks then reduces through the swapped-in program
+RECOVERY_NODES, RECOVERY_RAILS, RECOVERY_PAYLOAD = 4, 4, 1e9
+RECOVERY_ELEMS = 1 << 22           # fp32 elements a rank (16 MiB)
+#: ``python -m repro_torch.analysis cost --corpus`` on the builder corpus:
+#: every lockstep-uniform entry priced to the bit of the event engine's time
+CORPUS_LINE = "210 entries, 182 lockstep-uniform (182 bit-exact)"
+#: the paper's training-overhead job (2.7B parameters, 16-way data
+#: parallel on two 8-GPU InfiniBand servers), 8 gradient syncs with one NIC
+#: failure mid-campaign
+PAPER_JOB = dict(params=2.7e9, dp=16, tp=1, pp=1, global_batch=256, seq_len=2048,
+                 layers=32, hidden=2560, nic_stripe=3)
+
+
+def recovery_data(world: int, elems: int) -> list[np.ndarray]:
+    """Integer-valued fp32 buffers, one a rank, from seed 0: every sum of
+    four is exact, so any order of reduction gives the same bits."""
+    rng = np.random.default_rng(0)
+    return [rng.integers(-64, 64, size=elems).astype(np.float32) for _ in range(world)]
+
+
+def recovery_failures(failures, t_h: float) -> list:
+    """A NIC of node 1 dies a tenth of the way into the collective, then the
+    node's second NIC flaps four times; the third flap inside the window
+    makes the control plane re-select the algorithm mid-collective, with
+    node 1 at half its bandwidth."""
+    return [failures.nic_down_at(1, 0, 0.1 * t_h),
+            *failures.flap_sequence(1, 1, start=0.15 * t_h, period=0.12 * t_h,
+                                    down_for=0.04 * t_h, count=4)]
+
+
+def check_recovery_merges(gen, merges: list[tuple[int, int]]) -> None:
+    """chunk_combine against its plain version at every (rows, M) the
+    swapped-in programs merge, fp32, each (seg, acc) pair (tol 0: one fp32
+    add); then the kernel's, the plain version's and in-place torch.add's
+    time at the largest, beside its bound."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.chunk_combine import chunk_combine_cuda
+    from repro_torch.launch import cost_analysis as CA
+    from repro_torch.launch.profile_kernels import device_ms, host_ms
+
+    for rows, M in sorted(set(merges)):
+        for s, a in ((1, 1), (1, 0), (0, 1), (0, 0)):
+            local = torch.randn(rows, M, device="cuda", generator=gen)
+            recv = torch.randn(rows, M, device="cuda", generator=gen)
+            want = ref.reference_chunk_combine(local, recv, [s] * rows, [a] * rows)
+            got = chunk_combine_cuda(local, recv, [s] * rows, [a] * rows, out=local)
+            if not torch.equal(got, want):
+                raise RuntimeError(f"chunk_combine ({rows}, {M}) seg={s} acc={a}: max_abs_err "
+                                   f"{(got - want).abs().max().item()} (tol 0)")
+    rows, M = max(merges, key=lambda rm: rm[0] * rm[1])
+    local = torch.randn(rows, M, device="cuda", generator=gen)
+    recv = torch.randn(rows, M, device="cuda", generator=gen)
+    seg = acc = [1] * rows
+    t_kernel = time_ms(lambda: chunk_combine_cuda(local, recv, seg, acc, out=local))
+    t_plain = time_ms(lambda: ref.reference_chunk_combine(local, recv, seg, acc))
+    t_lib = time_ms(lambda: torch.add(local, recv, out=local))
+    dev = {n: sum(device_ms(fn).values()) or None for n, fn in (
+        ("kernel", lambda: chunk_combine_cuda(local, recv, seg, acc, out=local)),
+        ("torch.add", lambda: torch.add(local, recv, out=local)))}
+    host = host_ms(lambda: chunk_combine_cuda(local, recv, seg, acc, out=local))
+    bound = CA.chunk_combine_cost((rows, M), torch.float32, seg, acc).bound()["bound_ms"]
+    log("recovery_sim", f"chunk_combine at the swapped-in programs' {len(set(merges))} merge "
+        f"shapes {sorted(set(merges))} fp32, every seg/acc pair: max_abs_err=0 (tol 0); at "
+        f"the largest ({rows}, {M}): kernel {t_kernel:.4f} ms, plain {t_plain:.4f} ms, "
+        f"in-place torch.add {t_lib:.4f} ms (events, back to back: the "
+        f"{3 * rows * M * 4 / 1e6:.1f} MB stay in L2); device time per call "
+        + ", ".join(f"{n} {fmt_ms(t)}" for n, t in dev.items())
+        + f"; the kernel's host time per call {host:.4f} ms; bound {bound:.4f} ms (bytes)")
+
+
+def recovery_rank(rank: int, world: int, device: str, programs: tuple, elems: int) -> dict:
+    """One rank of the swapped-in programs' run: this rank's buffer of
+    ``recovery_data`` through each program (``core.collectives``, every
+    round merged by chunk_combine), held to ``executor_np``'s result for
+    this rank.  Returns the mismatched elements, host seconds and launch
+    counts."""
+    from repro_torch.core import executor_np
+    from repro_torch.core.collectives import DataAxis, execute_program
+    from repro_torch.kernels import ops
+
+    dev = torch.device("cuda:0")
+    data = recovery_data(world, elems)
+    axis = DataAxis()
+    x = torch.from_numpy(data[rank]).to(dev)
+    ops.reset_launch_counts()
+    wrong, seconds = [], []
+    for prog in programs:
+        t0 = time.perf_counter()
+        y = execute_program(x, prog, axis)
+        torch.cuda.synchronize(dev)
+        seconds.append(time.perf_counter() - t0)
+        want = executor_np.execute_program(prog, data)[rank]
+        wrong.append(int((y.cpu().numpy() != want).sum()))
+    return dict(wrong=wrong, seconds=seconds, launches=ops.launch_counts())
+
+
+def recovery_sim(card: str) -> dict[str, int]:
+    """The framework-free recovery runtime on the card's machine, which has
+    no JAX: the analysis gate and the cost conformance sweep; a ring
+    AllReduce co-simulated through a mid-collective NIC failure with the
+    control plane replanning (``score`` alpha_beta, then static) and its
+    payloads held to ``all_reduce_oracle``; each program the control plane
+    swapped in run on WORLD gloo ranks with the rank buffers on the card,
+    every round merged by chunk_combine, equal to ``executor_np``; and the
+    training-campaign overhead of the paper's job.  Returns rank 0's launch
+    counts of the gloo run."""
+    from repro_torch.analysis.__main__ import main as analysis
+    from repro_torch.core import comm_sim, executor_np, failures, topology
+    from repro_torch.core.event_sim import simulate_program
+    from repro_torch.core.schedule import ring_program
+    from repro_torch.launch import ranks
+    from repro_torch.runtime import (ControlPlane, Scenario, run_scenario,
+                                     training_campaign_report)
+
+    phase = "recovery_sim"
+    for argv in ([], ["cost", "--corpus", "--out",
+                      str(REPO / "build" / "analysis" / "cost_report.json")]):
+        t0 = time.perf_counter()
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = analysis(argv)
+        lines = buf.getvalue().splitlines()
+        shown = [ln for ln in lines if ln.startswith(("verified", "lint", "cost conformance"))]
+        log(phase, f"python -m repro_torch.analysis {' '.join(argv[:2]) or '(verify, lint)'}: "
+            f"exit {rc}; "
+            f"{'; '.join(shown)}; {time.perf_counter() - t0:.2f} s on the host")
+        if rc != 0 or not shown:
+            raise RuntimeError(f"repro_torch.analysis {argv} exited {rc}:\n" + "\n".join(lines))
+    if not any(CORPUS_LINE in ln for ln in shown):
+        raise RuntimeError(f"cost --corpus: want {CORPUS_LINE!r}, got {shown}")
+
+    n = RECOVERY_NODES
+    cluster = topology.make_cluster(n, RECOVERY_RAILS, nic_bandwidth=topology.IB_NIC_BW)
+    t_h = simulate_program(ring_program(list(range(n)), n), RECOVERY_PAYLOAD,
+                           cluster=cluster).completion_time
+    data = recovery_data(n, RECOVERY_ELEMS)
+    oracle = executor_np.all_reduce_oracle(data)
+    swapped = []
+    for score in ("alpha_beta", "static"):
+        t0 = time.perf_counter()
+        cp = ControlPlane(cluster, payload_bytes=RECOVERY_PAYLOAD, replan=True, score=score)
+        rep = run_scenario(Scenario("nic_down_then_flaps",
+                                    tuple(recovery_failures(failures, t_h))),
+                           cluster, RECOVERY_PAYLOAD, healthy_time=t_h, rank_data=data,
+                           control_plane=cp, verify_replans=True)
+        secs = time.perf_counter() - t0
+        progs = [d.replan for d in rep.decisions if d.replan is not None]
+        exact = all(np.array_equal(r, oracle) for r in rep.report.rank_data)
+        log(phase, f"co-simulated ring AllReduce of {RECOVERY_PAYLOAD:.0e} B on {n} nodes x "
+            f"{RECOVERY_RAILS} NICs, node 1's NIC 0 down at 0.1 of the healthy "
+            f"{t_h * 1e3:.4f} ms, then 4 flaps of its NIC 1; replan=True score={score}: "
+            f"{rep.report.replans} mid-collective replan(s) to "
+            f"{[p.name for p in progs]} ({[len(p.segments) for p in progs]} segments), "
+            f"ledger strategies {[e.strategy for e in rep.ledger.entries]}, completion "
+            f"{rep.report.completion_time * 1e3:.4f} ms (overhead {rep.overhead:.4f}), "
+            f"ledger total {rep.ledger.total_latency() * 1e3:.4f} ms, final state "
+            f"{rep.final_state.value}; {RECOVERY_ELEMS} fp32 elements a rank equal "
+            f"all_reduce_oracle: {exact}; {secs:.2f} s on the host")
+        if not (progs and rep.report.replans >= 1 and exact):
+            raise RuntimeError(f"co-simulation score={score}: replans {rep.report.replans}, "
+                               f"swapped {progs}, payloads exact {exact}")
+        swapped.append(progs[0])
+
+    merges = [m for p in swapped for m in program_merges(p, RECOVERY_ELEMS)]
+    check_recovery_merges(torch.Generator(device="cuda").manual_seed(1), merges)
+    t0 = time.perf_counter()
+    runs = ranks.run(recovery_rank, WORLD, "cuda", args=(tuple(swapped), RECOVERY_ELEMS))
+    want = counts(chunk_combine=len(merges))
+    r0 = runs[0]
+    log(phase, f"the swapped-in programs {[p.name for p in swapped]} on {WORLD} gloo ranks, "
+        f"{RECOVERY_ELEMS} fp32 elements a rank on the card (host-staged wire): elements "
+        f"unequal to executor_np per rank {[r['wrong'] for r in runs]}; host seconds on "
+        f"rank 0 {[round(s, 4) for s in r0['seconds']]}; launches on rank 0 "
+        f"{r0['launches']} (planned chunk_combine {len(merges)}); "
+        f"{time.perf_counter() - t0:.1f} s with the ranks' start [{card}]")
+    if any(any(r["wrong"]) for r in runs):
+        raise RuntimeError(f"swapped-in programs differ from executor_np: "
+                           f"{[r['wrong'] for r in runs]}")
+    if r0["launches"] != want:
+        raise RuntimeError(f"gloo run launches {r0['launches']} on rank 0, want {want}")
+
+    t0 = time.perf_counter()
+    job = comm_sim.TrainJob(**PAPER_JOB, flops_per_chip=comm_sim.H100_BF16_FLOPS)
+    res = training_campaign_report(
+        job, topology.make_cluster(2, 8, nic_bandwidth=topology.IB_NIC_BW),
+        failures.single_nic_failure(0, 0), iterations=8)
+    log(phase, f"training_campaign_report (2.7B params, dp 16 on 2 x 8 GPUs, 8 syncs, one "
+        f"NIC failure at sync 4): overhead {res.overhead:.6f}, recovery cost "
+        f"{res.recovery_cost * 1e3:.4f} ms from the ledger, DP sync "
+        f"{min(res.dp_comm_times) * 1e3:.4f}-{max(res.dp_comm_times) * 1e3:.4f} ms; "
+        f"{time.perf_counter() - t0:.2f} s on the host")
+    if not 0.0 < res.overhead < 0.01:
+        raise RuntimeError(f"training campaign overhead {res.overhead}, want (0, 0.01)")
+    return r0["launches"]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
@@ -2464,6 +2679,9 @@ def main() -> int:
     t0 = time.perf_counter()
     by_path["train_recurrent"] = train_recurrent(card)
     log("train_recurrent", f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    by_path["recovery_sim"] = recovery_sim(card)
+    log("recovery_sim", f"{time.perf_counter() - t0:.1f} s")
     for row in rows:
         row["launches_by_path"] = {p: c[row["name"]] for p, c in by_path.items()}
         row["launches"] = row["launches_by_path"][MAIN_PATH[row["name"]]]

@@ -195,5 +195,5 @@ def flap_sequence(node: int, rail: int, *, start: float, period: float,
 def silenced(failures: Iterable[Failure]) -> list[Failure]:
     """The same failure schedule with the oracle notification stripped:
     the engine still applies each failure's physics, but the control plane
-    must *infer* it from telemetry (see :mod:`repro.runtime.inference`)."""
+    must *infer* it from telemetry (see :mod:`repro_torch.runtime.inference`)."""
     return [dataclasses.replace(f, silent=True) for f in failures]

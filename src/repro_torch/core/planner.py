@@ -131,9 +131,9 @@ class Planner:
         ``score`` picks the cost model.  ``"alpha_beta"`` (default, the
         original behavior) ranks candidates with the closed-form
         approximations below.  ``"static"`` builds each eligible
-        candidate's *actual* :class:`~repro.core.schedule.CollectiveProgram`
+        candidate's *actual* :class:`~repro_torch.core.schedule.CollectiveProgram`
         and prices it with the static cost analyzer
-        (:func:`repro.analysis.cost.analyze_program`) over the residual
+        (:func:`repro_torch.analysis.cost.analyze_program`) over the residual
         bandwidths — the same lockstep-round walk the event engine's healthy
         completion conforms to, so plan-vs-execution drift collapses to the
         analyzer's pinned tolerance.
@@ -221,9 +221,77 @@ class Planner:
         *,
         g: int,
     ) -> Plan:
-        """``score="static"`` prices built collective programs with the JAX
-        package's static cost analyzer (``analysis/cost.py``), which the
-        port has not copied yet (ROADMAP queue 1, item 7)."""
-        raise NotImplementedError(
-            "score='static' needs the static cost analyzer (analysis/cost.py), "
-            "which the port has not copied yet (ROADMAP queue 1, item 7)")
+        """``score="static"``: price *built programs*, not closed forms.
+
+        Every eligible candidate strategy's real AllReduce decomposition is
+        built through the same single dispatch site the event engine runs
+        (:func:`repro_torch.core.comm_sim._strategy_program`) and priced with the
+        static cost analyzer over the per-node residual bandwidths.  The
+        candidates mirror the alpha-beta branch structure: ring/tree when
+        healthy, balance always under failure, R2CCL-AllReduce with exactly
+        one degraded node (n >= 3), recursive when the bandwidth spectrum
+        has more than one level.  Non-AllReduce collectives are priced on
+        the ring decomposition they would actually run (Table 1 sends them
+        to Balance); the per-collective payload factors cancel in ranking.
+        """
+        # imported lazily: comm_sim and the analysis package both import
+        # this module at load time
+        from repro_torch.analysis.cost import analyze_program
+        from .comm_sim import _strategy_program
+        from .schedule import tree_program
+
+        n = self.cluster.num_nodes
+        bw = self.node_bandwidths(state)
+        degraded = state.degraded_nodes()
+        ring = tuple(range(n))
+        if degraded:
+            rr = bridge_rerank(list(ring),
+                               self.cluster.rail_sets(state.failed_nics))
+            ring = tuple(rr.ring)
+
+        candidates: list[tuple[Strategy, object]] = []
+        if not degraded:
+            candidates.append(
+                (Strategy.RING, _strategy_program("ring", self.cluster,
+                                                  state, g=g)))
+            if payload_bytes <= self.latency_bound_bytes:
+                candidates.append(
+                    (Strategy.TREE, tree_program(list(range(n)), n)))
+        else:
+            candidates.append(
+                (Strategy.BALANCE, _strategy_program("balance", self.cluster,
+                                                     state, g=g)))
+            if (coll is Collective.ALL_REDUCE
+                    and payload_bytes > self.latency_bound_bytes):
+                # r2ccl's partial ring needs the degraded node to retain
+                # *some* bandwidth (the partition domain is X in [0, 1))
+                if (len(degraded) == 1 and n >= 3
+                        and min(bw) > 0.0):
+                    candidates.append(
+                        (Strategy.R2CCL_ALL_REDUCE,
+                         _strategy_program("r2ccl", self.cluster, state,
+                                           g=g)))
+                if len(spectrum_levels(bw)) > 1:
+                    candidates.append(
+                        (Strategy.RECURSIVE,
+                         _strategy_program("recursive", self.cluster, state,
+                                           g=g)))
+
+        scored: list[tuple[float, Strategy]] = []
+        for strat, prog in candidates:
+            rep = analyze_program(prog, payload_bytes, capacities=bw,
+                                  alpha=self.alpha)
+            scored.append((rep.predicted_time, strat))
+        # stable: ties keep candidate order (ring/balance first)
+        best_time, best = min(scored, key=lambda st: st[0])
+
+        worst = min(range(n), key=lambda i: bw[i]) if degraded else None
+        lost = (self.cluster.nodes[worst].lost_fraction(state.failed_nics)
+                if worst is not None else 0.0)
+        return Plan(
+            best, best_time, ring,
+            degraded_node=worst,
+            lost_fraction=lost,
+            bandwidths=tuple(bw),
+            notes=f"static: priced {len(scored)} built program(s)",
+        )

@@ -7,11 +7,15 @@ point-to-point transfers (disjoint sources/destinations — the shape of a
 single permute round) over equal-size chunks of a flat buffer, optionally
 accumulating at the receiver.
 
-In the port the IR is executed by two backends:
+In the port the same IR is executed by four backends:
   * ``core.executor_np``  — rank-parallel numpy oracle (correctness tests,
     traffic accounting, alpha-beta timing);
   * ``core.collectives``  — ``torch.distributed`` point-to-point rounds,
-    one ``batch_isend_irecv`` per step (the training data plane).
+    one ``batch_isend_irecv`` per step (the training data plane);
+  * ``core.event_sim``    — discrete-event cluster simulation (per-link fair
+    sharing, mid-collective failure injection, rollback/retransmit);
+  * ``core.comm_sim``     — closed-form alpha-beta timing, with a
+    ``mode="event"`` switch that delegates to ``core.event_sim``.
 
 Builders for ring ReduceScatter / AllGather / AllReduce / Broadcast and the
 R2CCL decompositions live in ``core.allreduce`` and ``core.recursive``.

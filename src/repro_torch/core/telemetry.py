@@ -29,13 +29,13 @@ story:
 * :class:`Telemetry` — the bundle the event engine consumes: a sampling
   period (virtual seconds), a registry, a trace, and an optional
   ``observer`` called back at every sample tick (the telemetry-inferred
-  failure detector in :mod:`repro.runtime.inference`).
+  failure detector in :mod:`repro_torch.runtime.inference`).
 
 The split matters: the **registry and probe records are the only signals
 a telemetry-driven detector may consume** — the trace additionally logs
 ground truth (failure injections, including ``silent`` ones) so tests and
 benchmarks can score detection latency and false positives/negatives
-against it, and so every :class:`~repro.runtime.control_plane.LedgerEntry`
+against it, and so every :class:`~repro_torch.runtime.control_plane.LedgerEntry`
 is reconstructible from the exported trace
 (:func:`stage_totals_from_trace` / :func:`ledger_entries_from_trace`).
 """

@@ -2,10 +2,9 @@
 
 The port's copy of the JAX package's ``runtime/control_plane.py``, every
 stage included: with ``replan=True`` the planner re-selects the algorithm
-and the replan stage builds its program from the port's schedule IR
-(``core.comm_sim._strategy_program``).  The serving engine runs with
-``replan=False``.  ``score="static"`` still raises at the replan, since the
-port has no static cost analyzer yet.
+(``score="alpha_beta"`` or ``"static"``) and the replan stage builds its
+program from the port's schedule IR (``core.comm_sim._strategy_program``).
+The serving engine runs with ``replan=False``.
 
 R²CCL's headline claim is not any single mechanism but the *pipeline*:
 bilateral-awareness detection, probe triangulation, pre-registered
@@ -21,7 +20,7 @@ Each :meth:`ControlPlane.handle_failure` call plays one failure through the
 stages, drawing every stage's latency from the corresponding offline model
 (:mod:`core.detection`, :mod:`core.migration`, :mod:`core.balance`,
 :mod:`core.planner`) and recording it in a per-stage :class:`RecoveryLedger`.
-The returned :class:`RecoveryDecision` feeds the co-simulated
+The returned :class:`core.event_sim.RecoveryDecision` feeds the co-simulated
 discrete-event engine, so failover latency is *derived* from the pipeline
 instead of the alpha-beta mode's ``R2CCL_MIGRATION_LATENCY`` constant — the
 constant stays as the closed-form approximation and conformance target (a
@@ -33,7 +32,6 @@ from __future__ import annotations
 
 import dataclasses
 import enum
-from typing import Mapping
 
 from repro_torch.core.balance import BalancePlan, rebalance
 from repro_torch.core.comm_sim import DETOUR_EFFICIENCY, _strategy_program
@@ -46,6 +44,7 @@ from repro_torch.core.detection import (
     FailureDetector,
     adaptive_reprobe_period,
 )
+from repro_torch.core.event_sim import ChunkProgress, RecoveryDecision
 from repro_torch.core.telemetry import TraceLog
 from repro_torch.core.failures import OUT_OF_SCOPE, Failure, FailureState, FailureType
 from repro_torch.core.migration import ROLLBACK_CPU_COST, RegistrationTable
@@ -71,71 +70,6 @@ DEFAULT_FLAP_REPLAN_THRESHOLD = 3
 #: historical flap storm would push every later failure on that NIC over the
 #: threshold forever; with it the threshold reflects *recent* flapping only.
 DEFAULT_FLAP_WINDOW = 30.0
-
-
-# -- engine-facing decision types -------------------------------------------
-# Copied from the JAX package's ``core/event_sim.py`` (``RecoveryDecision``
-# and ``ChunkProgress``): the port has no event engine yet, and the control
-# plane is their only producer and consumer here.
-
-@dataclasses.dataclass
-class RecoveryDecision:
-    """What the online control plane tells the engine to do about one failure.
-
-    Returned by ``controller.on_failure``; every field is optional-by-default
-    so a controller can intervene as little or as much as it likes.
-    """
-
-    #: restart delay for transfers rolled back by this failure — derived from
-    #: the detect→diagnose→migrate→rebalance pipeline, replacing the engine's
-    #: closed-form ``repair_latency`` constant
-    repair_latency: float
-    #: per-rank multiplicative factor on residual capacity (rebalance detour
-    #: efficiency); removed again when the failure recovers
-    capacity_scale: Mapping[int, float] | None = None
-    #: new collective program to swap in mid-collective (algorithm
-    #: re-selection); completed chunk work is retained
-    replan: CollectiveProgram | None = None
-    #: virtual time from the failure until the new program is live (the full
-    #: pipeline latency including the replan stage)
-    replan_delay: float = 0.0
-    #: payload the planner priced when choosing ``replan`` — the engine's
-    #: residual (not-yet-settled) bytes at the failure instant, when the
-    #: chunk map was threaded through; None = planned for the full payload
-    replan_payload: float | None = None
-    #: name of the stream ``replan`` swaps the program of (a control plane
-    #: manages one collective; co-running streams keep flowing); None = the
-    #: engine's primary (first) stream
-    replan_stream: str | None = None
-
-
-@dataclasses.dataclass(frozen=True)
-class ChunkProgress:
-    """The engine's chunk-map summary at one instant, planner-facing.
-
-    ``rereduce_bytes`` is payload final at *no* rank (must be re-reduced
-    from pristine contributions), ``deliver_bytes`` is payload final at
-    some rank but still missing elsewhere (a broadcast completes it).
-    Everything else is settled — durably complete at every rank that
-    needs it — and survives a program swap untouched.
-    """
-
-    total_bytes: float
-    rereduce_bytes: float
-    deliver_bytes: float
-
-    @property
-    def residual_bytes(self) -> float:
-        return self.rereduce_bytes + self.deliver_bytes
-
-    @property
-    def settled_bytes(self) -> float:
-        return max(0.0, self.total_bytes - self.residual_bytes)
-
-    @property
-    def residual_fraction(self) -> float:
-        return (self.residual_bytes / self.total_bytes
-                if self.total_bytes > 0 else 0.0)
 
 
 class RecoveryState(enum.Enum):
@@ -167,7 +101,7 @@ class LedgerEntry:
     residual_fraction: float = 1.0
     #: how the pipeline learned of the failure: ``"cqe"`` (oracle transport
     #: event / OOB notify) or ``"monitor"`` (inferred from flow telemetry by
-    #: :mod:`repro.runtime.inference` — no CQE ever fired)
+    #: :mod:`repro_torch.runtime.inference` — no CQE ever fired)
     detected_by: str = "cqe"
 
     @property
@@ -235,7 +169,7 @@ class ControlPlane:
         self.collective = collective
         #: structured trace the pipeline mirrors itself into (``stage`` +
         #: ``transition`` records) — every ledger entry is reconstructible
-        #: from it (:func:`repro.core.telemetry.ledger_entries_from_trace`)
+        #: from it (:func:`repro_torch.core.telemetry.ledger_entries_from_trace`)
         self.trace = trace
         #: name of the engine stream this control plane manages — the
         #: collective whose chunk map prices replans and whose program a

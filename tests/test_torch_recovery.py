@@ -110,20 +110,31 @@ def test_replan_matches_jax(campaign, nodes):
     ledgers (stages, strategy, residual fraction), decisions, chosen and
     carried programs (every segment's steps: perm, send_chunk, recv_chunk,
     accumulate, whole_buffer), transitions and end-of-campaign replans."""
+    replans = _replan_campaign(REPLAN_CAMPAIGNS[campaign], nodes, 4,
+                               score="alpha_beta")
+    assert replans > 0, "the campaign must replan at least once"
+
+
+def _replan_campaign(events, nodes, rails, *, score):
+    """Play ``events`` (ftype, node, rail, kwargs, now, ChunkProgress fields
+    or None) through both control planes with ``replan=True``; assert every
+    observable equal and return how many replans they made."""
     from repro.core.event_sim import ChunkProgress as JChunkProgress
     from repro_torch.runtime.control_plane import ChunkProgress
 
-    jcp = JControlPlane(jmake_cluster(nodes, 4), replan=True)
-    tcp = ControlPlane(make_cluster(nodes, 4), replan=True)
+    jcp = JControlPlane(jmake_cluster(nodes, rails), replan=True, score=score)
+    tcp = ControlPlane(make_cluster(nodes, rails), replan=True, score=score)
     replans = 0
-    for ftype, node, rail, kw, now, prog in REPLAN_CAMPAIGNS[campaign]:
+    for ftype, node, rail, kw, now, prog in events:
         jo = jcp.handle_failure(_failure(jfail, ftype, node, rail, **kw), now,
                                 progress=prog and JChunkProgress(*prog))
         to = tcp.handle_failure(_failure(failures, ftype, node, rail, **kw), now,
                                 progress=prog and ChunkProgress(*prog))
-        assert _entry_fields(to.entry) == _entry_fields(jo.entry)
-        assert dataclasses.asdict(to.decision) == dataclasses.asdict(jo.decision)
-        replans += to.decision.replan is not None
+        assert (to is None) == (jo is None)
+        if jo is not None:
+            assert _entry_fields(to.entry) == _entry_fields(jo.entry)
+            assert dataclasses.asdict(to.decision) == dataclasses.asdict(jo.decision)
+            replans += to.decision.replan is not None
         if kw.get("recovers_at") is not None:
             t = kw["recovers_at"]
             fj = _failure(jfail, ftype, node, rail, **kw)
@@ -139,21 +150,31 @@ def test_replan_matches_jax(campaign, nodes):
     if jprog is not None:
         assert _as_data(tprog) == _as_data(jprog)
         replans += 1
-    assert replans > 0, "the campaign must replan at least once"
     assert [_entry_fields(e) for e in tcp.ledger.entries] == \
         [_entry_fields(e) for e in jcp.ledger.entries]
     assert tcp.ledger.stage_totals() == jcp.ledger.stage_totals()
     assert [(t, s.value) for t, s in tcp.transitions] == \
         [(t, s.value) for t, s in jcp.transitions]
+    return replans
 
 
-def test_replan_with_static_score_is_not_ported():
-    """``score="static"`` prices programs with the static cost analyzer,
-    which the port has not copied: the replan stage raises, naming it."""
-    cp = ControlPlane(make_cluster(2, 2), replan=True, score="static")
-    cp.handle_failure(failures.Failure(failures.FailureType.NIC_HARDWARE, 0, 0), 0.1)
-    with pytest.raises(NotImplementedError, match="queue 1, item 7"):
-        cp.handle_failure(failures.Failure(failures.FailureType.NIC_HARDWARE, 0, 1), 0.2)
+STATIC_CAMPAIGNS = {
+    **{f"replan/{k}": (v, 4, (2, 3, 4)) for k, v in REPLAN_CAMPAIGNS.items()},
+    **{f"plain/{k}": ([(*ev, None) for ev in v], 8, (2, 3)) for k, v in CAMPAIGNS.items()},
+}
+
+
+@pytest.mark.parametrize("campaign", sorted(STATIC_CAMPAIGNS))
+def test_static_replan_matches_jax(campaign):
+    """``ControlPlane(replan=True, score="static")``: the replan stage prices
+    built programs with the static cost analyzer, in the port as in JAX.
+    Every campaign of both tables on every node count: equal ledgers,
+    decisions, programs and transitions."""
+    events, rails, node_counts = STATIC_CAMPAIGNS[campaign]
+    replans = sum(_replan_campaign(events, nodes, rails, score="static")
+                  for nodes in node_counts)
+    if campaign.startswith("replan/"):
+        assert replans > 0, "the campaign must replan at least once"
 
 
 # failure states as failed (node, rail) NICs on 8-NIC nodes
@@ -220,8 +241,41 @@ def test_planner_matches_jax(failed, payload):
         da, db = dataclasses.asdict(a), dataclasses.asdict(b)
         assert da.pop("strategy").value == db.pop("strategy").value
         assert da == db
-    with pytest.raises(NotImplementedError, match="static"):
-        tp.choose_strategy(planner.Collective.ALL_REDUCE, payload, ts, score="static")
+        for score in ("static", "bogus"):
+            assert _plan_or_error(tp, coll, payload, ts, score) == \
+                _plan_or_error(jp, jplanner.Collective(coll.value), payload, js, score)
+
+
+def _plan_or_error(p, coll, payload, state, score):
+    """A plan as plain data (its strategy by value), or the error raised."""
+    try:
+        plan = dataclasses.asdict(p.choose_strategy(coll, payload, state, score=score))
+    except ValueError as e:
+        return type(e).__name__, str(e)
+    plan["strategy"] = plan["strategy"].value
+    return plan
+
+
+@pytest.mark.parametrize("nodes", [2, 3, 4, 6])
+@pytest.mark.parametrize("failed", PROGRAM_STATES)
+def test_static_planner_matches_jax(failed, nodes):
+    """``choose_strategy(score="static")``, which builds every candidate's
+    program and prices it with the static cost analyzer, gives JAX's plan
+    for every collective on every failure state, at payloads below and
+    above ``latency_bound_bytes``."""
+    failed = {(n, r) for n, r in failed if n < nodes}
+    jp = jplanner.Planner(jmake_cluster(nodes, 8))
+    tp = planner.Planner(make_cluster(nodes, 8))
+    assert tp.latency_bound_bytes == jp.latency_bound_bytes
+    payloads = (tp.latency_bound_bytes / 4, tp.latency_bound_bytes,
+                tp.latency_bound_bytes * 4, float(1 << 26))
+    for payload in payloads:
+        for coll in planner.Collective:
+            got = _plan_or_error(tp, coll, payload, failures.FailureState(set(failed)),
+                                 "static")
+            want = _plan_or_error(jp, jplanner.Collective(coll.value), payload,
+                                  jfail.FailureState(set(failed)), "static")
+            assert got == want, (coll, payload)
 
 
 def _as_data(obj):
