@@ -100,7 +100,21 @@ Phases, each printing its own lines and seconds, and raising on failure
                program after a NIC failure on node 1 at step 2; every loss
                and gradient norm finite, the loss falling, the launches as
                planned;
- 14. recovery_sim — the framework-free runtime, on a machine with no JAX:
+ 14. train_pods — the JAX train step's hierarchical pod ring on 8 gloo
+               ranks sharing the card as 2 pods x 4 (``launch.mesh.
+               make_pod_axes``: the configured schedule inside each pod, a
+               ring across the pods): every all-reduce mode on integer-valued
+               fp32 buffers on the card, equal to ``executor_np``'s
+               composition; step 0's bf16 gradients through both levels
+               within 2e-2 a leaf of one flat 8-rank ring; smollm-360m at
+               full width and 16 of 32 layers trained 4 steps, the ring
+               inside the pods switched at step 2 to the degraded R2CCL
+               program in every pod: losses equal on all ranks and falling,
+               chunk_combine launches as the two-level plan, and every
+               rank's bytes on the wire in a ring step equal to the dry
+               run's ``wire_bytes`` of the (2, 4, 1) mesh; then the same
+               run through the training CLI (``--pods 2 --layers 16``);
+ 15. recovery_sim — the framework-free runtime, on a machine with no JAX:
                ``python -m repro_torch.analysis`` (verify + lint) and
                ``cost --corpus`` in process (210 entries, 182 bit-exact); a
                1 GB ring AllReduce on 4 nodes of 4 InfiniBand NICs
@@ -362,6 +376,16 @@ BF16_UNPINNED_FACTOR = 4.0
 R2CCL_COMM = dict(mode="r2ccl", degraded_rank=1, lost_fraction=0.5,
                   devices_per_node=2)
 CLI_NICS = 2               # NICs a node in the CLI failover run
+# the train_pods phase: 8 ranks on the card as 2 pods x 4 (global rank r is
+# pod r // 4, data index r % 4), the schedule inside each pod and a ring
+# across the pods; smollm-360m at full width and 16 of its 32 layers (204.5M
+# params: at the ~21-25 bytes a parameter of the 4-rank runs, 4.1-4.8 GiB a
+# rank, where 32 layers would not fit eight ranks in 80 GB).  Its
+# all-reduces hold POD_ELEMS integer-valued fp32 elements a rank
+PODS, PER_POD, POD_LAYERS, POD_ELEMS = 2, 4, 16, 1 << 20
+POD_MODES = {"ring": dict(mode="ring"), "tree": dict(mode="tree"),
+             "r2ccl": dict(mode="r2ccl", degraded=1, lost_fraction=0.5, g=2),
+             "recursive": dict(mode="recursive", bandwidths=(4, 2, 3, 4.0))}
 
 
 def counts(**nonzero) -> dict[str, int]:
@@ -924,12 +948,29 @@ def planned_merges(sizes: list[int], comm) -> list[tuple[int, int]]:
     return [m for total in sizes for m in program_merges(prog, total)]
 
 
+def pod_merges(sizes: list[int], comm) -> list[tuple[int, int]]:
+    """(rows, M) of every chunk_combine launch one rank of the pod layout
+    makes in one gradient sync: each leaf through the program ``comm``
+    selects inside the pod (PER_POD ranks), then through the ring across
+    the PODS pods."""
+    from repro_torch.core.collectives import program_for
+    inner = program_for(PER_POD, **comm.kwargs())
+    ring = program_for(PODS, mode="ring")
+    return [m for total in sizes for prog in (inner, ring)
+            for m in program_merges(prog, total)]
+
+
 def largest_merges() -> tuple[tuple[int, int], tuple[int, int]]:
-    """(rows, M) of the largest buffer the training phase hands to
+    """(rows, M) of the largest buffer the training phases hand to
     chunk_combine, and of the largest single row (a chunked step): every
-    leaf of smollm-360m through every program it runs."""
-    sizes = leaf_sizes()
-    merges = [m for comm in train_comms().values() for m in planned_merges(sizes, comm)]
+    leaf of smollm-360m through every program the 4-rank phases run, and
+    every leaf of its POD_LAYERS-layer cut through both levels of the
+    train_pods phase (whose 2-rank pod ring merges half a leaf a row)."""
+    from repro_torch.models import get_config
+    comms = train_comms()
+    merges = [m for comm in comms.values() for m in planned_merges(leaf_sizes(), comm)]
+    pod_sizes = leaf_sizes(dataclasses.replace(get_config(ARCH), num_layers=POD_LAYERS))
+    merges += [m for k in ("ring", "degraded") for m in pod_merges(pod_sizes, comms[k])]
     return (max(merges, key=lambda rm: rm[0] * rm[1]),
             max((m for m in merges if m[0] == 1), key=lambda rm: rm[1]))
 
@@ -1546,9 +1587,9 @@ def serve(card: str, phase: str, arch: str, batch: int, prompt: int, context: in
     return launches
 
 
-def rank_batch(cfg, rank: int, step: int, dev) -> dict:
+def rank_batch(cfg, rank: int, step: int, dev, world: int = WORLD) -> dict:
     from repro_torch.data import make_batch
-    b = make_batch(cfg, seq_len=SEQ, batch_size=WORLD * LOCAL_BATCH, step=step)
+    b = make_batch(cfg, seq_len=SEQ, batch_size=world * LOCAL_BATCH, step=step)
     return {k: torch.from_numpy(v[rank * LOCAL_BATCH:(rank + 1) * LOCAL_BATCH]).to(dev)
             for k, v in b.items()}
 
@@ -2285,21 +2326,32 @@ def r2ccl_rank(rank: int, world: int, device: str, arch: str, layers: int) -> di
     every step (this rank's rows of step 0's), so that the losses compare.
     Returns losses, per-step stats, launches and peak memory."""
     from repro_torch.core.collectives import DataAxis
-    from repro_torch.kernels import ops
-    from repro_torch.models import get_config, init_model
-    from repro_torch.optim import AdamWConfig
-    from repro_torch.training import init_train_state, make_train_step
+    from repro_torch.models import get_config
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     cfg = dataclasses.replace(get_config(arch), num_layers=layers)
     dev = torch.device("cuda:0")
     axis = DataAxis()
+    return failover_steps(cfg, (axis,), rank_batch(cfg, rank, 0, dev), dev)
+
+
+def failover_steps(cfg, axes: tuple, batch: dict, dev) -> dict:
+    """TRAIN_STEPS steps of ``cfg`` from seed 0 over the data ``axes``, the
+    training CLI's two pre-built steps (a ring, then after a NIC failure on
+    node 1 at step FAIL_AT the degraded R2CCL program of CLI_NICS NICs a
+    node) on the same ``batch`` every step.  Launch counts are read from 0
+    around the steps.  Returns losses, gradient norms, per-step stats,
+    schedules, launches and peak memory."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import init_model
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.training import init_train_state, make_train_step
+
     state = init_train_state(init_model(cfg, seed=0, device=dev))
-    steps = {name: make_train_step(cfg, AdamWConfig(lr=1e-3), sync="r2ccl", comm=comm,
-                                   axis=axis)
-             for name, comm in train_comms().items() if name != "parity"}
-    batch = rank_batch(cfg, rank, 0, dev)
+    steps = {name: make_train_step(cfg, AdamWConfig(lr=1e-3), sync="r2ccl",
+                                   comm=train_comms()[name], axes=axes)
+             for name in ("ring", "degraded")}
     torch.cuda.reset_peak_memory_stats(dev)
     ops.reset_launch_counts()
     losses, grad_norms, stats, scheds = [], [], [], []
@@ -2405,6 +2457,219 @@ def train_recurrent(card: str) -> dict[str, int]:
             f"{time.perf_counter() - t0:.1f} s")
     got = r2ccl_run(card, phase, "rwkv6-1.6b", RWKV_TRAIN_LAYERS, "sequences")
     return {k: launched[k] + got[k] for k in launched}
+
+
+def pod_oracle(data: list[np.ndarray], inner, ring) -> list[np.ndarray]:
+    """``executor_np``'s result of the pod layout for every rank: ``inner``
+    over each pod's PER_POD buffers, then ``ring`` over the PODS results of
+    each data index."""
+    from repro_torch.core import executor_np
+    pods = [executor_np.execute_program(inner, data[p * PER_POD:(p + 1) * PER_POD])
+            for p in range(PODS)]
+    across = [executor_np.execute_program(ring, [pods[p][d] for p in range(PODS)])
+              for d in range(PER_POD)]
+    return [across[r % PER_POD][r // PER_POD] for r in range(PODS * PER_POD)]
+
+
+def pods_rank(rank: int, world: int, device: str, layers: int) -> dict:
+    """One rank of the train_pods phase, on the pod layout of
+    ``launch.mesh.make_pod_axes`` (PODS pods of PER_POD ranks): (a) each
+    mode of POD_MODES inside the pod, then the ring across the pods, on
+    this rank's POD_ELEMS integer-valued fp32 elements on the card, held to
+    ``pod_oracle``; (c) step 0's gradients of smollm-360m at ``layers``
+    layers synced in the bf16 wire both ways, the ring inside the pods then
+    the ring across them, and one ring over all the ranks (a ``DataAxis``
+    of the default group); (b) TRAIN_STEPS steps of ``make_train_step`` over
+    the axes, the ring switched at FAIL_AT to the degraded R2CCL program
+    inside every pod, the same batch every step.  Returns the unequal
+    elements and launches of (a), the worst leaf of (c), and the losses,
+    gradient norms, per-step stats (``sent_bytes`` among them), launches
+    and peak memory of (b)."""
+    from repro_torch.core.collectives import (DataAxis, program_for, sync_gradients,
+                                              sync_over_axes)
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_pod_axes
+    from repro_torch.models import get_config, init_model
+    from repro_torch.training import compute_loss, param_grads
+    from repro_torch.tree import leaves_with_path
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda:0")
+    pod, data = make_pod_axes(PODS)
+    flat = DataAxis(staging=data.staging)
+    out = {}
+
+    # (a) the hierarchical all-reduce on buffers on the card
+    xs = recovery_data(world, POD_ELEMS)
+    x = torch.from_numpy(xs[rank]).to(dev)
+    ring = program_for(PODS, mode="ring")
+    ops.reset_launch_counts()
+    wrong, seconds = {}, {}
+    for name, kw in POD_MODES.items():
+        t0 = time.perf_counter()
+        y = sync_over_axes(x, (pod, data), mean=False, **kw)
+        torch.cuda.synchronize(dev)
+        seconds[name] = time.perf_counter() - t0
+        want = pod_oracle(xs, program_for(PER_POD, **kw), ring)[rank]
+        wrong[name] = int((y.cpu().numpy() != want).sum())
+    out["collectives"] = dict(wrong=wrong, seconds=seconds, launches=ops.launch_counts())
+    del x, y
+
+    # (c) step 0's gradients, hierarchical against one flat ring, bf16 wire
+    cfg = dataclasses.replace(get_config(ARCH), num_layers=layers)
+    comms = train_comms()
+    params = init_model(cfg, seed=0, device=dev)
+    named = {"/".join(p): t.requires_grad_(True) for p, t in leaves_with_path(params)}
+    total, _ = compute_loss(params, cfg, rank_batch(cfg, rank, 0, dev, world))
+    wire = {n: g.to(torch.bfloat16)
+            for n, g in zip(named, param_grads(total, list(named.values())))}
+    del total, params, named
+    hier = sync_over_axes(wire, (pod, data), mean=True, **comms["ring"].kwargs())
+    ref = sync_gradients(wire, flat, mode="ring", mean=True)
+    rel = {n: float((hier[n].float() - ref[n].float()).norm() / ref[n].float().norm())
+           for n in wire}
+    worst = max(rel, key=rel.get)
+    out["grads"] = dict(worst=worst, rel=rel[worst])
+    del wire, hier, ref
+    torch.cuda.empty_cache()
+
+    # (b) training over the pod axes through the train step
+    out["train"] = failover_steps(cfg, (pod, data), rank_batch(cfg, rank, 0, dev, world), dev)
+    return out
+
+
+def train_pods(card: str) -> dict[str, int]:
+    """The JAX train step's hierarchical pod ring on 8 gloo ranks sharing
+    the card, as PODS pods of PER_POD (``pods_rank``): (a) every mode's
+    all-reduce inside the pods, then the ring across them, equal to
+    ``executor_np``'s; (c) step 0's bf16 hierarchical gradients within
+    SYNC_GRAD_TOL a leaf of one flat 8-rank ring's; (b) smollm-360m at full
+    width and POD_LAYERS layers trained TRAIN_STEPS steps, the ring inside
+    the pods switched to the degraded R2CCL program at FAIL_AT: losses and
+    gradient norms finite and equal on every rank, the loss falling, rank
+    0's launches the plan's, and every rank's bytes on the wire in a ring
+    step equal to ``launch/dryrun.wire_bytes`` of the (2, 4, 1) mesh (a
+    degraded step's at most its count); (d) the same training through the
+    training CLI (``--pods``, ``--layers``) on a new batch a step: losses
+    finite and equal on every rank, launches and wire bytes as in (b).
+    Returns rank 0's launch counts of the CLI run."""
+    from repro_torch.core.collectives import program_for
+    from repro_torch.launch import ranks
+    from repro_torch.launch import train as train_cli
+    from repro_torch.launch.dryrun import wire_bytes
+    from repro_torch.launch.mesh import MeshShape, rules_for
+    from repro_torch.models import get_config, init_model
+
+    phase, world = "train_pods", PODS * PER_POD
+    cfg = dataclasses.replace(get_config(ARCH), num_layers=POD_LAYERS)
+    sizes = leaf_sizes(cfg)
+    comms = train_comms()
+    per_step = {k: len(pod_merges(sizes, comms[k])) for k in ("ring", "degraded")}
+    mesh = MeshShape(("pod", "data", "model"), {"pod": PODS, "data": PER_POD, "model": 1})
+    meta = init_model(cfg, seed=0, device="meta")
+    dry = {k: wire_bytes(cfg, meta, mesh, rules_for(cfg), "r2ccl", comms[k])
+           for k in ("ring", "degraded")}
+    ring = program_for(PODS, mode="ring")
+    planned = sum(len(program_merges(prog, POD_ELEMS)) for kw in POD_MODES.values()
+                  for prog in (program_for(PER_POD, **kw), ring))
+    log(phase, f"{cfg.name}: {POD_LAYERS} of {get_config(ARCH).num_layers} layers (full "
+        f"width, depth cut), {sum(sizes) / 1e6:.1f}M params in {len(sizes)} leaves; {world} "
+        f"ranks on one card as {PODS} pods x {PER_POD}; chunk_combine launches a step a rank "
+        f"(inside the pod, then the pod ring): {per_step}; dry run's wire bytes a rank a "
+        f"step (2, 4, 1) mesh: ring {dry['ring'] / 1e6:.2f} MB, degraded "
+        f"{dry['degraded'] / 1e6:.2f} MB")
+    t0 = time.perf_counter()
+    runs = ranks.run(pods_rank, world, "cuda", args=(POD_LAYERS,))
+    secs = time.perf_counter() - t0
+
+    col = [r["collectives"] for r in runs]
+    log(phase, f"(a) {list(POD_MODES)} inside the pods, then the pod ring, {POD_ELEMS} "
+        f"integer-valued fp32 elements a rank on the card: elements unequal to executor_np "
+        f"per rank {[list(c['wrong'].values()) for c in col]}; host seconds on rank 0 "
+        f"{ {k: round(v, 4) for k, v in col[0]['seconds'].items()} }; launches on rank 0 "
+        f"{col[0]['launches']} (planned chunk_combine {planned})")
+    if any(any(c["wrong"].values()) for c in col):
+        raise RuntimeError(f"hierarchical all-reduce differs from executor_np: "
+                           f"{[c['wrong'] for c in col]}")
+    if col[0]["launches"] != counts(chunk_combine=planned):
+        raise RuntimeError(f"hierarchical all-reduce launches {col[0]['launches']} on rank 0, "
+                           f"want chunk_combine {planned}")
+
+    g = max((r["grads"] for r in runs), key=lambda x: x["rel"])
+    log(phase, f"(c) step 0's synced gradients, bf16 wire: ring inside the pods then the pod "
+        f"ring vs one ring over the {world} ranks, worst leaf of {world} ranks: {g['worst']} "
+        f"||diff||/||g_flat|| = {g['rel']:.3e} (tol {SYNC_GRAD_TOL})")
+    if not g["rel"] <= SYNC_GRAD_TOL:
+        raise RuntimeError(f"hierarchical vs flat synced gradients: {g}")
+
+    tr = [r["train"] for r in runs]
+    r0 = tr[0]
+    losses = r0["losses"]
+    sent = [[st["sent_bytes"] for st in t["stats"]] for t in tr]
+    want = counts(**layer_launches(cfg, TRAIN_STEPS),
+                  chunk_combine=per_step["ring"] * FAIL_AT
+                  + per_step["degraded"] * (TRAIN_STEPS - FAIL_AT))
+    log(phase, f"(b) schedules {r0['scheds']} (the degraded program of a NIC failure on "
+        f"node 1, {CLI_NICS} NICs a node, at step {FAIL_AT} in every pod); {LOCAL_BATCH} "
+        f"sequences of {SEQ} a rank, the same batch every step; losses "
+        f"{[round(x, 6) for x in losses]}; gradient norms "
+        f"{[round(x, 4) for x in r0['grad_norms']]}; launches on rank 0 {r0['launches']}")
+    log(phase, f"bytes sent a rank by step (MB): "
+        f"{[[round(b / 1e6, 2) for b in row] for row in sent]}; dry run ring "
+        f"{dry['ring'] / 1e6:.2f}, degraded {dry['degraded'] / 1e6:.2f} (every rank a "
+        f"source of every step)")
+    log(phase, f"per step: ring (step 1) {split(r0['stats'][1:FAIL_AT])}; degraded r2ccl "
+        f"(step {TRAIN_STEPS - 1}) {split(r0['stats'][-1:])}; peak memory per rank "
+        f"{[round(t['max_memory_allocated'] / 2**30, 2) for t in tr]} GiB [{card}]")
+    if not (np.isfinite(losses + r0["grad_norms"]).all() and losses[-1] < losses[0]
+            and all(t["losses"] == losses and t["grad_norms"] == r0["grad_norms"]
+                    for t in tr)):
+        raise RuntimeError(f"pod run: losses {[t['losses'] for t in tr]}, gradient norms "
+                           f"{[t['grad_norms'] for t in tr]} (want finite, the loss "
+                           "falling, equal on every rank)")
+    if r0["launches"] != want:
+        raise RuntimeError(f"pod run launches {r0['launches']} on rank 0, want {want}")
+
+    def check_sent(sent):
+        if not all(row[i] == dry["ring"] if i < FAIL_AT else row[i] <= dry["degraded"]
+                   for row in sent for i in range(TRAIN_STEPS)):
+            raise RuntimeError(f"bytes sent {sent}, want {dry['ring']} a ring step and at "
+                               f"most {dry['degraded']} a degraded one")
+    check_sent(sent)
+    log(phase, f"{world} ranks {secs:.1f} s with their start; all-reduces equal to "
+        f"executor_np, gradients within tolerance, losses equal and falling, launches and "
+        f"wire bytes as planned")
+
+    # (d) the same layout through the training CLI: --pods builds the axes,
+    # the failure detector's cluster is one pod's ranks, and every step
+    # trains on a new batch (so the loss need not fall)
+    t0 = time.perf_counter()
+    res = train_cli.main([
+        "--arch", ARCH, "--layers", str(POD_LAYERS), "--world-size", str(world),
+        "--pods", str(PODS), "--seq-len", str(SEQ), "--batch", str(world * LOCAL_BATCH),
+        "--steps", str(TRAIN_STEPS), "--sync", "r2ccl", "--comm-mode", "ring",
+        "--fail-at-step", str(FAIL_AT), "--fail-node", "1", "--nics-per-node", str(CLI_NICS),
+        "--log-every", "1"])
+    scheds = ["healthy"] * FAIL_AT + ["degraded"] * (TRAIN_STEPS - FAIL_AT)
+    if res["scheds"] != scheds or res["located"] is None \
+            or not np.isfinite(res["history"]).all() \
+            or any(r["history"] != res["history"] for r in res["ranks"]):
+        raise RuntimeError(f"CLI pod run: schedules {res['scheds']}, located "
+                           f"{res['located']}, losses {[r['history'] for r in res['ranks']]} "
+                           "(want finite and equal on every rank)")
+    if res["launches"] != want:
+        raise RuntimeError(f"CLI pod run launches {res['launches']} on rank 0, want {want}")
+    check_sent([[st["sent_bytes"] for st in r["stats"]] for r in res["ranks"]])
+    st = res["stats"]
+    log(phase, f"(d) CLI --pods {PODS} --layers {POD_LAYERS}: schedules {res['scheds']}, "
+        f"failure located at {res['located']}, losses {[round(x, 6) for x in res['history']]} "
+        f"equal on the {world} ranks; launches on rank 0 {res['launches']} and wire bytes "
+        f"as planned; per step: ring (step 1) {split(st[1:FAIL_AT])}; degraded r2ccl (step "
+        f"{TRAIN_STEPS - 1}) {split(st[-1:])}; peak memory per rank "
+        f"{[round(r['max_memory_allocated'] / 2**30, 2) for r in res['ranks']]} GiB; "
+        f"{time.perf_counter() - t0:.1f} s [{card}]")
+    return res["launches"]
 
 
 #: the recovery_sim phase's co-simulated cluster: 4 nodes of 4 InfiniBand
@@ -2679,6 +2944,9 @@ def main() -> int:
     t0 = time.perf_counter()
     by_path["train_recurrent"] = train_recurrent(card)
     log("train_recurrent", f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    by_path["train_pods"] = train_pods(card)
+    log("train_pods", f"{time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     by_path["recovery_sim"] = recovery_sim(card)
     log("recovery_sim", f"{time.perf_counter() - t0:.1f} s")

@@ -49,4 +49,4 @@ from repro_torch.configs.base import CommConfig  # noqa: F401  (JAX: core/planne
 # collectives imports torch and the kernels; comm_sim imports the planner.
 # Both stay attributes of the package, as in the JAX package.
 from . import collectives, comm_sim  # noqa: F401
-from .collectives import all_reduce, all_reduce_mean, sync_gradients  # noqa: F401
+from .collectives import all_reduce, all_reduce_mean, sync_gradients, sync_over_axes  # noqa: F401

@@ -21,7 +21,9 @@ Public entry points:
     per-rank tensor;
   * ``all_reduce``      — dispatching wrapper (xla | ring | tree | r2ccl |
     recursive);
-  * ``sync_gradients``  — gradient-tree synchronization used by
+  * ``sync_gradients``  — gradient-tree synchronization over one axis;
+  * ``sync_over_axes``  — the same over the data axes of a pod mesh (the
+    schedule inside the pod, a ring across the pods), used by
     ``training.train_step`` with ``sync="r2ccl"``.
 """
 
@@ -84,32 +86,46 @@ class StagingBuffers:
 class DataAxis:
     """The ranks of one data-parallel axis and the transport between them.
 
+    The axis is a ``torch.distributed`` process group (``group``; None is
+    the default group): ``rank`` and ``size`` are the group's own, and the
+    schedules speak group ranks, which ``exchange`` maps to global ranks.
+    A pod mesh has two axes, ``pod`` and ``data`` (``launch.mesh``); the
+    axes of one rank pass one ``staging``, so they share its buffers.
+
     Transport: each :class:`Step` is one round of ``dist.batch_isend_irecv``
-    on the default process group, and an all-reduce is one
-    ``dist.all_reduce``.  A CUDA payload is copied to a pinned host buffer
-    before the send and the received one back to the card, because the
-    group is gloo, which moves host memory, and a machine with one card
-    cannot host two NCCL ranks.  The compute, the merges and the optimizer
-    stay on the card.  A received row is staged on the card at the 16-byte
-    phase of the row it is merged into (:class:`StagingBuffers`).
+    on the group, and an all-reduce is one ``dist.all_reduce``.  A CUDA
+    payload is copied to a pinned host buffer before the send and the
+    received one back to the card, because the group is gloo, which moves
+    host memory, and a machine with one card cannot host two NCCL ranks.
+    The compute, the merges and the optimizer stay on the card.  A received
+    row is staged on the card at the 16-byte phase of the row it is merged
+    into (:class:`StagingBuffers`).
 
     The collectives' ``stats``, when given, is a dict that accumulates
     ``wire_s`` (host clock around each round: staging copies and the
     exchange), ``stage_s`` (the part of it spent in the copies between the
-    card and the pinned buffers) and ``merge_s`` (host clock around each
-    merge, synchronized on the card).
+    card and the pinned buffers), ``merge_s`` (host clock around each
+    merge, synchronized on the card) and ``sent_bytes`` (the bytes this
+    rank sends in the rounds of a program; a library all-reduce moves what
+    gloo's algorithm moves, and is not counted).
     """
 
-    def __init__(self):
-        self.rank = dist.get_rank()
-        self.size = dist.get_world_size()
-        self._staging = StagingBuffers()
+    def __init__(self, group=None, staging: StagingBuffers | None = None):
+        self.group = group
+        self.rank = dist.get_rank(group)
+        self.size = dist.get_world_size(group)
+        self.staging = staging if staging is not None else StagingBuffers()
+
+    def global_rank(self, rank: int) -> int:
+        """The global rank of the axis's ``rank``."""
+        return rank if self.group is None else dist.get_global_rank(self.group, rank)
 
     def exchange(self, payload: torch.Tensor | None, send_to: int | None,
                  recv_from: int | None, like: torch.Tensor,
                  stats: dict | None = None) -> torch.Tensor:
         """One round: send ``payload`` to ``send_to`` and receive a tensor
-        shaped like ``like`` from ``recv_from`` (either may be None).
+        shaped like ``like`` from ``recv_from`` (either may be None; both
+        are ranks of the axis).
         Returns the received tensor on ``like``'s device, or an unread
         scratch tensor of that shape when nothing is received."""
         dev, cpu = like.device, torch.device("cpu")
@@ -117,20 +133,25 @@ class DataAxis:
         p2p = []
         if send_to is not None:
             if staged:
-                host = self._staging.get("send", payload.numel(), payload.dtype, cpu)
+                host = self.staging.get("send", payload.numel(), payload.dtype, cpu)
                 with timed(stats, "stage_s", dev):
                     host.copy_(payload.reshape(-1))
                 payload = host
-            p2p.append(dist.P2POp(dist.isend, payload.contiguous(), send_to))
-        recv_host = self._staging.get("recv", like.numel(), like.dtype, cpu)
+            if stats is not None:
+                stats["sent_bytes"] = (stats.get("sent_bytes", 0)
+                                       + payload.numel() * payload.element_size())
+            p2p.append(dist.P2POp(dist.isend, payload.contiguous(),
+                                  self.global_rank(send_to), self.group))
+        recv_host = self.staging.get("recv", like.numel(), like.dtype, cpu)
         if recv_from is not None:
-            p2p.append(dist.P2POp(dist.irecv, recv_host, recv_from))
+            p2p.append(dist.P2POp(dist.irecv, recv_host, self.global_rank(recv_from),
+                                  self.group))
         if p2p:
             for work in dist.batch_isend_irecv(p2p):
                 work.wait()
         if not staged:
             return recv_host.view(like.shape)
-        recv = self._staging.get("recv", like.numel(), like.dtype, dev,
+        recv = self.staging.get("recv", like.numel(), like.dtype, dev,
                                  phase_of=like).view(like.shape)
         if recv_from is not None:
             with timed(stats, "stage_s", dev):
@@ -142,12 +163,12 @@ class DataAxis:
         for a CUDA tensor); returns a new tensor on ``x``'s device."""
         if x.device.type != "cuda":
             out = x.clone()
-            dist.all_reduce(out)
+            dist.all_reduce(out, group=self.group)
             return out
-        host = self._staging.get("send", x.numel(), x.dtype, torch.device("cpu"))
+        host = self.staging.get("send", x.numel(), x.dtype, torch.device("cpu"))
         with timed(stats, "stage_s", x.device):
             host.copy_(x.reshape(-1))
-        dist.all_reduce(host)
+        dist.all_reduce(host, group=self.group)
         with timed(stats, "stage_s", x.device):
             return host.view(x.shape).to(x.device)
 
@@ -335,3 +356,19 @@ def sync_gradients(grads, axis: DataAxis, *, mode: str = "ring",
         return out / n if mean else out
 
     return tree_map(sync_leaf, grads)
+
+
+def sync_over_axes(grads, axes: Sequence[DataAxis], *, mode: str = "ring",
+                   g: int = 8, mean: bool = True, stats: dict | None = None, **kw):
+    """Synchronize a gradient tree over the data ``axes``, outer first, as
+    the JAX package's train step chains ``sync_gradients`` over its
+    ``data_axes``: the ``mode`` schedule (with ``kw``: ``degraded``,
+    ``lost_fraction``, ``bandwidths``) over the innermost axis, then a ring
+    over each outer axis (the library all-reduce under ``mode="xla"``).
+    With ``mean`` each axis divides by its size after its own sum, in the
+    payload's dtype, as each ``sync_gradients`` does."""
+    grads = sync_gradients(grads, axes[-1], mode=mode, g=g, mean=mean, stats=stats, **kw)
+    for ax in axes[:-1]:
+        grads = sync_gradients(grads, ax, mode="xla" if mode == "xla" else "ring",
+                               g=g, mean=mean, stats=stats)
+    return grads

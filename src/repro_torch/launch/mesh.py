@@ -72,6 +72,40 @@ def make_host_mesh(data: int = 1, model: int = 1, device_type: str = "cuda"):
     return init_device_mesh(device_type, (data, model), mesh_dim_names=("data", "model"))
 
 
+def make_pod_axes(pods: int) -> tuple:
+    """The data axes of a pod layout over the ranks of the default process
+    group: ``(pod, data)`` ``core.collectives.DataAxis``es of ``pods`` pods
+    of ``world // pods`` ranks.  Global rank ``r`` is pod ``r // D``, data
+    index ``r % D``: the order of a ``("pod", "data")`` mesh over the
+    devices reshaped to ``(pods, D)``, and of a batch split over both axes
+    (rank ``r`` takes the ``r``-th share of its rows).  The ``data`` axis
+    runs the configured schedule inside a pod, the ``pod`` axis a ring
+    across the pods (``training.train_step``).
+
+    The groups come from ``dist.new_group``, every rank creating every
+    group in the same order, as the call requires; they take the default
+    group's backend, gloo, which carries the host-staged payloads of CUDA
+    tensors.  (A ``DeviceMesh`` of device type "cuda" would give NCCL
+    groups, which refuse two ranks on one card.)  The two axes share one
+    set of staging buffers.  Raises ``ValueError`` when ``pods`` does not
+    divide the world."""
+    import torch.distributed as dist
+    from repro_torch.core.collectives import DataAxis, StagingBuffers
+
+    world = dist.get_world_size()
+    if pods < 1 or world % pods:
+        raise ValueError(f"{pods} pods do not divide {world} ranks")
+    per_pod = world // pods
+    rank = dist.get_rank()
+    data_groups = [dist.new_group([p * per_pod + d for d in range(per_pod)])
+                   for p in range(pods)]
+    pod_groups = [dist.new_group([p * per_pod + d for p in range(pods)])
+                  for d in range(per_pod)]
+    staging = StagingBuffers()
+    return (DataAxis(pod_groups[rank % per_pod], staging),
+            DataAxis(data_groups[rank // per_pod], staging))
+
+
 def data_axis_names(mesh) -> tuple[str, ...]:
     """The mesh's data-parallel axes, ``pod`` and ``data``, in mesh order."""
     return tuple(a for a in MeshShape.of(mesh).axis_names if a in ("pod", "data"))

@@ -1,15 +1,26 @@
 """Training launcher: data-parallel training on local ranks.
 
 The port of the JAX package's ``launch/train.py``, with its flags plus
-``--world-size`` (ranks, started by ``launch.ranks``) and ``--device``.  On a
-machine with one card every rank runs on ``cuda:0`` and the gradient wire is
-host-staged gloo (``core.collectives``).
+``--world-size`` (ranks, started by ``launch.ranks``), ``--pods``,
+``--layers`` (a cut of depth) and ``--device``.  On a machine with one card
+every rank runs on ``cuda:0`` and the gradient wire is host-staged gloo
+(``core.collectives``).  With ``--pods P`` the ranks form a
+``("pod", "data")`` mesh of P pods (``launch.mesh.make_pod_axes``): the
+schedule runs inside each pod, a ring across the pods, as the JAX package's
+step does over ``data_axes=("pod", "data")``; ``--fail-node`` is then a
+rank of a pod, and every pod runs the degraded program.
 
   python -m repro_torch.launch.train --arch smollm-360m --world-size 4 \\
       --seq-len 512 --batch 8 --steps 4 --sync r2ccl --comm-mode ring \\
       --fail-at-step 2 --fail-node 1
   python -m repro_torch.launch.train --smoke --device cpu --steps 6 \\
       --seq-len 32 --batch 8 --sync r2ccl --fail-at-step 3
+  python -m repro_torch.launch.train --smoke --device cpu --world-size 8 \\
+      --pods 2 --steps 4 --seq-len 16 --batch 16 --sync r2ccl \\
+      --fail-at-step 2 --fail-node 1 --nics-per-node 2
+  python -m repro_torch.launch.train --arch smollm-360m --layers 16 \\
+      --world-size 8 --pods 2 --seq-len 512 --batch 16 --steps 4 \\
+      --sync r2ccl --fail-at-step 2 --fail-node 1 --nics-per-node 2
 
 Rank 0 prints the progress lines; the launcher prints the JAX package's
 closing JSON line (first and last loss, whether it decreased).
@@ -18,6 +29,7 @@ closing JSON line (first and last loss, whether it decreased).
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import time
 
@@ -31,6 +43,7 @@ from repro_torch.core.topology import make_cluster
 from repro_torch.data import make_batch
 from repro_torch.kernels import ops
 from repro_torch.launch import ranks
+from repro_torch.launch.mesh import make_pod_axes
 from repro_torch.models import get_config, get_smoke_config, init_model
 from repro_torch.optim import AdamWConfig
 from repro_torch.training import init_train_state, make_train_step, save_checkpoint
@@ -42,6 +55,9 @@ def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
     ap.add_argument("--arch", default="smollm-360m")
     ap.add_argument("--smoke", action="store_true",
                     help="use the reduced smoke config (CPU-friendly)")
+    ap.add_argument("--layers", type=int, default=0,
+                    help="layers of the model (0 = the config's): a cut of "
+                         "depth at full width, for ranks that share a card")
     ap.add_argument("--steps", type=int, default=50)
     ap.add_argument("--seq-len", type=int, default=128)
     ap.add_argument("--batch", type=int, default=8, help="global batch")
@@ -51,6 +67,9 @@ def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
                     choices=["xla", "ring", "r2ccl", "recursive"])
     ap.add_argument("--world-size", type=int, default=4,
                     help="data-parallel ranks, started as local processes")
+    ap.add_argument("--pods", type=int, default=1,
+                    help="pods of --world-size / --pods ranks each: the "
+                         "schedule runs inside a pod, a ring across pods")
     ap.add_argument("--data-par", type=int, default=0,
                     help="data-parallel degree (0 = --world-size; the port "
                          "has no model axis, so any other value must equal it)")
@@ -65,6 +84,10 @@ def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
     if args.data_par not in (0, args.world_size):
         ap.error(f"--data-par {args.data_par} != --world-size {args.world_size}: "
                  "the port runs data parallelism only")
+    if args.layers < 0:
+        ap.error(f"--layers {args.layers} must be at least 0")
+    if args.pods < 1 or args.world_size % args.pods:
+        ap.error(f"--pods {args.pods} must divide --world-size {args.world_size}")
     if args.batch % args.world_size:
         ap.error(f"--batch {args.batch} must divide over {args.world_size} ranks")
     return args
@@ -78,9 +101,13 @@ def run_rank(rank: int, world: int, device: str, a: dict) -> dict:
     """One rank's training loop (``launch.ranks.run`` calls it)."""
     log = print if rank == 0 else (lambda *_, **__: None)
     cfg = get_smoke_config(a["arch"]) if a["smoke"] else get_config(a["arch"])
+    if a["layers"]:
+        cfg = dataclasses.replace(cfg, num_layers=a["layers"])
     dev = torch.device("cuda:0" if device == "cuda" else "cpu")
-    axis = DataAxis()
-    log(f"arch={cfg.name} ranks={world} device={dev} sync={a['sync']}", flush=True)
+    axes = make_pod_axes(a["pods"]) if a["pods"] > 1 else (DataAxis(),)
+    pods = f" pods={axes[0].size}x{axes[1].size}" if len(axes) > 1 else ""
+    log(f"arch={cfg.name} layers={cfg.num_layers} ranks={world}{pods} device={dev} "
+        f"sync={a['sync']}", flush=True)
 
     params = init_model(cfg, seed=0, device=dev)
     # every rank must start from the same weights (same seed, same device)
@@ -100,17 +127,18 @@ def run_rank(rank: int, world: int, device: str, a: dict) -> dict:
     opt = AdamWConfig(lr=a["lr"])
     comm_healthy = CommConfig(mode=a["comm_mode"] if a["sync"] == "r2ccl" else "xla")
     steps = {"healthy": make_train_step(cfg, opt, sync=a["sync"],
-                                        comm=comm_healthy, axis=axis)}
+                                        comm=comm_healthy, axes=axes)}
     if a["fail_at_step"] is not None and a["sync"] == "r2ccl":
         x = 1.0 / a["nics_per_node"]
         comm_deg = CommConfig(mode="r2ccl", degraded_rank=a["fail_node"],
                               lost_fraction=max(x, 0.34),
                               devices_per_node=a["nics_per_node"])
         steps["degraded"] = make_train_step(cfg, opt, sync="r2ccl",
-                                            comm=comm_deg, axis=axis)
+                                            comm=comm_deg, axes=axes)
 
     detector = FailureDetector(FailureState())
-    cluster = make_cluster(max(world, 2), a["nics_per_node"])
+    # the nodes of one pod, as the JAX package's cluster of mesh.shape["data"]
+    cluster = make_cluster(max(axes[-1].size, 2), a["nics_per_node"])
     lb = a["batch"] // world
     active = "healthy"
     history, scheds, step_stats = [], [], []

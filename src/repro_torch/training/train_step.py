@@ -1,12 +1,12 @@
 """Training step with pluggable gradient synchronization.
 
-The port of the JAX package's ``training/train_step.py``, for one data axis
-(the ranks of a :class:`~repro_torch.core.collectives.DataAxis`, each with
-its own share of the global batch):
+The port of the JAX package's ``training/train_step.py``, over the data
+axes of a mesh (each a :class:`~repro_torch.core.collectives.DataAxis`;
+every rank holds its own share of the global batch):
 
   * ``sync="xla"``   — autograd, then an all-reduce mean of the float32
-    gradients (``dist.all_reduce``; the baseline).  Without an axis the
-    step trains on one process.
+    gradients over every rank (``dist.all_reduce``; the baseline).  Without
+    an axis the step trains on one process.
   * ``sync="r2ccl"`` — autograd, then the gradients, cast to the wire dtype
     (``CommConfig.comm_dtype``), are synchronized by an explicit R2CCL
     collective program (ring / tree / r2ccl-allreduce / recursive, per the
@@ -14,19 +14,22 @@ its own share of the global batch):
     kernel; the metrics are averaged over the ranks.  Failure-aware
     schedules switch here without touching the model code.
 
-The JAX package's hierarchical pod ring and the model axes of its mesh
-(tensor parallelism) are not ported (ROADMAP.md).
+Multi-pod meshes sync hierarchically, as the JAX package's step does: the
+configured schedule runs over the innermost (intra-pod ``data``) axis, then
+an explicit ring combines over each outer (``pod``) axis.  The model axes of
+the JAX package's mesh (tensor parallelism) are not ported (ROADMAP.md).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Callable
 
 import torch
 
 from repro_torch.configs.base import CommConfig, ModelConfig
-from repro_torch.core.collectives import DataAxis, all_reduce_mean, sync_gradients
+from repro_torch.core.collectives import DataAxis, all_reduce_mean, sync_over_axes
 from repro_torch.device import timed
 from repro_torch.models import apply_model
 from repro_torch.models.layers import cross_entropy
@@ -83,26 +86,43 @@ def make_train_step(
     sync: str = "xla",                     # "xla" | "r2ccl"
     comm: CommConfig | None = None,
     axis: DataAxis | None = None,
+    axes: tuple[DataAxis, ...] | None = None,
     total_steps: int = 10_000,
     warmup_steps: int = 100,
 ) -> Callable:
     """Builds ``train_step(state, batch, stats=None) -> (state, metrics)``.
 
-    ``batch`` holds this rank's rows of the global batch as tensors on the
-    params' device.  ``comm.mode`` selects the gradient AllReduce schedule in
-    r2ccl sync: "ring", "tree", "r2ccl" (failure-aware decomposition for
-    ``comm.degraded_rank``), "recursive" (multi-failure bandwidth spectrum)
-    or "xla" (``dist.all_reduce`` — for parity tests).  The step updates the
+    ``axes`` are the data axes, outer first (``launch.mesh.make_pod_axes``:
+    pod, then data), the counterpart of the JAX package's ``data_axes``;
+    ``axis`` is the one-axis spelling.  Together they take every rank of the
+    default process group.  ``batch`` holds this rank's rows of the global
+    batch as tensors on the params' device.
+
+    ``comm.mode`` selects the gradient AllReduce schedule of the innermost
+    axis in r2ccl sync: "ring", "tree", "r2ccl" (failure-aware decomposition
+    for ``comm.degraded_rank``, a rank of that axis: every pod runs the same
+    program), "recursive" (multi-failure bandwidth spectrum) or "xla"
+    (``dist.all_reduce`` — for parity tests); each outer axis then runs a
+    ring (``dist.all_reduce`` under "xla").  The step updates the
     state's tensors in place (``optim.adamw``).  ``stats``, when given,
     accumulates host seconds (synchronized on the card) under ``fwd_bwd_s``,
     ``sync_s`` (of which ``wire_s``, itself holding ``stage_s``, and
-    ``merge_s``) and ``opt_s``.
+    ``merge_s``) and ``opt_s``, and the bytes the rank sends in the
+    programs' rounds under ``sent_bytes``.
     """
     comm = comm or CommConfig()
     if sync not in ("xla", "r2ccl"):
         raise ValueError(f"unknown sync mode {sync!r}")
-    if sync == "r2ccl" and axis is None:
+    if axis is not None and axes is not None:
+        raise ValueError("pass the data axis as axis= or axes=, not both")
+    axes = tuple(axes) if axes is not None else (axis,) if axis is not None else ()
+    if sync == "r2ccl" and not axes:
         raise ValueError("r2ccl sync needs the data axis (a DataAxis)")
+    # the xla sync and the metrics reduce over every rank at once
+    span = axes[0] if len(axes) == 1 else DataAxis(staging=axes[-1].staging) if axes else None
+    if span is not None and math.prod(a.size for a in axes) != span.size:
+        raise ValueError(f"data axes of {[a.size for a in axes]} ranks do not take "
+                         f"the {span.size} ranks of the process group")
     wire_t = WIRE_DTYPES[comm.comm_dtype]
 
     def grads_and_metrics(params, batch):
@@ -114,7 +134,7 @@ def make_train_step(
     def mean_metrics(metrics):
         keys = sorted(metrics)
         vec = torch.stack([metrics[k].float() for k in keys])
-        vec = axis.all_reduce_sum(vec) / axis.size
+        vec = span.all_reduce_sum(vec) / span.size
         return dict(zip(keys, vec.unbind(0)))
 
     def train_step(state: TrainState, batch, stats: dict | None = None):
@@ -123,16 +143,17 @@ def make_train_step(
             grads, metrics = grads_and_metrics(state.params, batch)
         with timed(stats, "sync_s", device):
             if sync == "xla":
-                if axis is not None:
-                    grads = tree_map(lambda g: all_reduce_mean(g, axis, stats=stats),
+                if span is not None:
+                    grads = tree_map(lambda g: all_reduce_mean(g, span, stats=stats),
                                      grads)
                     metrics = mean_metrics(metrics)
             else:
                 orig = tree_map(lambda g: g.dtype, grads)
                 wire = tree_map(lambda g: g.to(wire_t), grads)
                 del grads
-                wire = sync_gradients(wire, axis, mean=True, stats=stats,
-                                      **comm.kwargs())
+                # the configured (failure-aware) schedule inside the pod,
+                # then a ring across the pods; each mean in the wire dtype
+                wire = sync_over_axes(wire, axes, mean=True, stats=stats, **comm.kwargs())
                 grads = tree_map(lambda g, t: g.to(t), wire, orig)
                 del wire
                 metrics = mean_metrics(metrics)

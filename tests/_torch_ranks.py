@@ -55,9 +55,11 @@ def collectives_rank(rank, world, device, modes, programs):
 def train_rank(rank, world, device, spec):
     """``spec``: arch, the JAX-initialised params (numpy tree), steps,
     seq_len, global batch, ``cycle`` (step i trains on batch i % cycle), lr,
-    warmup/total steps and a list of (first step, sync, CommConfig kwargs)
-    phases.  Returns the
-    losses and rank 0's final params as numpy arrays (by path)."""
+    warmup/total steps, a list of (first step, sync, CommConfig kwargs)
+    phases and, optionally, ``pods`` (the ranks as a ``("pod", "data")``
+    mesh of that many pods, ``launch.mesh.make_pod_axes``).  Returns the
+    losses, the bytes this rank sent each step, the sum of this rank's final
+    params and rank 0's final params as numpy arrays (by path)."""
     from repro_torch.configs.base import CommConfig
     from repro_torch.core.collectives import DataAxis
     from repro_torch.data import make_batch
@@ -70,23 +72,69 @@ def train_rank(rank, world, device, spec):
     cfg = get_smoke_config(spec["arch"])
     params = params_from_jax(spec["params"], device=device)
     state = init_train_state(params)
-    axis = DataAxis()
+    if spec.get("pods", 1) > 1:
+        from repro_torch.launch.mesh import make_pod_axes
+        axes = make_pod_axes(spec["pods"])
+    else:
+        axes = (DataAxis(),)
     phases = [(start, make_train_step(cfg, AdamWConfig(lr=spec["lr"]), sync=sync,
                                       comm=CommConfig(**comm) if comm else None,
-                                      axis=axis, warmup_steps=spec["warmup"],
+                                      axes=axes, warmup_steps=spec["warmup"],
                                       total_steps=spec["total"]))
               for start, sync, comm in spec["phases"]]
     lb = spec["batch"] // world
-    losses = []
+    losses, sent = [], []
     for i in range(spec["steps"]):
         step = [fn for start, fn in phases if start <= i][-1]
         b = make_batch(cfg, seq_len=spec["seq_len"], batch_size=spec["batch"],
                        step=i % spec["cycle"])
         batch = {k: torch.from_numpy(v[rank * lb:(rank + 1) * lb]) for k, v in b.items()}
-        state, m = step(state, batch)
+        stats: dict = {}
+        state, m = step(state, batch, stats=stats)
         losses.append(float(m["loss"]))
+        sent.append(stats.get("sent_bytes", 0))
     flat = {"/".join(p): t.detach().numpy() for p, t in leaves_with_path(state.params)}
-    return {"losses": losses, "params": flat if rank == 0 else None}
+    return {"losses": losses, "sent_bytes": sent,
+            "checksum": float(sum(v.astype(np.float64).sum() for v in flat.values())),
+            "params": flat if rank == 0 else None}
+
+
+def pods_rank(rank, world, device, pods, modes, tree_seed):
+    """On a ``("pod", "data")`` layout of ``pods`` pods
+    (``launch.mesh.make_pod_axes``): each of ``modes`` — (mode, kwargs,
+    (world, L) data) — through ``sync_over_axes`` (the data axis's schedule,
+    then a ring over the pod axis, as the train step chains them), summing;
+    then a bf16 tree (``np.random.default_rng(tree_seed
+    + rank)``) through the degraded R2CCL program (degraded 1, lost 0.5, g 2)
+    and the pod ring, mean.  Returns the sums and the merges each made, the
+    tree, the axes' ranks, sizes and global ranks, and what ``make_pod_axes``
+    says of a pod count that does not divide the world."""
+    from repro_torch.core.collectives import sync_over_axes
+    from repro_torch.launch.mesh import make_pod_axes
+
+    pod, data = make_pod_axes(pods)
+    calls = _count_merges()
+    out = {"modes": []}
+    for mode, kw, x in modes:
+        calls[0] = 0
+        y = sync_over_axes(torch.from_numpy(x[rank]).to(device), (pod, data), mode=mode,
+                           mean=False, **kw)
+        out["modes"].append((y.cpu().numpy(), calls[0]))
+    rng = np.random.default_rng(tree_seed + rank)
+    tree = {"w": torch.from_numpy(rng.normal(size=(5, 7)).astype(np.float32)).bfloat16(),
+            "b": torch.from_numpy(rng.normal(size=3).astype(np.float32)).bfloat16()}
+    synced = sync_over_axes(tree, (pod, data), mode="r2ccl", mean=True, degraded=1,
+                            lost_fraction=0.5, g=2)
+    out["tree"] = {k: (v.dtype == torch.bfloat16, v.view(torch.int16).numpy())
+                   for k, v in synced.items()}
+    out["axes"] = [(a.rank, a.size, [a.global_rank(r) for r in range(a.size)])
+                   for a in (pod, data)]
+    try:
+        make_pod_axes(3)
+        out["refused"] = None
+    except ValueError as e:
+        out["refused"] = str(e)
+    return out
 
 
 def sharding_rank(rank, world, device, arch, modes):

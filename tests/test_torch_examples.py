@@ -51,3 +51,13 @@ def test_examples_default_to_the_card():
         pytest.skip("a card is present: the default device runs")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         _load("torch_serve_resilient").main([])
+
+
+def test_collective_demo_prints_what_the_jax_demo_prints(capsys):
+    """The collective demo from the port's copies of the framework-free
+    modules says what ``examples/collective_demo.py`` says, line for line."""
+    _load("collective_demo").main()
+    want = capsys.readouterr().out.splitlines()
+    _load("torch_collective_demo").main()
+    got = capsys.readouterr().out.splitlines()
+    assert len(want) > 20 and got == want

@@ -1,6 +1,6 @@
 """The port stands alone: no file of ``src/repro_torch/`` (nor the root
-``chip_smoke.py``) imports JAX or the JAX package ``repro``, and importing
-the serving path loads no JAX."""
+``chip_smoke.py``, nor the port's ``examples/torch_*.py``) imports JAX or
+the JAX package ``repro``, and importing the serving path loads no JAX."""
 
 import ast
 import os
@@ -13,7 +13,8 @@ import pytest
 
 REPO = Path(__file__).resolve().parents[1]
 PORT = REPO / "src" / "repro_torch"
-FILES = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+FILES = (sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+         + sorted((REPO / "examples").glob("torch_*.py")))
 
 
 def _forbidden(name: str) -> bool:
