@@ -30,8 +30,12 @@ Phases, each printing its own lines and seconds, and raising on failure
                the batch request equal the predicted argument bytes
                (memory_allocated's gain printed beside them, with the
                allocator's rounding); then the bounds of every
-               configuration served or trained here.  Every serve phase
-               prints its TTFT and TPOT as a share of the dry run's bound;
+               configuration served or trained here, and smollm-360m's
+               train_4k step on the 16x16 mesh with its sharded step's
+               collectives counted by kind (the step on meta DTensors over
+               a fake group) beside the data-parallel term.  Every serve
+               phase prints its TTFT and TPOT as a share of the dry run's
+               bound;
   5. serve_recurrentgemma — the same for full-width recurrentgemma-9b (38
                layers, 9.4B fp32 params): 2 requests of 2304-token prompts, more
                than the 2048-token local-attention window, so prefill wraps the
@@ -49,8 +53,10 @@ Phases, each printing its own lines and seconds, and raising on failure
                flash_attention launch per layer per prefill; for dbrx the
                tokens whose expert set differs between the kernels' and the
                plain versions' prefill are counted and held to a share
-               (ROUTE_FLIP_LIMIT), and the logits check pins the plain run
-               to the kernels' experts;
+               (ROUTE_FLIP_LIMIT), the logits check pins the plain run
+               to the kernels' experts, and one more prefill on the scatter
+               dispatch with the expert axis ``model`` equals, to the bit,
+               the same prefill without it;
   8. serve_deepseekv3 — the same for deepseek-v3-671b at full width and 4
                of 61 layers (3 dense + 1 MoE of 256 experts, top 8, one
                shared; 60.4 GB), its MTP head off (train-only): Multi-head
@@ -102,7 +108,7 @@ Phases, each printing its own lines and seconds, and raising on failure
                planned;
  14. train_pods — the JAX train step's hierarchical pod ring on 8 gloo
                ranks sharing the card as 2 pods x 4 (``launch.mesh.
-               make_pod_axes``: the configured schedule inside each pod, a
+               make_data_axes(4, 1, 2)``: the configured schedule inside each pod, a
                ring across the pods): every all-reduce mode on integer-valued
                fp32 buffers on the card, equal to ``executor_np``'s
                composition; step 0's bf16 gradients through both levels
@@ -114,6 +120,17 @@ Phases, each printing its own lines and seconds, and raising on failure
                rank's bytes on the wire in a ring step equal to the dry
                run's ``wire_bytes`` of the (2, 4, 1) mesh; then the same
                run through the training CLI (``--pods 2 --layers 16``);
+14b. train_model_axis — the training CLI's model axis: 4 data x 2 model
+               gloo ranks on the card (``launch.mesh.make_data_axes``, the
+               model ranks of a data index on the same rows), smollm-360m at
+               16 of 32 layers, a ring then the degraded R2CCL program from
+               step 2: 4 steps of ``make_train_step`` on one repeated batch
+               (losses finite, equal on all ranks and falling), then 6
+               steps of ``--world-size 8 --data-par 4`` (a new batch a
+               step: losses finite and equal on all ranks); every rank's
+               params checksum equal to the bit; launches as planned; a
+               ring step's bytes equal to ``wire_bytes`` of the replicated
+               (4, 2) mesh;
  15. recovery_sim — the framework-free runtime, on a machine with no JAX:
                ``python -m repro_torch.analysis`` (verify + lint) and
                ``cost --corpus`` in process (210 entries, 182 bit-exact); a
@@ -144,6 +161,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import io
 import json
 import os
@@ -208,6 +226,8 @@ GQA = {
     "serve_deepseek67b": ("deepseek-67b", 8, 4, 512, 1024, dict(flash_attention=8)),
     "serve_dbrx": ("dbrx-132b", 4, 4, 512, 1024, dict(flash_attention=4)),
 }
+#: the serve phase that also runs a prefill with the expert axis
+EXPERT_AXIS_PHASE = "serve_dbrx"
 #: MLA, full width at a cut depth: as GQA, then the config's fields to
 #: override.  deepseek-v3-671b's 4 layers are its 3 dense lead layers and one
 #: MoE layer (60.4 GB of fp32 weights; a second MoE layer would need 106 GB).
@@ -383,6 +403,11 @@ CLI_NICS = 2               # NICs a node in the CLI failover run
 # rank, where 32 layers would not fit eight ranks in 80 GB).  Its
 # all-reduces hold POD_ELEMS integer-valued fp32 elements a rank
 PODS, PER_POD, POD_LAYERS, POD_ELEMS = 2, 4, 16, 1 << 20
+#: the train_model_axis phase: the training CLI's ranks as MA_DATA data x
+#: MA_MODEL model (``--data-par``) on the card, smollm-360m at POD_LAYERS
+#: layers, MA_STEPS steps (the degraded program from FAIL_AT on); the data
+#: axis has WORLD ranks, as the 4-rank phases' programs
+MA_DATA, MA_MODEL, MA_STEPS = WORLD, 2, 6
 POD_MODES = {"ring": dict(mode="ring"), "tree": dict(mode="tree"),
              "r2ccl": dict(mode="r2ccl", degraded=1, lost_fraction=0.5, g=2),
              "recursive": dict(mode="recursive", bandwidths=(4, 2, 3, 4.0))}
@@ -1580,11 +1605,44 @@ def serve(card: str, phase: str, arch: str, batch: int, prompt: int, context: in
             raise RuntimeError(f"prefill logits kernel vs plain, {dtype} residual: "
                                f"max_abs_err {err}, top-1 equal {same.tolist()} "
                                f"(decided {decided.tolist()})")
+    if phase == EXPERT_AXIS_PHASE:
+        expert_axis_prefill(phase, params, cfg, toks, batch, context)
     log(phase, f"peak memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB "
         f"(torch.cuda.max_memory_allocated)")
     del params, failing, logits, routes, a, b
     torch.cuda.empty_cache()
     return launches
+
+
+def expert_axis_prefill(phase: str, params, cfg, toks, batch: int, context: int) -> None:
+    """One more prefill through the kernels with every MoE layer on the
+    scatter dispatch and the expert axis ``model`` (JAX's
+    ``expert_sharding``, ``--variant expert_axis=model``), held equal to
+    the bit to the same prefill without the axis: on plain tensors the
+    constraint on the dispatch buffers is the identity."""
+    from repro_torch.models import apply_model, init_caches
+    from repro_torch.models import moe as MOE
+
+    plain_ffn = MOE.moe_ffn
+    MOE.moe_ffn = functools.partial(plain_ffn, dispatch="scatter")
+    try:
+        out = {}
+        for axis in (None, "model"):
+            c = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, expert_axis=axis))
+            with torch.no_grad():
+                out[axis] = apply_model(
+                    params, c, {"tokens": toks}, mode="prefill",
+                    caches=init_caches(c, batch, context, dtype=torch.float32,
+                                       device="cuda"))[0][:, -1].float()
+    finally:
+        MOE.moe_ffn = plain_ffn
+    a, b = out[None], out["model"]
+    same = torch.equal(a, b)
+    log(phase, f"scatter dispatch, prefill logits with expert_axis='model' vs without: "
+        f"equal to the bit {same} (max_abs_err {(a - b).abs().max().item():.3e}), "
+        f"finite {bool(torch.isfinite(a).all())}")
+    if not (same and torch.isfinite(a).all()):
+        raise RuntimeError("the expert axis changed the prefill logits on plain tensors")
 
 
 def rank_batch(cfg, rank: int, step: int, dev, world: int = WORLD) -> dict:
@@ -1644,7 +1702,7 @@ def parity_rank(rank: int, world: int, device: str, _unused) -> dict:
                              ("r2ccl", "r2ccl", CommConfig(**R2CCL_COMM))):
         state = init_train_state(init_model(cfg, seed=0, device=dev))
         step = make_train_step(cfg, AdamWConfig(lr=1e-3), sync=sync, comm=comm,
-                               axis=axis, warmup_steps=1, total_steps=100)
+                               axes=(axis,), warmup_steps=1, total_steps=100)
         torch.cuda.reset_peak_memory_stats(dev)
         ops.reset_launch_counts()
         losses, stats = [], []
@@ -2037,6 +2095,24 @@ def roofline(card: str) -> dict[str, int]:
             + (f"{dec['bound_s'] * 1e3:.3f} ms ({dec['bottleneck']})" if dec else "—")
             + f" | {arg / 1e9:.2f} | {'yes' if fits else 'no'} | "
             f"({time.perf_counter() - t0:.1f} s)")
+
+    # the sharded step's collectives (launch/dryrun.py: the step on meta
+    # DTensors over a fake group of 256 ranks), beside the data-parallel term
+    t0 = time.perf_counter()
+    res = DR.dryrun_one(ARCH, "train_4k", verbose=False)
+    wire = res["collective_wire_bytes"]
+    log(phase, f"{ARCH} train_4k on the 16x16 mesh (rules auto, sync xla), wire bytes a "
+        f"device a step by kind (GB): "
+        f"{ {k: round(v / 1e9, 3) for k, v in wire.items()} }; operations by kind "
+        f"{res['collective_op_counts']}; the data-parallel term (gradient-sync) "
+        f"{wire['gradient-sync'] / 1e9:.3f} GB of {res['wire_bytes_per_device'] / 1e9:.3f} GB; "
+        f"collective term {res['roofline']['collective_s'] * 1e3:.3f} ms at "
+        f"{H100_SXM.nic_bw / 1e9:.0f} GB/s ({res['roofline']['bottleneck']}); "
+        f"extrapolated from 1 and 2 layers: {res['collectives_extrapolated']}; "
+        f"counted on torch {res['collectives_torch']}; {time.perf_counter() - t0:.1f} s")
+    if not (res["wire_bytes_per_device"] > wire["gradient-sync"] > 0
+            and sum(res["collective_op_counts"].values()) > 0):
+        raise RuntimeError(f"sharded count of {ARCH} train_4k: {wire}")
     return total
 
 
@@ -2342,7 +2418,8 @@ def failover_steps(cfg, axes: tuple, batch: dict, dev) -> dict:
     node 1 at step FAIL_AT the degraded R2CCL program of CLI_NICS NICs a
     node) on the same ``batch`` every step.  Launch counts are read from 0
     around the steps.  Returns losses, gradient norms, per-step stats,
-    schedules, launches and peak memory."""
+    schedules, launches, peak memory and the final params' checksum."""
+    from repro_torch.launch.train import params_checksum
     from repro_torch.kernels import ops
     from repro_torch.models import init_model
     from repro_torch.optim import AdamWConfig
@@ -2367,7 +2444,8 @@ def failover_steps(cfg, axes: tuple, batch: dict, dev) -> dict:
         scheds.append(active)
     return dict(losses=losses, grad_norms=grad_norms, stats=stats, scheds=scheds,
                 launches=ops.launch_counts(),
-                max_memory_allocated=torch.cuda.max_memory_allocated(dev))
+                max_memory_allocated=torch.cuda.max_memory_allocated(dev),
+                checksum=params_checksum(state.params))
 
 
 def r2ccl_run(card: str, phase: str, arch: str, layers: int, rows: str) -> dict[str, int]:
@@ -2473,7 +2551,7 @@ def pod_oracle(data: list[np.ndarray], inner, ring) -> list[np.ndarray]:
 
 def pods_rank(rank: int, world: int, device: str, layers: int) -> dict:
     """One rank of the train_pods phase, on the pod layout of
-    ``launch.mesh.make_pod_axes`` (PODS pods of PER_POD ranks): (a) each
+    ``launch.mesh.make_data_axes(PER_POD, 1, PODS)`` (PODS pods of PER_POD ranks): (a) each
     mode of POD_MODES inside the pod, then the ring across the pods, on
     this rank's POD_ELEMS integer-valued fp32 elements on the card, held to
     ``pod_oracle``; (c) step 0's gradients of smollm-360m at ``layers``
@@ -2488,7 +2566,7 @@ def pods_rank(rank: int, world: int, device: str, layers: int) -> dict:
     from repro_torch.core.collectives import (DataAxis, program_for, sync_gradients,
                                               sync_over_axes)
     from repro_torch.kernels import ops
-    from repro_torch.launch.mesh import make_pod_axes
+    from repro_torch.launch.mesh import make_data_axes
     from repro_torch.models import get_config, init_model
     from repro_torch.training import compute_loss, param_grads
     from repro_torch.tree import leaves_with_path
@@ -2496,7 +2574,7 @@ def pods_rank(rank: int, world: int, device: str, layers: int) -> dict:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda:0")
-    pod, data = make_pod_axes(PODS)
+    pod, data = make_data_axes(PER_POD, 1, PODS)
     flat = DataAxis(staging=data.staging)
     out = {}
 
@@ -2669,6 +2747,131 @@ def train_pods(card: str) -> dict[str, int]:
         f"{TRAIN_STEPS - 1}) {split(st[-1:])}; peak memory per rank "
         f"{[round(r['max_memory_allocated'] / 2**30, 2) for r in res['ranks']]} GiB; "
         f"{time.perf_counter() - t0:.1f} s [{card}]")
+    return res["launches"]
+
+
+def model_axis_rank(rank: int, world: int, device: str, _unused) -> dict:
+    """One rank of the model-axis layout (``launch.mesh.make_data_axes(
+    MA_DATA, MA_MODEL)``): smollm-360m at POD_LAYERS layers through
+    ``failover_steps`` on its data index's rows of step 0's batch every
+    step."""
+    from repro_torch.launch.mesh import make_data_axes
+    from repro_torch.models import get_config
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = dataclasses.replace(get_config(ARCH), num_layers=POD_LAYERS)
+    dev = torch.device("cuda:0")
+    axes = make_data_axes(MA_DATA, MA_MODEL)
+    return failover_steps(cfg, axes, rank_batch(cfg, rank // MA_MODEL, 0, dev, MA_DATA), dev)
+
+
+def train_model_axis(card: str) -> dict[str, int]:
+    """The training CLI's model axis on the card: 4 data x 2 model gloo
+    ranks (``launch.mesh.make_data_axes``; the JAX package's
+    ``make_host_mesh(data=4, model=2)`` with the batch on ``data``),
+    smollm-360m at full width and POD_LAYERS layers, LOCAL_BATCH x SEQ
+    tokens a data index (its two model ranks take the same rows), r2ccl
+    sync: a ring, then the degraded R2CCL program of a NIC failure on node
+    1 (CLI_NICS NICs a node) from FAIL_AT.  (a) TRAIN_STEPS steps through
+    ``make_train_step`` on the same batch every step (``model_axis_rank``):
+    the losses finite, equal on every rank and falling.  (b) MA_STEPS steps
+    through the training CLI as a user runs it (``--world-size 8 --data-par
+    4``, a new batch a step, its default learning rate warmed up over 100
+    steps, so the loss need not fall): the losses finite and equal on every
+    rank, and the switch to the degraded program.  In both, every rank's
+    params checksum equal to the bit (the model ranks run the same
+    deterministic kernels on the same rows, and the ring leaves every data
+    rank the same sums) and rank 0's launches the plan's; in (b), a ring
+    step's bytes on every rank equal to ``dryrun.wire_bytes`` of the (4, 2)
+    mesh with the params replicated (a degraded step's at most its count).
+    Returns rank 0's launch counts of the CLI run."""
+    from repro_torch.launch import ranks
+    from repro_torch.launch import train as train_cli
+    from repro_torch.launch.dryrun import wire_bytes
+    from repro_torch.launch.mesh import MeshShape
+    from repro_torch.models import get_config, init_model
+
+    phase, world = "train_model_axis", MA_DATA * MA_MODEL
+    cfg = dataclasses.replace(get_config(ARCH), num_layers=POD_LAYERS)
+    sizes = leaf_sizes(cfg)
+    comms = train_comms()
+    per_step = {k: len(planned_merges(sizes, comms[k])) for k in ("ring", "degraded")}
+    mesh = MeshShape(("data", "model"), {"data": MA_DATA, "model": MA_MODEL})
+    meta = init_model(cfg, seed=0, device="meta")
+    dry = {k: wire_bytes(cfg, meta, mesh, {}, "r2ccl", comms[k]) for k in ("ring", "degraded")}
+    flash = layer_launches(cfg)
+    log(phase, f"{cfg.name}: {POD_LAYERS} of {get_config(ARCH).num_layers} layers (full "
+        f"width, depth cut), {sum(sizes) / 1e6:.1f}M params; {world} ranks on one card as "
+        f"{MA_DATA} data x {MA_MODEL} model, {LOCAL_BATCH} x {SEQ} tokens a data index; "
+        f"launches a step a rank: chunk_combine {per_step} (ring, degraded), flash "
+        f"{flash['flash_attention']}, its backward {flash['flash_attention_bwd']}; dry run's "
+        f"wire bytes a rank a step, (4, 2) mesh, params replicated: ring "
+        f"{dry['ring'] / 1e6:.2f} MB, degraded {dry['degraded'] / 1e6:.2f} MB")
+
+    t0 = time.perf_counter()
+    tr = ranks.run(model_axis_rank, world, "cuda", args=(None,))
+    losses = tr[0]["losses"]
+    want = counts(**layer_launches(cfg, TRAIN_STEPS),
+                  chunk_combine=per_step["ring"] * FAIL_AT
+                  + per_step["degraded"] * (TRAIN_STEPS - FAIL_AT))
+    log(phase, f"(a) make_train_step, the same batch every step: schedules "
+        f"{tr[0]['scheds']}; losses {[round(x, 6) for x in losses]}; params checksums "
+        f"{[repr(t['checksum']) for t in tr]}; launches on rank 0 {tr[0]['launches']}; "
+        f"{time.perf_counter() - t0:.1f} s with the ranks' start")
+    if not (np.isfinite(losses).all() and losses[-1] < losses[0]
+            and all(t["losses"] == losses for t in tr)):
+        raise RuntimeError(f"model-axis run: losses {[t['losses'] for t in tr]} (want "
+                           "finite, equal on every rank, falling)")
+    if len({t["checksum"] for t in tr}) != 1:
+        raise RuntimeError(f"model-axis run: params checksums differ across ranks "
+                           f"{[t['checksum'] for t in tr]}")
+    if tr[0]["launches"] != want:
+        raise RuntimeError(f"model-axis run launches {tr[0]['launches']} on rank 0, "
+                           f"want {want}")
+
+    t0 = time.perf_counter()
+    res = train_cli.main([
+        "--arch", ARCH, "--layers", str(POD_LAYERS), "--world-size", str(world),
+        "--data-par", str(MA_DATA), "--seq-len", str(SEQ),
+        "--batch", str(MA_DATA * LOCAL_BATCH), "--steps", str(MA_STEPS), "--sync", "r2ccl",
+        "--comm-mode", "ring", "--fail-at-step", str(FAIL_AT), "--fail-node", "1",
+        "--nics-per-node", str(CLI_NICS), "--log-every", "1"])
+    secs = time.perf_counter() - t0
+    runs = res["ranks"]
+    losses = res["history"]
+    scheds = ["healthy"] * FAIL_AT + ["degraded"] * (MA_STEPS - FAIL_AT)
+    sums = [r["checksum"] for r in runs]
+    want = counts(**layer_launches(cfg, MA_STEPS),
+                  chunk_combine=per_step["ring"] * FAIL_AT
+                  + per_step["degraded"] * (MA_STEPS - FAIL_AT))
+    sent = [[st["sent_bytes"] for st in r["stats"]] for r in runs]
+    log(phase, f"(b) the CLI, a new batch a step: schedules {res['scheds']}, failure "
+        f"located at {res['located']}; losses {[round(x, 6) for x in losses]}; params "
+        f"checksums {[repr(x) for x in sums]}; launches on rank 0 {res['launches']}")
+    log(phase, f"bytes sent a rank by step (MB): "
+        f"{[[round(b / 1e6, 2) for b in row] for row in sent]}; dry run ring "
+        f"{dry['ring'] / 1e6:.2f}, degraded {dry['degraded'] / 1e6:.2f}")
+    st = res["stats"]
+    log(phase, f"per step: ring (step 1) {split(st[1:FAIL_AT])}; degraded r2ccl (steps "
+        f"{FAIL_AT}-{MA_STEPS - 1}) {split(st[FAIL_AT:])}; peak memory per rank "
+        f"{[round(r['max_memory_allocated'] / 2**30, 2) for r in runs]} GiB; {secs:.1f} s "
+        f"with the ranks' start [{card}]")
+    if res["scheds"] != scheds or res["located"] is None:
+        raise RuntimeError(f"model-axis run: schedules {res['scheds']}, located "
+                           f"{res['located']}, want {scheds}")
+    if not (np.isfinite(losses).all() and all(r["history"] == losses for r in runs)):
+        raise RuntimeError(f"model-axis CLI run: losses {[r['history'] for r in runs]} "
+                           "(want finite and equal on every rank)")
+    if len(set(sums)) != 1:
+        raise RuntimeError(f"model-axis CLI run: params checksums differ across ranks {sums}")
+    if res["launches"] != want:
+        raise RuntimeError(f"model-axis CLI run launches {res['launches']} on rank 0, "
+                           f"want {want}")
+    if not all(row[i] == dry["ring"] if i < FAIL_AT else row[i] <= dry["degraded"]
+               for row in sent for i in range(MA_STEPS)):
+        raise RuntimeError(f"bytes sent {sent}, want {dry['ring']} a ring step and at most "
+                           f"{dry['degraded']} a degraded one")
     return res["launches"]
 
 
@@ -2947,6 +3150,9 @@ def main() -> int:
     t0 = time.perf_counter()
     by_path["train_pods"] = train_pods(card)
     log("train_pods", f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    by_path["train_model_axis"] = train_model_axis(card)
+    log("train_model_axis", f"{time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     by_path["recovery_sim"] = recovery_sim(card)
     log("recovery_sim", f"{time.perf_counter() - t0:.1f} s")

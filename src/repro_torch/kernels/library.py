@@ -16,6 +16,11 @@ PyTorch's headers, minutes a build).  ``ops.py`` routes meta and CUDA tensors
 through these ops and CPU tensors to the plain versions directly; the
 ``autograd.Function`` of each kernel calls its forward and backward ops.
 
+Each op also has a sharding rule for DTensor (:func:`register_shardings`,
+called by the dry run's count of a sharded step): an op runs on the local
+shards when its inputs are split on their batch dim, or on their head (or
+channel) dim, on a mesh dimension, and else on replicated inputs.
+
 Schemas mirror the C entry points: an output that the kernel writes only
 when asked (the forward's row ``lse``, the WKV forward's per-chunk states) is
 a mutable optional argument; an output it may skip (``gh0``, ``gs0``) comes
@@ -245,3 +250,59 @@ for _name, (_cuda, _cpu, _fake, _cost) in OPS.items():
     CA.KERNEL_COSTS[_name] = _cost
     register_flop_formula(getattr(torch.ops.repro_torch, _name), get_raw=True)(
         _flop_formula(_cost))
+
+
+# ---------------------------------------------------------------------------
+# sharding rules (DTensor)
+# ---------------------------------------------------------------------------
+
+#: per op: each argument's (batch dim, head dim) -- None for an argument
+#: that is not a tensor, a None dim where it has none -- and a function of
+#: the arguments giving each output's.  A weight with no batch dim (``u``)
+#: gets a ``Partial`` gradient when the batch is split; an output the call
+#: does not ask for (an empty ``gh0``, ``gs0``) is replicated.
+_ATTN, _SEQ, _STATE = (0, 2), (0, 2), (0, 1)
+SHARD_DIMS = {
+    "flash_attention_fwd": ([_ATTN] * 4 + [None] * 7, lambda *a: [_ATTN]),
+    "flash_attention_bwd": ([_ATTN] * 6 + [None] * 5, lambda *a: [_ATTN] * 3),
+    "lru_scan": ([_SEQ, _SEQ, _STATE], lambda *a: [_SEQ]),
+    "lru_scan_bwd": ([_SEQ, _SEQ, _STATE, _SEQ, None],
+                     lambda *a: [_SEQ, _SEQ, _STATE if a[4] else (None, None)]),
+    "wkv_scan": ([_SEQ] * 4 + [(None, 0), _STATE, _STATE],
+                 lambda *a: [_SEQ, _STATE]),
+    "wkv_scan_bwd": ([_SEQ] * 4 + [(None, 0), _STATE, _SEQ, _STATE, None],
+                     lambda *a: [_SEQ] * 4 + [("partial", 0),
+                                              _STATE if a[8] else (None, None)]),
+}
+
+
+def _sharding_rule(arg_dims, out_dims):
+    """A ``register_sharding`` function: all replicated, all split on the
+    batch dim, or all split on the head dim."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    def placement(d):
+        return Partial() if d == "partial" else Replicate() if d is None else Shard(d)
+
+    def rule(*args):
+        outs = out_dims(*args)
+        tensor = [dims is not None and a is not None for a, dims in zip(args, arg_dims)]
+        found = [([Replicate()] * len(outs),
+                  [Replicate() if t else None for t in tensor])]
+        for which in (0, 1):
+            found.append(([placement(o[which]) for o in outs],
+                          [placement(dims[which]) if t else None
+                           for t, dims in zip(tensor, arg_dims)]))
+        return found
+    return rule
+
+
+def register_shardings() -> None:
+    """Give every op its sharding rule for DTensor (``SHARD_DIMS``); a
+    second call changes nothing.  ``chunk_combine`` has none: it merges a
+    rank's own buffers inside the explicit gradient programs."""
+    from torch.distributed.tensor.experimental import register_sharding
+
+    for name, (arg_dims, out_dims) in SHARD_DIMS.items():
+        register_sharding(getattr(torch.ops.repro_torch, name).default)(
+            _sharding_rule(arg_dims, out_dims))

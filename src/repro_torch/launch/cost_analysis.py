@@ -376,3 +376,105 @@ class CostCounter(TorchDispatchMode):
             self.nbytes += sum(map(_nbytes, _tensors((args, kwargs))))
             self.nbytes += sum(map(_nbytes, _tensors(out)))
         return out
+
+
+# ---------------------------------------------------------------------------
+# the collectives a sharded step issues
+# ---------------------------------------------------------------------------
+
+#: ``parse_collectives``' op kinds, in its order
+COLLECTIVE_KINDS = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all",
+                    "collective-permute")
+
+#: the functional collectives DTensor issues (``_c10d_functional``, and
+#: ``_dtensor.shard_dim_alltoall`` for a Shard(i) -> Shard(j) move), by kind
+FUNCTIONAL_COLLECTIVES = {
+    "all_gather_into_tensor": "all-gather",
+    "all_gather_into_tensor_coalesced": "all-gather",
+    "all_reduce": "all-reduce",
+    "all_reduce_": "all-reduce",
+    "all_reduce_coalesced": "all-reduce",
+    "reduce_scatter_tensor": "reduce-scatter",
+    "reduce_scatter_tensor_coalesced": "reduce-scatter",
+    "all_to_all_single": "all-to-all",
+    "shard_dim_alltoall": "all-to-all",
+}
+
+
+def collective_wire_bytes(kind: str, operand_bytes: float, group: int) -> float:
+    """Bytes one device puts on the wire for one collective of
+    ``operand_bytes`` on a group of ``group``, by ``parse_collectives``'
+    factors: all-reduce 2(g-1)/g, all-gather (g-1) times its operand (the
+    shard), reduce-scatter and all-to-all (g-1)/g, a permute 1."""
+    if kind == "all-reduce":
+        return operand_bytes * 2 * (group - 1) / group
+    if kind == "all-gather":
+        return operand_bytes * (group - 1)
+    if kind in ("reduce-scatter", "all-to-all"):
+        return operand_bytes * (group - 1) / group
+    return float(operand_bytes)
+
+
+@dataclasses.dataclass
+class Collective:
+    """One collective as issued: its kind, its operand's bytes on one
+    device and its group's size."""
+
+    kind: str
+    operand_bytes: int
+    group: int
+
+    @property
+    def wire_bytes(self) -> float:
+        return collective_wire_bytes(self.kind, self.operand_bytes, self.group)
+
+
+class CollectiveCounter(TorchDispatchMode):
+    """Records every functional collective dispatched inside it (the
+    counterpart of ``parse_collectives`` over the partitioned HLO): kind,
+    the operand's bytes (an all-gather's shard, a reduce-scatter's whole
+    input) and the group's size."""
+
+    def __init__(self):
+        super().__init__()
+        self.collectives: list[Collective] = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        from torch.distributed.tensor import DTensor
+
+        if any(t is DTensor for t in types):
+            # let DTensor run first and desugar the op into its collectives,
+            # which come back here on local tensors (as ``CommDebugMode``)
+            return NotImplemented
+        kwargs = kwargs or {}
+        kind = FUNCTIONAL_COLLECTIVES.get(func._overloadpacket.__name__)
+        if kind is not None and func.namespace in ("_c10d_functional", "_dtensor"):
+            import torch.distributed as dist
+
+            bound = dict(zip((a.name for a in func._schema.arguments), args), **kwargs)
+            group = bound["group_name"]
+            if not isinstance(group, str):
+                group = group.group_name
+            size = dist.distributed_c10d._resolve_process_group(group).size()
+            ins = bound.get("input", bound.get("inputs"))
+            self.collectives.append(Collective(kind, sum(map(_nbytes, _tensors(ins))), size))
+        return func(*args, **kwargs)
+
+    def op_bytes(self) -> dict[str, float]:
+        """Operand bytes by kind (``CollectiveStats.op_bytes``)."""
+        out = dict.fromkeys(COLLECTIVE_KINDS, 0.0)
+        for c in self.collectives:
+            out[c.kind] += c.operand_bytes
+        return out
+
+    def op_counts(self) -> dict[str, int]:
+        out = dict.fromkeys(COLLECTIVE_KINDS, 0)
+        for c in self.collectives:
+            out[c.kind] += 1
+        return out
+
+    def wire_by_kind(self) -> dict[str, float]:
+        out = dict.fromkeys(COLLECTIVE_KINDS, 0.0)
+        for c in self.collectives:
+            out[c.kind] += c.wire_bytes
+        return out

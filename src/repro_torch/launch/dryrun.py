@@ -12,11 +12,11 @@ written to ``experiments/dryrun_torch/`` with these keys:
 * ``flops_per_device`` — the global FLOPs ``FlopCounterMode`` counts over
   the port's train step (forward and backward under remat, and AdamW),
   prefill or decode, divided by the chips; ``flops_per_device_by_class``
-  splits them by the peak each runs at (``cost_analysis.Hardware``).  The
-  port runs no shards yet (ROADMAP queue 1, item 8), so this is an even
-  share of the global work; XLA's per-device count also holds the work each
-  device repeats (replicated norms, a replicated router), and its FLOPs
-  include elementwise ops, which ``FlopCounterMode`` does not count.
+  splits them by the peak each runs at (``cost_analysis.Hardware``).  This
+  is an even share of the global work, counted on the unsharded step; XLA's
+  per-device count also holds the work each device repeats (replicated
+  norms, a replicated router), and its FLOPs include elementwise ops, which
+  ``FlopCounterMode`` does not count.
 * ``hbm_bytes_per_device`` — each dispatched op's inputs read and outputs
   written, the kernels by their byte formulas, divided by the chips: an
   unfused count, not XLA's fused ``bytes accessed``.
@@ -30,16 +30,41 @@ written to ``experiments/dryrun_torch/`` with these keys:
   bytes of the tensors autograd saves for the backward on the meta device
   (``saved_tensors_hooks``; under remat, each layer's inputs), divided by
   the data ways.
-* ``wire_bytes_per_device`` — the data-parallel gradient sync alone
-  (``collectives_counted``): ``sync="xla"`` as a ring all-reduce of the fp32
-  gradients, ``sync="r2ccl"`` the bytes of the program
-  ``core/collectives.py`` runs (``cost_analysis.program_wire_bytes``) in
-  ``CommConfig.comm_dtype``, then a ring over the pods.  Tensor- and
-  expert-parallel collectives have no counterpart until the port runs
-  shards (queue 1, item 8).
-* ``scan_corrected`` is always false: JAX corrects XLA's count of a scanned
-  layer stack (a loop body counted once); the meta run goes through every
-  layer, so there is nothing to correct.
+* ``wire_bytes_per_device`` — the sum of two counts
+  (``collectives_counted``), each byte in one of them:
+
+  - ``gradient-sync``, the data-parallel gradient sync
+    (:func:`wire_bytes`): ``sync="r2ccl"`` the bytes of the program
+    ``core/collectives.py`` runs (``cost_analysis.program_wire_bytes``) in
+    ``CommConfig.comm_dtype``, then a ring over the pods, over every leaf
+    whole (JAX's ``shard_map`` takes the params with ``in_specs=P()``);
+    ``sync="xla"`` a ring all-reduce of the fp32 gradients of the leaves no
+    data axis splits.
+  - the collectives of the production shardings (tensor-, FSDP- and
+    expert-parallel), by kind in ``collective_op_bytes`` (operand bytes,
+    ``collective_op_counts`` beside them), and their wire bytes by
+    ``parse_collectives``' factors (:func:`sharded_collectives`): the step
+    run a second time on meta DTensors over a fake process group of the
+    mesh's size, placed by ``launch/sharding.py``'s specs, counting the
+    collectives DTensor issues (``cost_analysis.CollectiveCounter``).  In a
+    train step the gradients of the leaves a data axis does not split stay
+    ``Partial`` over the data axes (that sum is ``gradient-sync``); under
+    ``sync="xla"`` the reduce-scatter the backward issues for a leaf a data
+    axis splits (FSDP) is that leaf's sync, as GSPMD's; under
+    ``sync="r2ccl"`` the split leaves are first gathered whole over the data
+    axes (``shard_map``'s entry).  GSPMD and DTensor pick their collectives
+    each by its own rules (DTensor all-gathers where GSPMD may
+    reduce-scatter), so the kinds can differ from the compiled HLO's
+    (``tests/test_torch_dryrun_collectives.py`` states the readings).
+    Those choices also change between DTensor's releases (smollm-360m's
+    train_4k on 16 x 16: 54.8 GB a device on torch 2.13, 29.9 on 2.11), so
+    ``collectives_torch`` records the release that counted.
+* ``scan_corrected`` is always false: JAX corrects XLA's count of a
+  scanned layer stack (a loop body counted once); the meta run of the FLOPs
+  and bytes goes through every layer, so there is nothing to correct.  The
+  DTensor count of the collectives runs on cuts of 1 and 2 pattern groups
+  and extrapolates them by the groups, as JAX corrects its count
+  (``collectives_extrapolated`` true when it did).
 
 Usage (``--all`` runs the 11 registered archs; JAX's ``--all`` leaves out
 paper-7b)::
@@ -53,13 +78,14 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import itertools
 import json
 import math
 import os
 import time
 import traceback
 from pathlib import Path
-from typing import Any
+from typing import Any, Callable
 
 import torch
 from torch.utils.flop_counter import FlopCounterMode
@@ -70,15 +96,19 @@ from repro_torch.models import apply_model, get_config, init_caches, init_model,
 from repro_torch.models.registry import list_architectures
 from repro_torch.optim import AdamWConfig
 from repro_torch.serving.engine import make_decode_fn, make_prefill_fn
-from repro_torch.training.train_step import init_train_state, make_train_step
+from repro_torch.models.transformer import _lead_layers, _pattern_split
+from repro_torch.training.train_step import (compute_loss, init_train_state,
+                                             make_train_step, param_grads)
 from repro_torch.tree import leaves, tree_map
 from . import sharding as SH
-from .cost_analysis import (H100_SXM, CostCounter, Hardware, all_reduce_wire_bytes,
-                            model_flops, program_wire_bytes, roofline_terms)
+from .cost_analysis import (COLLECTIVE_KINDS, H100_SXM, CollectiveCounter, CostCounter,
+                            Hardware, all_reduce_wire_bytes, model_flops,
+                            program_wire_bytes, roofline_terms)
 from .mesh import MeshShape, data_axis_names, production_mesh_shape, rules_for
 
 OUT_DIR = Path(__file__).resolve().parents[3] / "experiments" / "dryrun_torch"
-COLLECTIVES_COUNTED = "data-parallel gradient sync only"
+COLLECTIVES_COUNTED = ("the data-parallel gradient sync (gradient-sync) and, by kind, "
+                       "the collectives DTensor issues for the shardings on the mesh")
 
 
 # ---------------------------------------------------------------------------
@@ -309,18 +339,28 @@ def argument_bytes(cfg: ModelConfig, shape: InputShape, mesh: MeshShape, rules: 
     return out
 
 
+def _axes_of(spec: tuple) -> set[str]:
+    return {a for e in spec if e is not None for a in ((e,) if isinstance(e, str) else e)}
+
+
 def wire_bytes(cfg: ModelConfig, params, mesh: MeshShape, rules: dict, sync: str,
                comm: CommConfig | None) -> float:
     """Per-device bytes of the data-parallel gradient sync: each gradient
     leaf's shard over the model axes (the data axes hold it whole, as
-    ``shard_map`` over them does), synced over the data axes."""
+    ``shard_map`` over them does), synced over the data axes.  Under
+    ``sync="xla"`` a leaf a data axis splits (FSDP) is left out: its sync
+    is the reduce-scatter of the backward, which :func:`sharded_collectives`
+    counts."""
     baxes = data_axis_names(mesh)
     pspecs = SH.param_specs(mesh, rules, model_axes(cfg), params)
     elems = leaves(tree_map(lambda p, s: _shard_bytes(p, s, mesh, skip=baxes)
                             // p.element_size(), params, pspecs))
     if sync == "xla":
         ways = math.prod(mesh.shape[a] for a in baxes)
-        return sum(all_reduce_wire_bytes(4 * n, ways) for n in elems)
+        data_split = leaves(tree_map(lambda p, s: bool(_axes_of(s) & set(baxes)),
+                                     params, pspecs))
+        return sum(all_reduce_wire_bytes(4 * n, ways)
+                   for n, split in zip(elems, data_split) if not split)
     comm = comm or CommConfig(mode="ring")
     item = 2 if comm.comm_dtype == "bfloat16" else 4
     inner = program_for(mesh.shape[baxes[-1]], **comm.kwargs())
@@ -335,6 +375,159 @@ def wire_bytes(cfg: ModelConfig, params, mesh: MeshShape, rules: dict, sync: str
             wire += (all_reduce_wire_bytes(item * n, mesh.shape[ax]) if ring is None
                      else program_wire_bytes(ring, item * n, comm.comm_dtype))
     return wire
+
+
+# ---------------------------------------------------------------------------
+# the sharded step's collectives (DTensor on a fake process group)
+# ---------------------------------------------------------------------------
+
+def mesh_order(mesh: MeshShape, specs) -> tuple[str, ...]:
+    """The mesh's dims, permuted (if need be) so that every spec entry
+    naming several axes names them in mesh order, which DTensor needs
+    (``ep2d``'s ``("model", "pod", "data")``)."""
+    entries = {e for spec in specs for e in spec if isinstance(e, tuple)}
+    for order in itertools.permutations(mesh.axis_names):
+        if all([order.index(a) for a in e] == sorted(order.index(a) for a in e)
+               for e in entries):
+            return order
+    raise ValueError(f"no order of {mesh.axis_names} fits the specs {sorted(entries)}")
+
+
+def _spec_without(spec: tuple, axes: tuple[str, ...]) -> tuple:
+    """``spec`` with the mesh ``axes`` taken out of every entry."""
+    def keep(e):
+        kept = tuple(a for a in ((e,) if isinstance(e, str) else e or ()) if a not in axes)
+        return None if not kept else kept[0] if len(kept) == 1 else kept
+    return tuple(keep(e) for e in spec)
+
+
+def _merge_data_axes(mesh: MeshShape) -> tuple[MeshShape, Callable]:
+    """The mesh with its data axes (``pod``, ``data``) merged into one
+    ``data`` axis of their product, and a function that rewrites a spec
+    for it.  Every rule splits over ``pod`` and ``data`` together, so a
+    split keeps its shard size, and a gather over both is one collective
+    of the merged group, as XLA's replica groups span both."""
+    baxes = data_axis_names(mesh)
+    if len(baxes) < 2:
+        return mesh, lambda spec: spec
+    names = tuple(a for a in mesh.axis_names if a not in baxes)
+    merged = MeshShape(("data", *names), {"data": math.prod(mesh.shape[a] for a in baxes),
+                                          **{a: mesh.shape[a] for a in names}})
+
+    def rewrite(spec: tuple) -> tuple:
+        out = []
+        for e in spec:
+            axes = (e,) if isinstance(e, str) else e or ()
+            if any(a in baxes for a in axes) and not set(baxes) <= set(axes):
+                raise ValueError(f"spec {spec} splits over some of {baxes} only")
+            kept = tuple(dict.fromkeys("data" if a in baxes else a for a in axes))
+            out.append(None if not kept else kept[0] if len(kept) == 1 else kept)
+        return tuple(out)
+    return merged, rewrite
+
+
+def _reduce_over_model(grad, placements, names, baxes):
+    """A gradient redistributed to its param's placements over the mesh
+    dims that are not data axes; over the data axes it stays as it is."""
+    target = [grad.placements[i] if n in baxes else p
+              for i, (n, p) in enumerate(zip(names, placements))]
+    return grad.redistribute(grad.device_mesh, target)
+
+
+def count_collectives(cfg: ModelConfig, shape: InputShape, mesh: MeshShape, rules: dict,
+                      sync: str = "xla", *, cache_dtype: torch.dtype = torch.bfloat16,
+                      context_len: int | None = None) -> CollectiveCounter:
+    """The collectives of one step of ``cfg`` (its whole depth) run on meta
+    DTensors placed by ``rules`` on a fake ``mesh`` (:func:`SH.fake_mesh`,
+    its data axes merged into one by :func:`_merge_data_axes`: DTensor's
+    redistribute planner searches minutes a layer on three mesh dims):
+    a train step's forward and backward (the gradients reduced over the
+    model axes to their params' placements, left ``Partial`` over the data
+    axes, and the metrics replicated), or a prefill or decode with the
+    caches placed by their specs.  The serve step's pick of the next token
+    (an argmax over vocab-split logits: a few bytes a sequence in GSPMD) is
+    left out: DTensor's gathers the values and indices, which a fake group
+    of meta tensors cannot run."""
+    from torch.distributed.tensor import DTensor, Replicate, distribute_tensor
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    merged, rewrite = _merge_data_axes(mesh)
+    params = init_model(cfg, device="meta")
+    pspecs = tree_map(lambda p, s: rewrite(s), params,
+                      SH.param_specs(mesh, rules, model_axes(cfg), params))
+    batch = input_specs(cfg, shape)
+    bspecs = {k: rewrite(s) for k, s in
+              SH.batch_specs(mesh, batch, data_axis_names(mesh)).items()}
+    w = long_context_window(cfg, shape)
+    caches = cspecs = None
+    if shape.mode != "train":
+        caches = init_caches(cfg, shape.global_batch,
+                             context_len or cache_context_len(cfg, shape),
+                             window_override=w, dtype=cache_dtype, device="meta")
+        cspecs = SH.cache_specs(mesh, caches, data_axis_names(mesh))
+        cspecs = {name: type(group)(
+            type(c)(**{f.name: rewrite(getattr(c, f.name)) for f in dataclasses.fields(c)})
+            for c in group) for name, group in cspecs.items()}
+    baxes = data_axis_names(merged)
+    specs = list(bspecs.values())
+    tree_map(lambda p, s: specs.append(s), params, pspecs)
+    with SH.fake_mesh(merged, mesh_order(merged, specs)) as dm, SH.counting_rules(), \
+            implicit_replication():
+        names = dm.mesh_dim_names
+        counter = CollectiveCounter()
+        dparams = SH.distribute(params, dm, pspecs)
+        dbatch = {k: distribute_tensor(v, dm, SH.placements(dm, bspecs[k]))
+                  for k, v in batch.items()}
+        if shape.mode != "train":
+            dcaches = SH.distribute_caches(caches, dm, cspecs)
+            with counter, torch.no_grad():
+                apply_model(dparams, cfg, dbatch, mode=shape.mode, caches=dcaches,
+                            window_override=w)
+            return counter
+        with counter:
+            if sync == "r2ccl":
+                # shard_map(in_specs=P()) over the data axes: every leaf whole
+                dparams = tree_map(
+                    lambda p, s: SH.constrain(p, _spec_without(s, baxes)).detach(),
+                    dparams, pspecs)
+            flat = leaves(dparams)
+            for p in flat:
+                p.requires_grad_(True)
+            total, metrics = compute_loss(dparams, cfg, dbatch)
+            grads = param_grads(total, flat)
+            for g, p in zip(grads, flat):
+                if isinstance(g, DTensor):       # else a leaf the loss does not reach
+                    _reduce_over_model(g, p.placements, names, baxes)
+            for m in metrics.values():
+                if isinstance(m, DTensor):
+                    m.redistribute(dm, [Replicate()] * dm.ndim)
+    return counter
+
+
+def sharded_collectives(cfg: ModelConfig, shape: InputShape, mesh: MeshShape, rules: dict,
+                        sync: str = "xla") -> dict[str, Any]:
+    """:func:`count_collectives` of a stack of ``n_groups`` pattern groups,
+    as JAX's dry run counts a scanned stack: on cuts of 1 and 2 groups (with
+    the lead and remainder layers), extrapolated as ``c1 + (n_groups - 1)
+    * (c2 - c1)`` kind by kind; a stack of one group is counted whole.
+    Returns ``op_bytes``, ``op_counts`` and ``wire`` (by kind), the
+    ``wire_bytes`` total and whether it ``extrapolated``."""
+    n_groups, pattern, remainder = _pattern_split(cfg)
+
+    def one(groups: int | None) -> dict[str, dict]:
+        c = cfg if groups is None else dataclasses.replace(
+            cfg, num_layers=_lead_layers(cfg) + groups * len(pattern) + len(remainder))
+        counter = count_collectives(c, shape, mesh, rules, sync)
+        return {"op_bytes": counter.op_bytes(), "op_counts": counter.op_counts(),
+                "wire": counter.wire_by_kind()}
+
+    if n_groups <= 1:
+        out = one(None)
+    else:
+        c1, c2 = one(1), one(2)
+        out = {key: {k: c1[key][k] + (n_groups - 1) * max(c2[key][k] - c1[key][k], 0)
+                     for k in COLLECTIVE_KINDS} for key in c1}
+    return dict(out, wire_bytes=sum(out["wire"].values()), extrapolated=n_groups > 1)
 
 
 # ---------------------------------------------------------------------------
@@ -369,13 +562,15 @@ def dryrun_one(arch: str, shape_name: str, *, multi_pod: bool = False,
     trace = trace_step(cfg, shape, params=params) if trace is None else trace
     args = argument_bytes(cfg, shape, mesh, rules, params)
     mem = {"argument_size_in_bytes": args["total"], "argument_bytes_by_part": args}
-    wire = 0.0
+    grad_sync = 0.0
     if shape.mode == "train":
-        wire = wire_bytes(cfg, params, mesh, rules, sync, comm)
+        grad_sync = wire_bytes(cfg, params, mesh, rules, sync, comm)
         ways = math.prod(mesh.shape[a] for a in data_axis_names(mesh))
         mem["temp_size_in_bytes"] = trace.saved_bytes // ways
         mem["temp_estimate"] = "bytes autograd saves on the meta device / data ways"
     mem["total_bytes"] = mem["argument_size_in_bytes"] + mem.get("temp_size_in_bytes", 0)
+    sharded = sharded_collectives(cfg, shape, mesh, rules, sync)
+    wire = grad_sync + sharded["wire_bytes"]
     by_class = {c: n / chips for c, n in trace.flops_by_class.items()}
     terms = roofline_terms(flops_per_device=by_class,
                            hbm_bytes_per_device=trace.hbm_bytes / chips,
@@ -387,12 +582,16 @@ def dryrun_one(arch: str, shape_name: str, *, multi_pod: bool = False,
         "mode": shape.mode,
         "hardware": hw.name,
         "scan_corrected": False,
+        "collectives_extrapolated": sharded["extrapolated"],
         "trace_s": trace.seconds,
         "flops_per_device": trace.flops / chips,
         "flops_per_device_by_class": by_class,
         "hbm_bytes_per_device": trace.hbm_bytes / chips,
         "collectives_counted": COLLECTIVES_COUNTED,
-        "collective_op_bytes": {"gradient-sync": wire},
+        "collective_op_bytes": dict(sharded["op_bytes"], **{"gradient-sync": grad_sync}),
+        "collective_op_counts": sharded["op_counts"],
+        "collective_wire_bytes": dict(sharded["wire"], **{"gradient-sync": grad_sync}),
+        "collectives_torch": torch.__version__,
         "wire_bytes_per_device": wire,
         "roofline": terms,
         "model_flops_global": mflops,

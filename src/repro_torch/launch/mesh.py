@@ -13,6 +13,7 @@ device or a process group when the module is imported.
 from __future__ import annotations
 
 import dataclasses
+import math
 
 from repro_torch.configs.base import FSDP_TP_RULES, ModelConfig, ShardingConfig
 
@@ -72,38 +73,69 @@ def make_host_mesh(data: int = 1, model: int = 1, device_type: str = "cuda"):
     return init_device_mesh(device_type, (data, model), mesh_dim_names=("data", "model"))
 
 
-def make_pod_axes(pods: int) -> tuple:
-    """The data axes of a pod layout over the ranks of the default process
-    group: ``(pod, data)`` ``core.collectives.DataAxis``es of ``pods`` pods
-    of ``world // pods`` ranks.  Global rank ``r`` is pod ``r // D``, data
-    index ``r % D``: the order of a ``("pod", "data")`` mesh over the
-    devices reshaped to ``(pods, D)``, and of a batch split over both axes
-    (rank ``r`` takes the ``r``-th share of its rows).  The ``data`` axis
-    runs the configured schedule inside a pod, the ``pod`` axis a ring
-    across the pods (``training.train_step``).
+def _axis_groups(shape: tuple[int, ...], dim: int) -> list:
+    """The process groups along mesh dim ``dim`` of the default group's
+    ranks laid out in row-major ``shape`` (global rank ``r`` at the index
+    ``np.unravel_index(r, shape)``, the order of ``Mesh(devices.reshape(
+    shape), names)``), one for each index of the other dims, in their
+    row-major order.  Every rank creates every group in the same order, as
+    ``dist.new_group`` requires."""
+    import itertools
+
+    import torch.distributed as dist
+
+    others = [range(n) if d != dim else [None] for d, n in enumerate(shape)]
+    groups = []
+    for idx in itertools.product(*others):
+        members = []
+        for i in range(shape[dim]):
+            full = list(idx)
+            full[dim] = i
+            members.append(sum(c * math.prod(shape[d + 1:]) for d, c in enumerate(full)))
+        groups.append(dist.new_group(members))
+    return groups
+
+
+def make_data_axes(data: int, model: int = 1, pods: int = 1) -> tuple:
+    """The data axes of this rank, over the ranks of the default process
+    group laid out as a ``("pod", "data", "model")`` mesh of ``(pods, data,
+    model)`` (``--data-par`` and ``--pods`` of the training CLI): global
+    rank ``r`` is pod ``r // (data * model)``, data index ``r // model %
+    data`` and model index ``r % model``, the order of a mesh over the
+    devices reshaped to those extents.  Returns ``core.collectives.DataAxis``
+    es, outer first: the ``data`` axis of this rank's model index, preceded
+    by the ``pod`` axis when ``pods`` > 1.  The ranks of one model index
+    take the batch's rows; the ``model`` ranks of one data index hold the
+    same rows and the same params, as the JAX package's step over the data
+    axes with the params in ``P()`` replicates them over ``model``.
 
     The groups come from ``dist.new_group``, every rank creating every
-    group in the same order, as the call requires; they take the default
-    group's backend, gloo, which carries the host-staged payloads of CUDA
-    tensors.  (A ``DeviceMesh`` of device type "cuda" would give NCCL
-    groups, which refuse two ranks on one card.)  The two axes share one
-    set of staging buffers.  Raises ``ValueError`` when ``pods`` does not
-    divide the world."""
+    group in the same order; they take the default group's backend, gloo,
+    which carries the host-staged payloads of CUDA tensors.  (A
+    ``DeviceMesh`` of device type "cuda" would give NCCL groups, which
+    refuse two ranks on one card.)  The axes share one set of staging
+    buffers.  One axis over the whole default group is that group itself.
+    Raises ``ValueError`` when the extents do not take the world, or when
+    pods come with a model axis (a layout the JAX package's CLI does not
+    have)."""
     import torch.distributed as dist
     from repro_torch.core.collectives import DataAxis, StagingBuffers
 
     world = dist.get_world_size()
-    if pods < 1 or world % pods:
-        raise ValueError(f"{pods} pods do not divide {world} ranks")
-    per_pod = world // pods
-    rank = dist.get_rank()
-    data_groups = [dist.new_group([p * per_pod + d for d in range(per_pod)])
-                   for p in range(pods)]
-    pod_groups = [dist.new_group([p * per_pod + d for p in range(pods)])
-                  for d in range(per_pod)]
+    if min(data, model, pods) < 1 or data * model * pods != world:
+        raise ValueError(f"a ({pods}, {data}, {model}) mesh does not take {world} ranks")
+    if pods > 1 and model > 1:
+        raise ValueError(f"{pods} pods with a model axis of {model} is not a layout "
+                         "of the training CLI")
     staging = StagingBuffers()
-    return (DataAxis(pod_groups[rank % per_pod], staging),
-            DataAxis(data_groups[rank // per_pod], staging))
+    if data == world:
+        return (DataAxis(None, staging),)
+    shape, rank = (pods, data, model), dist.get_rank()
+    data_group = _axis_groups(shape, 1)[rank // (data * model) * model + rank % model]
+    if pods == 1:
+        return (DataAxis(data_group, staging),)
+    pod_group = _axis_groups(shape, 0)[rank % (data * model)]
+    return (DataAxis(pod_group, staging), DataAxis(data_group, staging))
 
 
 def data_axis_names(mesh) -> tuple[str, ...]:

@@ -13,11 +13,14 @@ name, or a tuple of names: the content of JAX's ``PartitionSpec``.
     on the data axes, KV heads on ``model`` (else the sequence, so that
     long caches fit), the recurrent states' widths on ``model``; a stacked
     ``blocks`` cache leads with ``None`` for its group axis.
-  * :func:`placements` turns a spec into DTensor ``Shard`` / ``Replicate``
-    placements, one per mesh dimension; :func:`distribute` places a params
-    tree on a ``DeviceMesh`` (the counterpart of ``named`` and
-    ``device_put``).  Running the model on the shards is later work (ROADMAP
-    queue 1, item 8).
+  * :func:`distribute` places a params tree on a ``DeviceMesh`` (the
+    counterpart of ``named`` and ``device_put``), :func:`distribute_caches`
+    a cache dict, each tensor by ``placements`` (one DTensor placement per
+    mesh dimension).  ``placements``, ``constrain`` (JAX's
+    ``with_sharding_constraint``) and ``rows_local`` live in
+    ``core/sharding.py``, below the model layer that calls them, and are
+    re-exported here.  The model runs on DTensors in the dry run's count of
+    the collectives (``launch/dryrun.py``), under :func:`counting_rules`.
 
 A mesh here is a ``DeviceMesh`` or a ``mesh.MeshShape`` (names and extents
 alone).
@@ -25,11 +28,15 @@ alone).
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
-from typing import Any
+import math
+from typing import Any, Iterator
 
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
+from repro_torch.core.sharding import constrain, placements, rows_local  # noqa: F401
 from repro_torch.tree import tree_map
 from .mesh import MeshShape
 
@@ -143,30 +150,6 @@ def batch_specs(mesh, batch: dict, batch_axes: tuple[str, ...]) -> dict:
     return {k: spec(v) for k, v in batch.items()}
 
 
-def placements(mesh, spec: tuple) -> list:
-    """DTensor placements, one per mesh dimension in mesh order: ``Shard(d)``
-    where the spec names that mesh axis at tensor dim ``d``, else
-    ``Replicate()``.  A dim sharded over several mesh axes is split in mesh
-    order, so its names must come in mesh order (JAX's major-to-minor);
-    ``ep2d``'s ``("model", "pod", "data")`` does not, and raises: DTensor
-    cannot place it, and running such a layout is ROADMAP queue 1, item 8."""
-    from torch.distributed.tensor import Replicate, Shard
-
-    names = MeshShape.of(mesh).axis_names
-    out: list = [Replicate()] * len(names)
-    for d, entry in enumerate(spec):
-        axes = () if entry is None else (entry,) if isinstance(entry, str) else entry
-        idx = [names.index(a) for a in axes]
-        if idx != sorted(idx):
-            raise ValueError(
-                f"spec entry {entry} of dim {d} is not in mesh order {names}: DTensor "
-                "shards a dim over several mesh axes only in mesh order (placing "
-                "such a layout is ROADMAP queue 1, item 8)")
-        for i in idx:
-            out[i] = Shard(d)
-    return out
-
-
 def distribute(params, mesh, specs):
     """Place a params tree on a ``DeviceMesh`` by its specs: each tensor a
     DTensor (rank 0's values, scattered or broadcast)."""
@@ -176,3 +159,282 @@ def distribute(params, mesh, specs):
         return distribute_tensor(t, mesh, placements(mesh, spec))
 
     return tree_map(one, params, specs)
+
+
+@contextlib.contextmanager
+def fake_mesh(mesh, order: tuple[str, ...] | None = None) -> Iterator:
+    """A ``DeviceMesh`` of ``mesh``'s names and extents over a ``fake``
+    process group of that many ranks in this one process (``torch.testing``'s
+    ``FakeStore``): the collectives DTensor issues on it move nothing and
+    return at once, so a step on meta DTensors shows which it would issue.
+    The mesh's device type is "cuda", as the cards': on a "cpu" mesh DTensor
+    replaces an all-to-all by an all-gather (gloo has none), and a "meta"
+    mesh has no device count for DTensor's cost model.  That model reads the
+    host's CUDA device count (0 or 1 where this runs), so every mesh dim
+    counts as crossing hosts.  ``order`` permutes the mesh dims (every group
+    keeps its size).  The group is destroyed on exit; the process must have
+    no default group of its own."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    mesh = MeshShape.of(mesh)
+    names = tuple(order or mesh.axis_names)
+    if dist.is_initialized():
+        raise RuntimeError("a fake mesh needs a process with no default process group")
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=math.prod(mesh.shape.values()))
+    try:
+        yield init_device_mesh("cuda", tuple(mesh.shape[a] for a in names),
+                               mesh_dim_names=names)
+    finally:
+        dist.destroy_process_group()
+
+
+def _gather_partial(op_schema):
+    """``aten.gather``'s strategies as DTensor's, with a plain ``Partial``
+    where DTensor's own take a masked one on the gathered dim."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor._ops.utils import expand_to_full_mesh_op_strategy
+
+    inp, dim, index = op_schema.args_schema[:3]
+    dim %= inp.ndim
+    found = [[Replicate()] * 3, [Shard(dim), Replicate(), Shard(dim)]]
+    if index.shape[dim] == 1:
+        found.append([Partial(), Shard(dim), Replicate()])
+    if inp.ndim == index.ndim:
+        found += [[Shard(d)] * 3 for d in range(inp.ndim) if d != dim]
+    return expand_to_full_mesh_op_strategy(op_schema.get_mesh_from_args(), op_schema,
+                                           found, input_index=1)
+
+
+def _index_put(op_schema):
+    """``aten.index_put`` (the backward of indexing a weight by tokens: a
+    ``(V, d)`` gradient accumulated from ``(B, T, d)`` values at ``(B, T)``
+    indices), the same in every release: over a mesh dim that splits the
+    values and every index on one batch dim, each shard accumulates its own
+    rows into a ``Partial`` sum; over one that splits the values on a dim
+    past the indexed ones, the gradient is split on that dim; else all is
+    replicated.  (torch 2.11's rule maps a batch split of the values to a
+    negative dim of ``self`` and fails.)"""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor._dtensor_spec import DTensorSpec
+    from torch.distributed.tensor._op_schema import OpSpec, OpStrategy
+    from torch.distributed.tensor._ops.utils import generate_redistribute_costs
+
+    inp, indices, values = op_schema.args_schema[:3]
+    accumulate = bool(op_schema.args_schema[3]) if len(op_schema.args_schema) > 3 else False
+    kids = list(indices.children)
+    mesh = values.mesh
+    vspec = values.strategies[0].output_spec
+    ispecs = [k.strategies[0].output_spec for k in kids]
+    n_idx, b_nd = len(kids), max(s.ndim for s in ispecs)
+    out_pl, in_pl, idx_pl, val_pl = [], [], [[] for _ in kids], []
+    for i, p in enumerate(vspec.placements):
+        if (isinstance(p, Shard) and p.dim < b_nd and accumulate
+                and all(s.placements[i] == p for s in ispecs)):
+            out_pl.append(Partial()), in_pl.append(Partial()), val_pl.append(p)
+            for pl in idx_pl:
+                pl.append(p)
+        elif isinstance(p, Shard) and p.dim >= b_nd:
+            d = Shard(p.dim - b_nd + n_idx)
+            out_pl.append(d), in_pl.append(d), val_pl.append(p)
+            for pl in idx_pl:
+                pl.append(Replicate())
+        else:
+            for pl in (out_pl, in_pl, val_pl, *idx_pl):
+                pl.append(Replicate())
+
+    def spec(strategy, placements):
+        return DTensorSpec(mesh, tuple(placements),
+                           tensor_meta=strategy.strategies[0].output_spec.tensor_meta)
+
+    ins = [spec(inp, in_pl), *(spec(k, pl) for k, pl in zip(kids, idx_pl)),
+           spec(values, val_pl)]
+    costs = [generate_redistribute_costs(s, t)
+             for s, t in zip([inp, *kids, values], ins)]
+    return OpStrategy([OpSpec(output_specs=spec(inp, out_pl), input_specs=tuple(ins),
+                              redistribute_cost=costs)])
+
+
+def _per_mesh_dim(op_schema, found):
+    """``found`` (a list of [output, *inputs] placements over one mesh dim)
+    expanded over every mesh dim, each combination costed from the inputs'
+    placements, as DTensor's own single-dim rules are."""
+    from torch.distributed.tensor._ops.utils import expand_to_full_mesh_op_strategy
+
+    return expand_to_full_mesh_op_strategy(op_schema.get_mesh_from_args(), op_schema,
+                                           found, input_index=1)
+
+
+def _roll(op_schema):
+    """``aten.roll`` (a prefill's ring-buffer cache fill): split on a dim it
+    does not roll, a ``Partial`` sum kept (roll is linear), or replicated."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    inp = op_schema.args_schema[0]
+    dims = op_schema.args_schema[2] if len(op_schema.args_schema) > 2 else []
+    rolled = {d % inp.ndim for d in dims} or set(range(inp.ndim))
+    return _per_mesh_dim(op_schema, [[Replicate()] * 2, [Partial()] * 2]
+                         + [[Shard(d)] * 2 for d in range(inp.ndim) if d not in rolled])
+
+
+def _constant_pad_nd(op_schema):
+    """``aten.constant_pad_nd`` (``F.pad``: the einsum dispatch's token
+    groups, MLA's value width): split on a dim it does not pad, a ``Partial``
+    sum kept where the pad value is 0, or replicated."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    inp, pad = op_schema.args_schema[:2]
+    value = op_schema.args_schema[2] if len(op_schema.args_schema) > 2 else 0
+    padded = {inp.ndim - 1 - i for i in range(len(pad) // 2) if pad[2 * i] or pad[2 * i + 1]}
+    found = [[Replicate()] * 2] + [[Shard(d)] * 2 for d in range(inp.ndim) if d not in padded]
+    if not padded or value == 0:
+        found.append([Partial()] * 2)
+    return _per_mesh_dim(op_schema, found)
+
+
+def _add(op_schema):
+    """``aten.add.Tensor``'s placements, as torch 2.13's single-dim rule
+    gives them: the output split on any dim, each operand split on its
+    broadcast dim or replicated where it was broadcast; two ``Partial``
+    sums add into one; or replicated."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor._op_schema import OpStrategy
+    from torch.distributed.tensor._ops.utils import infer_broadcast_dims_map
+
+    tensors = [a for a in op_schema.args_schema if isinstance(a, OpStrategy)]
+    shape = torch.broadcast_shapes(*(t.shape for t in tensors))
+    found = [[Replicate()] * (1 + len(tensors))]
+    for d in range(len(shape)):
+        found.append([Shard(d)] + [
+            Shard(m[d]) if (m := infer_broadcast_dims_map(shape, t.shape))[d] >= 0
+            else Replicate() for t in tensors])
+    if len(tensors) == 2:
+        found.append([Partial()] * 3)
+    return _per_mesh_dim(op_schema, found)
+
+
+def _reachable(own, fallback):
+    """``own``'s strategy unless no placement it offers can be reached from
+    the inputs' (each has an infinite redistribute cost), then
+    ``fallback``'s.  (torch 2.11's pointwise rule follows the operand with
+    more shards and asks the other for its placement: a row-parallel
+    product's ``Partial`` plus a bias split over the same mesh dim asks the
+    bias for a ``Partial`` it cannot reach.)"""
+    def rule(op_schema):
+        strategy = own(op_schema)
+        if all(any(math.isinf(c) for costs in spec.redistribute_cost for c in costs)
+               for spec in strategy.strategies):
+            return fallback(op_schema)
+        return strategy
+    return rule
+
+
+class _LocalViews(TorchDispatchMode):
+    """Runs a shard's ``view`` that its layout cannot take as a copy, as
+    ``reshape`` runs it.  ``reshape`` on a DTensor picks ``view`` from the
+    DTensor's strides, which come from the op's meta propagation on the
+    global tensor; after a redistribute (whose collective writes a
+    contiguous shard) the shard's own layout can differ (torch 2.11: the
+    experts' product in ``moe.py``)."""
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        from torch.distributed.tensor import DTensor
+
+        if any(t is DTensor for t in types):
+            return NotImplemented
+        kwargs = kwargs or {}
+        if func is torch.ops.aten.view.default:
+            x, size = args
+            try:
+                return func(x, size)
+            except RuntimeError:
+                return torch.ops.aten._unsafe_view(x.contiguous(), size)
+        return func(*args, **kwargs)
+
+
+@contextlib.contextmanager
+def counting_rules() -> Iterator[None]:
+    """DTensor's rules, changed for a count of a sharded step on meta
+    tensors (put back on exit).  Each rule below is one that a release's
+    own propagation could not run on the port's model; every op but
+    ``add`` gets the same rule in every release (the release's single-dim
+    rule, where it has one, is set aside):
+
+      * the kernels' ops get their rules (``kernels.library.
+        register_shardings``);
+      * ``aten.gather`` on a dim split over a mesh axis (the loss's pick of
+        the label's logit from vocab-split logits) gives a plain ``Partial``
+        sum: the same all-reduce as DTensor's masked partial, whose mask
+        bookkeeping meta tensors cannot run (``torch.equal``, and a mask of
+        another rank than the value once the value is indexed);
+      * ``view`` and ``_unsafe_view`` gather what they cannot keep split, as
+        ``reshape`` does, where DTensor's raise: its rules split a dim
+        unevenly (an ``(H * D)`` projection over more ranks than ``H``),
+        which GSPMD pads instead;
+      * ``index_put`` (an embedding lookup's backward, :func:`_index_put`;
+        torch 2.11's maps a batch split of the values to a negative dim of
+        ``self``), ``roll`` (:func:`_roll`; 2.11 has none),
+        ``constant_pad_nd`` (:func:`_constant_pad_nd`; 2.11's places a 1-D
+        mesh only);
+      * a shard's ``view`` its layout cannot take runs as a copy
+        (:class:`_LocalViews`);
+      * ``add.Tensor``, where the release's own rule is not a single-dim
+        one (torch 2.11), falls back to :func:`_add` when it offers no
+        placement the inputs can reach (:func:`_reachable`)."""
+    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor._op_schema import RuntimeSchemaInfo
+    from torch.distributed.tensor._ops._view_ops import register_op_strategy_map
+
+    from repro_torch.kernels import library
+
+    library.register_shardings()
+    prop = DTensor._op_dispatcher.sharding_propagator
+    aten = torch.ops.aten
+    tables = (prop.op_strategy_funcs, prop.op_to_schema_info,
+              prop.op_single_dim_strategy_funcs,
+              prop.op_to_schema_info_for_single_dim_strategy)
+    rules = {aten.gather.default: (_gather_partial,
+                                   prop.op_to_schema_info.get(aten.gather.default)),
+             aten.index_put.default: (_index_put, RuntimeSchemaInfo(needs_pytree=True)),
+             aten.roll.default: (_roll, RuntimeSchemaInfo(1)),
+             aten.constant_pad_nd.default: (_constant_pad_nd, RuntimeSchemaInfo(1))}
+    add = aten.add.Tensor
+    if add in prop.op_strategy_funcs and add not in prop.op_single_dim_strategy_funcs:
+        rules[add] = (_reachable(prop.op_strategy_funcs[add], _add),
+                      prop.op_to_schema_info.get(add))
+    views = (aten.view.default, aten._unsafe_view.default)
+    before = [{op: t[op] for op in (*rules, *views) if op in t} for t in tables]
+    for op in (*rules, *views):
+        for t in tables[2:]:
+            t.pop(op, None)
+    for op, (fn, info) in rules.items():
+        prop.register_op_strategy(op, fn, info)
+    for op in views:
+        register_op_strategy_map(op, torch.Tensor.view, schema_info=before[1].get(op))
+    prop.propagate_op_sharding.cache_clear()
+    try:
+        with _LocalViews():
+            yield
+    finally:
+        for t, saved in zip(tables, before):
+            for op in (*rules, *views):
+                t.pop(op, None)
+            t.update(saved)
+        prop.propagate_op_sharding.cache_clear()
+
+
+def distribute_caches(caches: dict, mesh, specs: dict) -> dict:
+    """An ``init_caches`` dict placed on a ``DeviceMesh`` by its
+    :func:`cache_specs`: each tensor field a DTensor, the rest as they are."""
+    from torch.distributed.tensor import distribute_tensor
+
+    def one(cache, spec):
+        return type(cache)(**{
+            f.name: (distribute_tensor(v, mesh, placements(mesh, getattr(spec, f.name)))
+                     if isinstance(v := getattr(cache, f.name), torch.Tensor) else v)
+            for f in dataclasses.fields(cache)})
+
+    return {name: type(group)(one(c, sp) for c, sp in zip(group, specs[name]))
+            for name, group in caches.items()}

@@ -4,11 +4,18 @@ The port of the JAX package's ``launch/train.py``, with its flags plus
 ``--world-size`` (ranks, started by ``launch.ranks``), ``--pods``,
 ``--layers`` (a cut of depth) and ``--device``.  On a machine with one card
 every rank runs on ``cuda:0`` and the gradient wire is host-staged gloo
-(``core.collectives``).  With ``--pods P`` the ranks form a
-``("pod", "data")`` mesh of P pods (``launch.mesh.make_pod_axes``): the
-schedule runs inside each pod, a ring across the pods, as the JAX package's
-step does over ``data_axes=("pod", "data")``; ``--fail-node`` is then a
-rank of a pod, and every pod runs the degraded program.
+(``core.collectives``).  ``--data-par D`` below ``--world-size N`` lays the
+ranks out as the JAX package's ``make_host_mesh(data=D, model=N // D)``:
+global rank ``r`` is data index ``r // M`` and model index ``r % M``
+(``launch.mesh.make_data_axes``); the global batch splits over the ``D``
+data indices, the model ranks of one data index take the same rows and
+compute the same values (the JAX package's step is manual over the data
+axes with the params replicated), and each rank's data axis spans the
+``D`` ranks of its model index.  With ``--pods P`` the ranks form a
+``("pod", "data")`` mesh of P pods: the schedule runs inside each pod, a
+ring across the pods, as the JAX package's step does over
+``data_axes=("pod", "data")``; ``--fail-node`` is a rank of the innermost
+data axis, and every pod (and every model index) runs the degraded program.
 
   python -m repro_torch.launch.train --arch smollm-360m --world-size 4 \\
       --seq-len 512 --batch 8 --steps 4 --sync r2ccl --comm-mode ring \\
@@ -18,6 +25,9 @@ rank of a pod, and every pod runs the degraded program.
   python -m repro_torch.launch.train --smoke --device cpu --world-size 8 \\
       --pods 2 --steps 4 --seq-len 16 --batch 16 --sync r2ccl \\
       --fail-at-step 2 --fail-node 1 --nics-per-node 2
+  python -m repro_torch.launch.train --smoke --device cpu --world-size 8 \\
+      --data-par 4 --steps 4 --seq-len 16 --batch 8 --sync r2ccl \\
+      --fail-at-step 2 --nics-per-node 2
   python -m repro_torch.launch.train --arch smollm-360m --layers 16 \\
       --world-size 8 --pods 2 --seq-len 512 --batch 16 --steps 4 \\
       --sync r2ccl --fail-at-step 2 --fail-node 1 --nics-per-node 2
@@ -36,14 +46,13 @@ import time
 import torch
 
 from repro_torch.configs.base import CommConfig
-from repro_torch.core.collectives import DataAxis
 from repro_torch.core.detection import FailureDetector
 from repro_torch.core.failures import Failure, FailureState, FailureType
 from repro_torch.core.topology import make_cluster
 from repro_torch.data import make_batch
 from repro_torch.kernels import ops
 from repro_torch.launch import ranks
-from repro_torch.launch.mesh import make_pod_axes
+from repro_torch.launch.mesh import make_data_axes
 from repro_torch.models import get_config, get_smoke_config, init_model
 from repro_torch.optim import AdamWConfig
 from repro_torch.training import init_train_state, make_train_step, save_checkpoint
@@ -66,13 +75,13 @@ def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
     ap.add_argument("--comm-mode", default="ring",
                     choices=["xla", "ring", "r2ccl", "recursive"])
     ap.add_argument("--world-size", type=int, default=4,
-                    help="data-parallel ranks, started as local processes")
+                    help="ranks, started as local processes")
     ap.add_argument("--pods", type=int, default=1,
                     help="pods of --world-size / --pods ranks each: the "
                          "schedule runs inside a pod, a ring across pods")
     ap.add_argument("--data-par", type=int, default=0,
-                    help="data-parallel degree (0 = --world-size; the port "
-                         "has no model axis, so any other value must equal it)")
+                    help="data-parallel degree (0 = --world-size); the other "
+                         "--world-size / --data-par ranks form the model axis")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     ap.add_argument("--fail-at-step", type=int, default=None)
     ap.add_argument("--fail-node", type=int, default=0)
@@ -81,15 +90,18 @@ def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
     ap.add_argument("--checkpoint-dir", default=None)
     ap.add_argument("--log-every", type=int, default=10)
     args = ap.parse_args(argv)
-    if args.data_par not in (0, args.world_size):
-        ap.error(f"--data-par {args.data_par} != --world-size {args.world_size}: "
-                 "the port runs data parallelism only")
+    args.data_par = args.data_par or args.world_size
+    if args.data_par < 1 or args.world_size % args.data_par:
+        ap.error(f"--data-par {args.data_par} must divide --world-size {args.world_size}")
     if args.layers < 0:
         ap.error(f"--layers {args.layers} must be at least 0")
     if args.pods < 1 or args.world_size % args.pods:
         ap.error(f"--pods {args.pods} must divide --world-size {args.world_size}")
-    if args.batch % args.world_size:
-        ap.error(f"--batch {args.batch} must divide over {args.world_size} ranks")
+    if args.pods > 1 and args.data_par != args.world_size:
+        ap.error(f"--pods {args.pods} with --data-par {args.data_par} below --world-size "
+                 f"{args.world_size}: pods with a model axis is not a layout of this CLI")
+    if args.batch % args.data_par:
+        ap.error(f"--batch {args.batch} must divide over {args.data_par} ranks")
     return args
 
 
@@ -104,9 +116,11 @@ def run_rank(rank: int, world: int, device: str, a: dict) -> dict:
     if a["layers"]:
         cfg = dataclasses.replace(cfg, num_layers=a["layers"])
     dev = torch.device("cuda:0" if device == "cuda" else "cpu")
-    axes = make_pod_axes(a["pods"]) if a["pods"] > 1 else (DataAxis(),)
-    pods = f" pods={axes[0].size}x{axes[1].size}" if len(axes) > 1 else ""
-    log(f"arch={cfg.name} layers={cfg.num_layers} ranks={world}{pods} device={dev} "
+    dp, model = a["data_par"], world // a["data_par"]
+    axes = make_data_axes(dp // a["pods"], model, a["pods"])
+    layout = (f"pods={axes[0].size}x{axes[1].size}" if len(axes) > 1
+              else f"mesh={dp}x{model}")
+    log(f"arch={cfg.name} layers={cfg.num_layers} ranks={world} {layout} device={dev} "
         f"sync={a['sync']}", flush=True)
 
     params = init_model(cfg, seed=0, device=dev)
@@ -139,7 +153,8 @@ def run_rank(rank: int, world: int, device: str, a: dict) -> dict:
     detector = FailureDetector(FailureState())
     # the nodes of one pod, as the JAX package's cluster of mesh.shape["data"]
     cluster = make_cluster(max(axes[-1].size, 2), a["nics_per_node"])
-    lb = a["batch"] // world
+    # this rank's rows: those of its data index, shared by its model ranks
+    lb, row = a["batch"] // dp, rank // model
     active = "healthy"
     history, scheds, step_stats = [], [], []
     located = None
@@ -165,7 +180,7 @@ def run_rank(rank: int, world: int, device: str, a: dict) -> dict:
                 log(f"step {step}: failure injected (xla sync cannot adapt)",
                     flush=True)
         b = make_batch(cfg, seq_len=a["seq_len"], batch_size=a["batch"], step=step)
-        batch = {k: torch.from_numpy(v[rank * lb:(rank + 1) * lb]).to(dev)
+        batch = {k: torch.from_numpy(v[row * lb:(row + 1) * lb]).to(dev)
                  for k, v in b.items()}
         stats: dict[str, float] = {}
         t0 = time.perf_counter()
@@ -185,6 +200,7 @@ def run_rank(rank: int, world: int, device: str, a: dict) -> dict:
         log(f"checkpoint saved to {a['checkpoint_dir']}", flush=True)
     return {"history": history, "scheds": scheds, "stats": step_stats,
             "located": located, "launches": ops.launch_counts(),
+            "checksum": params_checksum(state.params),
             "max_memory_allocated": (torch.cuda.max_memory_allocated(dev)
                                      if dev.type == "cuda" else None)}
 

@@ -19,8 +19,13 @@ they drop different tokens once capacity binds:
 
 The expert products are one ``torch.bmm`` over the experts, on the
 ``(E, d, ff)`` weights as stored (the reference computes them as an einsum,
-outside any Pallas kernel).  Expert parallelism (``expert_sharding``) needs
-an expert mesh axis, which one card does not have.
+outside any Pallas kernel).  Expert parallelism (``expert_sharding``, a mesh
+axis name) constrains the two scatter paths' ``(R, E, C, d)`` buffers to be
+sharded on the expert dim over that axis (``core.sharding.constrain``: the
+identity on plain tensors, a redistribute on DTensors), where the reference
+puts ``with_sharding_constraint``; the einsum path ignores it, as the
+reference's does (constraining its buffers there forces the ``(B, T, E, C)``
+mask to materialise).
 
 The router aux loss is the usual load-balance term (mean fraction * mean
 probability per expert, over each token's first choice), returned so the
@@ -34,6 +39,8 @@ from typing import Any
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.core.sharding import constrain, rows_local
 
 from .layers import _einsum, _mm, dense_init
 
@@ -142,6 +149,22 @@ def _scatter_dispatch(xt, top_i, capacity: int, num_experts: int, dtype):
     return buf, keep, slot, flat_e
 
 
+def _scatter_rows(rows, top_i, capacity: int, num_experts: int, dtype):
+    """rows (R, S, d); top_i (R, S, k) -> ``_scatter_dispatch``'s four
+    results for every row, stacked on a leading R."""
+    disp = [_scatter_dispatch(xr, ir, capacity, num_experts, dtype)
+            for xr, ir in zip(rows, top_i)]
+    return tuple(torch.stack([r[i] for r in disp]) for i in range(4))
+
+
+def _combine_rows(out_buf, flat_e, slot, keep):
+    """out_buf (R, E, C, d); flat_e, slot, keep (R, S*k) -> each slot's
+    expert output (R, S*k, d), zero where the slot was dropped."""
+    R = out_buf.shape[0]
+    gathered = out_buf[torch.arange(R, device=out_buf.device)[:, None], flat_e, slot]
+    return torch.where(keep[..., None], gathered, torch.zeros((), dtype=gathered.dtype))
+
+
 def moe_ffn(
     params,
     x: torch.Tensor,                 # (B, T, d)
@@ -158,10 +181,6 @@ def moe_ffn(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Returns (output (B, T, d), aux_loss), as the JAX package's
     ``moe_ffn`` computes them."""
-    if expert_sharding is not None:
-        raise NotImplementedError(
-            f"expert_sharding={expert_sharding!r} needs an expert mesh axis, which "
-            "the port does not have yet (ROADMAP.md, queue 1, item 8)")
     B, T, d = x.shape
     E = num_experts
     xt_all = x.reshape(B * T, d)
@@ -202,13 +221,15 @@ def moe_ffn(
         rows = x if per_example_dispatch else xt_all[None]
         R, S = rows.shape[:2]
         capacity = max(1, int(math.ceil(S * top_k / E * capacity_factor)))
-        disp = [_scatter_dispatch(xr, ir, capacity, E, x.dtype)
-                for xr, ir in zip(rows, top_i.reshape(R, S, top_k))]
-        buf, keep, slot, flat_e = (torch.stack([r[i] for r in disp]) for i in range(4))
-        out_buf = _expert_ffn(params, buf, activation)               # (R, E, C, d)
-        gathered = out_buf[torch.arange(R, device=x.device)[:, None], flat_e, slot]
-        gathered = torch.where(keep[..., None], gathered,
-                               torch.zeros((), dtype=gathered.dtype))  # (R, S*k, d)
+        # the routing runs on each shard's rows (on DTensors)
+        buf, keep, slot, flat_e = rows_local(_scatter_rows, rows,
+                                             top_i.reshape(R, S, top_k), capacity, E,
+                                             x.dtype)
+        # the experts on the expert axis, where the reference constrains them
+        ep = (None, expert_sharding, None, None) if expert_sharding else None
+        buf = constrain(buf, ep)
+        out_buf = constrain(_expert_ffn(params, buf, activation), ep)  # (R, E, C, d)
+        gathered = rows_local(_combine_rows, out_buf, flat_e, slot, keep)  # (R, S*k, d)
         w = top_p.reshape(R, S * top_k, 1).to(gathered.dtype)
         y = (gathered * w).reshape(B * T, top_k, d).sum(dim=1)
 

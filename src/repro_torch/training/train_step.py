@@ -5,19 +5,22 @@ axes of a mesh (each a :class:`~repro_torch.core.collectives.DataAxis`;
 every rank holds its own share of the global batch):
 
   * ``sync="xla"``   — autograd, then an all-reduce mean of the float32
-    gradients over every rank (``dist.all_reduce``; the baseline).  Without
-    an axis the step trains on one process.
+    gradients over the data axes (``dist.all_reduce``; the baseline).
+    Without an axis the step trains on one process.
   * ``sync="r2ccl"`` — autograd, then the gradients, cast to the wire dtype
     (``CommConfig.comm_dtype``), are synchronized by an explicit R2CCL
     collective program (ring / tree / r2ccl-allreduce / recursive, per the
     ``CommConfig``), whose every round merges in the ``chunk_combine``
-    kernel; the metrics are averaged over the ranks.  Failure-aware
+    kernel; the metrics are averaged over the data axes.  Failure-aware
     schedules switch here without touching the model code.
 
 Multi-pod meshes sync hierarchically, as the JAX package's step does: the
 configured schedule runs over the innermost (intra-pod ``data``) axis, then
-an explicit ring combines over each outer (``pod``) axis.  The model axes of
-the JAX package's mesh (tensor parallelism) are not ported (ROADMAP.md).
+an explicit ring combines over each outer (``pod``) axis.  A ``model`` axis
+holds replicas: the JAX package's step is manual over the data axes alone,
+with the params in ``P()``, so the model ranks of one data index compute the
+same values, and the step reduces over the data axes of this rank's model
+index only (``launch.mesh.make_data_axes``).
 """
 
 from __future__ import annotations
@@ -85,18 +88,18 @@ def make_train_step(
     *,
     sync: str = "xla",                     # "xla" | "r2ccl"
     comm: CommConfig | None = None,
-    axis: DataAxis | None = None,
-    axes: tuple[DataAxis, ...] | None = None,
+    axes: tuple[DataAxis, ...] = (),
     total_steps: int = 10_000,
     warmup_steps: int = 100,
 ) -> Callable:
     """Builds ``train_step(state, batch, stats=None) -> (state, metrics)``.
 
-    ``axes`` are the data axes, outer first (``launch.mesh.make_pod_axes``:
-    pod, then data), the counterpart of the JAX package's ``data_axes``;
-    ``axis`` is the one-axis spelling.  Together they take every rank of the
-    default process group.  ``batch`` holds this rank's rows of the global
-    batch as tensors on the params' device.
+    ``axes`` are the data axes, outer first (``launch.mesh.make_data_axes``:
+    pod, then data), the counterpart of the JAX package's ``data_axes``.
+    Together they take the data ranks of this rank's model index: one axis
+    (its group), or a pod and a data axis over the whole default process
+    group (pods come with one model index).  ``batch`` holds this rank's
+    rows of the global batch as tensors on the params' device.
 
     ``comm.mode`` selects the gradient AllReduce schedule of the innermost
     axis in r2ccl sync: "ring", "tree", "r2ccl" (failure-aware decomposition
@@ -113,16 +116,15 @@ def make_train_step(
     comm = comm or CommConfig()
     if sync not in ("xla", "r2ccl"):
         raise ValueError(f"unknown sync mode {sync!r}")
-    if axis is not None and axes is not None:
-        raise ValueError("pass the data axis as axis= or axes=, not both")
-    axes = tuple(axes) if axes is not None else (axis,) if axis is not None else ()
+    axes = tuple(axes)
     if sync == "r2ccl" and not axes:
         raise ValueError("r2ccl sync needs the data axis (a DataAxis)")
-    # the xla sync and the metrics reduce over every rank at once
+    # the xla sync and the metrics reduce over every data rank of this
+    # model index at once: one axis's group, or the pods' whole world
     span = axes[0] if len(axes) == 1 else DataAxis(staging=axes[-1].staging) if axes else None
     if span is not None and math.prod(a.size for a in axes) != span.size:
         raise ValueError(f"data axes of {[a.size for a in axes]} ranks do not take "
-                         f"the {span.size} ranks of the process group")
+                         f"the {span.size} data ranks of one model index")
     wire_t = WIRE_DTYPES[comm.comm_dtype]
 
     def grads_and_metrics(params, batch):

@@ -57,7 +57,8 @@ def train_rank(rank, world, device, spec):
     seq_len, global batch, ``cycle`` (step i trains on batch i % cycle), lr,
     warmup/total steps, a list of (first step, sync, CommConfig kwargs)
     phases and, optionally, ``pods`` (the ranks as a ``("pod", "data")``
-    mesh of that many pods, ``launch.mesh.make_pod_axes``).  Returns the
+    mesh of that many pods, ``launch.mesh.make_data_axes(world // pods, 1,
+    pods)``).  Returns the
     losses, the bytes this rank sent each step, the sum of this rank's final
     params and rank 0's final params as numpy arrays (by path)."""
     from repro_torch.configs.base import CommConfig
@@ -73,8 +74,8 @@ def train_rank(rank, world, device, spec):
     params = params_from_jax(spec["params"], device=device)
     state = init_train_state(params)
     if spec.get("pods", 1) > 1:
-        from repro_torch.launch.mesh import make_pod_axes
-        axes = make_pod_axes(spec["pods"])
+        from repro_torch.launch.mesh import make_data_axes
+        axes = make_data_axes(world // spec["pods"], 1, spec["pods"])
     else:
         axes = (DataAxis(),)
     phases = [(start, make_train_step(cfg, AdamWConfig(lr=spec["lr"]), sync=sync,
@@ -101,18 +102,18 @@ def train_rank(rank, world, device, spec):
 
 def pods_rank(rank, world, device, pods, modes, tree_seed):
     """On a ``("pod", "data")`` layout of ``pods`` pods
-    (``launch.mesh.make_pod_axes``): each of ``modes`` — (mode, kwargs,
+    (``launch.mesh.make_data_axes(world // pods, 1, pods)``): each of ``modes`` — (mode, kwargs,
     (world, L) data) — through ``sync_over_axes`` (the data axis's schedule,
     then a ring over the pod axis, as the train step chains them), summing;
     then a bf16 tree (``np.random.default_rng(tree_seed
     + rank)``) through the degraded R2CCL program (degraded 1, lost 0.5, g 2)
     and the pod ring, mean.  Returns the sums and the merges each made, the
-    tree, the axes' ranks, sizes and global ranks, and what ``make_pod_axes``
+    tree, the axes' ranks, sizes and global ranks, and what ``make_data_axes``
     says of a pod count that does not divide the world."""
     from repro_torch.core.collectives import sync_over_axes
-    from repro_torch.launch.mesh import make_pod_axes
+    from repro_torch.launch.mesh import make_data_axes
 
-    pod, data = make_pod_axes(pods)
+    pod, data = make_data_axes(world // pods, 1, pods)
     calls = _count_merges()
     out = {"modes": []}
     for mode, kw, x in modes:
@@ -130,7 +131,7 @@ def pods_rank(rank, world, device, pods, modes, tree_seed):
     out["axes"] = [(a.rank, a.size, [a.global_rank(r) for r in range(a.size)])
                    for a in (pod, data)]
     try:
-        make_pod_axes(3)
+        make_data_axes(world // 3, 1, 3)
         out["refused"] = None
     except ValueError as e:
         out["refused"] = str(e)
@@ -162,3 +163,50 @@ def sharding_rank(rank, world, device, arch, modes):
         names = ["/".join(path) for path, _ in leaves_with_path(params)]
         out[mode] = dict(zip(names, rows))
     return out
+
+
+def cli_rank(rank, world, device, a, params):
+    """The training CLI's rank (``launch.train.run_rank`` with the parsed
+    arguments ``a``) from the JAX-initialised ``params`` (numpy tree) in
+    place of the port's own ``init_model``, so that its steps can be held
+    to the JAX package's CLI; returns the rank's result with its final
+    params as numpy arrays (by path)."""
+    from repro_torch.launch import train
+    from repro_torch.models.convert import params_from_jax
+    from repro_torch.tree import leaves_with_path
+
+    train.init_model = lambda cfg, seed=0, device="cpu": params_from_jax(params, device=device)
+    final = {}
+    make = train.make_train_step
+
+    def keep_state(*args, **kw):
+        step = make(*args, **kw)
+
+        def run(state, batch, stats=None):
+            state, metrics = step(state, batch, stats=stats)
+            final["params"] = state.params
+            return state, metrics
+        return run
+    train.make_train_step = keep_state
+    out = train.run_rank(rank, world, device, a)
+    out["params"] = {"/".join(p): t.detach().numpy()
+                     for p, t in leaves_with_path(final["params"])}
+    return out
+
+
+def axes_rank(rank, world, device, data, model):
+    """``launch.mesh.make_data_axes(data, model)``: this rank's axes as
+    (rank, size, global ranks in group order), and what it says of a
+    layout that does not take the world and of pods with a model axis."""
+    from repro_torch.launch.mesh import make_data_axes
+
+    axes = [(a.rank, a.size, [a.global_rank(r) for r in range(a.size)])
+            for a in make_data_axes(data, model)]
+    refused = []
+    for args in ((3, model), (data // 2, model, 2)):
+        try:
+            make_data_axes(*args)
+            refused.append(None)
+        except ValueError as e:
+            refused.append(str(e))
+    return axes, refused

@@ -46,7 +46,7 @@ from repro.models import list_architectures
 from repro_torch.configs.base import INPUT_SHAPES, CommConfig, InputShape
 from repro_torch.launch import dryrun as DR
 from repro_torch.launch import roofline as RL
-from repro_torch.launch.cost_analysis import CostCounter, program_wire_bytes
+from repro_torch.launch.cost_analysis import COLLECTIVE_KINDS, CostCounter, program_wire_bytes
 from repro_torch.core.collectives import program_for
 from repro_torch.launch.mesh import MeshShape, rules_for
 from repro_torch.models import apply_model, get_config, get_smoke_config, init_caches, init_model
@@ -371,7 +371,11 @@ def test_cli_writes_results_and_roofline_prints_the_tables(tmp_path, capsys):
                        for m in ("sp", "mp")}
     r = res["smollm-360m__train_4k__sp__r2ccl.json"]
     assert r["scan_corrected"] is False and r["chips"] == 256 and r["mode"] == "train"
-    assert r["collectives_counted"] == "data-parallel gradient sync only"
+    assert r["collectives_counted"] == DR.COLLECTIVES_COUNTED
+    assert "gradient-sync" in r["collectives_counted"] and "by kind" in r["collectives_counted"]
+    assert set(r["collective_op_counts"]) == set(COLLECTIVE_KINDS)
+    assert r["collectives_extrapolated"] is True
+    assert r["collectives_torch"] == torch.__version__
     assert r["wire_bytes_per_device"] > 0 and r["memory_analysis"]["temp_size_in_bytes"] > 0
     assert r["flops_per_device"] == pytest.approx(sum(r["flops_per_device_by_class"].values()))
     assert r["roofline"]["bound_s"] > 0 and r["fits_hbm"] in (True, False)

@@ -6,7 +6,9 @@ a card; the encoder-only hubert-xlarge's decode shapes are skipped as JAX's
 ``skip_reason`` skips them and nothing else is; no plain scan walks its time
 loop (the plain recurrences may run only at T = 1, RWKV-6's decode); every
 count is positive and the per-device counts of the multi-pod mesh are half
-the single-pod ones.
+the single-pod ones; the sharded step's collectives are counted by kind on
+both meshes (the step on meta DTensors, on cuts of 1 and 2 pattern
+groups), the wire bytes their sum with the gradient sync.
 """
 
 import pytest
@@ -14,6 +16,7 @@ import pytest
 from repro_torch.configs.base import INPUT_SHAPES
 from repro_torch.kernels import ref
 from repro_torch.launch import dryrun as DR
+from repro_torch.launch.cost_analysis import COLLECTIVE_KINDS
 from repro_torch.models import get_config, init_model
 from repro_torch.models.registry import list_architectures
 
@@ -52,4 +55,9 @@ def test_sweep_completes_on_the_meta_device(arch, plain_scan_steps):
         assert mp["flops_per_device"] == pytest.approx(sp["flops_per_device"] / 2)
         assert sp["memory_analysis"]["argument_size_in_bytes"] > 0
         assert sp["roofline"]["bound_s"] > 0 and sp["scan_corrected"] is False
+        for r in (sp, mp):
+            wire = r["collective_wire_bytes"]
+            assert set(wire) == {*COLLECTIVE_KINDS, "gradient-sync"}
+            assert sum(r["collective_op_counts"].values()) > 0
+            assert r["wire_bytes_per_device"] == pytest.approx(sum(wire.values()))
     assert all(t <= 1 for t in plain_scan_steps), plain_scan_steps

@@ -128,11 +128,58 @@ def test_matches_dense_oracle_when_nothing_drops(layout, top_k, T, shared):
     assert aux.item() >= 0
 
 
-def test_expert_sharding_is_not_ported():
+@pytest.mark.parametrize("layout", sorted(LAYOUTS))
+def test_expert_sharding_keeps_the_values(layout):
+    """On plain tensors the expert-axis constraint is the identity: every
+    layout gives the same ``y`` and aux loss, to the bit, with and without
+    it (the einsum layout does not read it at all)."""
+    _, tp = _params(shared=1)
+    x = torch.from_numpy(_x(3, 13))
+    kw = dict(num_experts=E, top_k=2, capacity_factor=1.0, dispatch_group=GROUP,
+              **LAYOUTS[layout])
+    y, aux = M.moe_ffn(tp, x, **kw)
+    ye, auxe = M.moe_ffn(tp, x, expert_sharding="model", **kw)
+    assert torch.equal(y, ye) and torch.equal(aux, auxe)
+
+
+@pytest.mark.parametrize("layout", sorted(LAYOUTS))
+def test_expert_sharding_shards_the_dispatch_buffers(layout, monkeypatch):
+    """On DTensors over a fake (4, 2) ``("data", "model")`` mesh the two
+    scatter layouts constrain ``buf`` and ``out_buf`` to ``Shard`` on the
+    expert dim over ``model`` (and ``Replicate`` over ``data``), where the
+    JAX package puts ``P(None, axis, None, None)``; the einsum layout
+    constrains nothing, as the JAX package's does not."""
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.launch import sharding as SH
+    from repro_torch.launch.mesh import MeshShape
+
+    seen = []
+
+    def spy(t, spec):
+        out = SH.constrain(t, spec)
+        if spec is not None:
+            seen.append((spec, tuple(out.placements), tuple(out.shape)))
+        return out
+    monkeypatch.setattr(M, "constrain", spy)
     _, tp = _params()
-    with pytest.raises(NotImplementedError, match="queue 1, item 8"):
-        M.moe_ffn(tp, torch.from_numpy(_x(1, 4)), num_experts=E, top_k=2,
-                  expert_sharding="model")
+    mesh_shape = MeshShape(("data", "model"), {"data": 4, "model": 2})
+    with SH.fake_mesh(mesh_shape) as mesh, implicit_replication():
+        p = {k: distribute_tensor(v.to("meta"), mesh, [Replicate(), Replicate()])
+             for k, v in tp.items()}
+        x = distribute_tensor(torch.empty(4, 8, D, device="meta"), mesh,
+                              [Shard(0), Replicate()])
+        y, _ = M.moe_ffn(p, x, num_experts=E, top_k=2, dispatch_group=GROUP,
+                         expert_sharding="model", **LAYOUTS[layout])
+        assert tuple(y.shape) == (4, 8, D)
+    if layout == "einsum":
+        assert seen == []
+        return
+    rows = 4 if layout == "scatter" else 1
+    assert [s[0] for s in seen] == [(None, "model", None, None)] * 2
+    for _, placements, shape in seen:
+        assert placements == (Replicate(), Shard(1)) and shape[:2] == (rows, E)
 
 
 def test_init_moe_layout_matches_jax():
@@ -147,3 +194,67 @@ def test_init_moe_layout_matches_jax():
         for k, v in jp.items():
             assert tuple(tp[k].shape) == (3, *v.shape) and tp[k].dtype == torch.float32
             np.testing.assert_allclose(tp[k].std().item(), float(jnp.std(v)), rtol=0.1)
+
+
+DBRX_MESH = """
+import dataclasses, functools
+import jax, jax.numpy as jnp, numpy as np
+from jax.sharding import NamedSharding, PartitionSpec as P
+import repro.launch.sharding as SH
+import repro.models.moe as MOE
+from repro.launch.mesh import rules_for
+from repro.models import apply_model, get_smoke_config, init_model
+
+MOE.moe_ffn = functools.partial(MOE.moe_ffn, dispatch="scatter")
+cfg = get_smoke_config("dbrx-132b")
+cfg = dataclasses.replace(cfg, dtype="float32",
+                          moe=dataclasses.replace(cfg.moe, expert_axis="model"))
+mesh = jax.make_mesh((4, 2), ("data", "model"), axis_types=(jax.sharding.AxisType.Auto,) * 2)
+holder = {{}}
+def init(key):
+    p, a = init_model(key, cfg)
+    holder["axes"] = a
+    return p
+params = jax.jit(init)(jax.random.PRNGKey(0))
+pspecs = SH.param_pspecs(mesh, rules_for(cfg, "tp"), holder["axes"], params)
+params = jax.device_put(params, SH.named(mesh, pspecs))
+tokens = jax.device_put(jnp.asarray(np.load({inp!r})), NamedSharding(mesh, P("data", None)))
+with jax.set_mesh(mesh):
+    logits = jax.jit(lambda p, t: apply_model(p, cfg, {{"tokens": t}}, mode="train")[0])(
+        params, tokens)
+np.save({out!r}, np.asarray(logits, np.float32))
+print("DBRX_MESH_OK")
+"""
+
+
+def test_dbrx_expert_axis_logits_match_jax_on_a_mesh(multidevice, tmp_path, monkeypatch):
+    """dbrx-smoke with ``expert_axis="model"`` and the scatter dispatch in
+    every MoE layer (so that the constraint is present at all): the port's
+    logits on plain tensors against JAX's ``apply_model`` jitted on a (4, 2)
+    ``("data", "model")`` mesh of 8 virtual devices, with the params placed
+    by the tensor-parallel rules and the constraint on the dispatch
+    buffers, within ``tests/_torch_model_parity.py``'s tolerance.  Both in
+    a float32 residual stream: in the config's bfloat16 the compiled XLA
+    run keeps excess precision (the reason the op-by-op parity tests run
+    JAX un-jitted), and that flips the top-k routing of enough tokens to
+    move 1.9% of the logits by up to 3.4 (a whole expert's share)."""
+    import dataclasses
+    import functools
+
+    from _torch_model_parity import ATOL, converted_params, smoke_configs
+    from repro_torch.models import apply_model
+
+    tokens = np.random.default_rng(0).integers(0, 256, (8, 16)).astype(np.int32)
+    inp, out = tmp_path / "tokens.npy", tmp_path / "logits.npy"
+    np.save(inp, tokens)
+    assert "DBRX_MESH_OK" in multidevice(DBRX_MESH.format(inp=str(inp), out=str(out)))
+    want = np.load(out)
+    _, _, tp = converted_params("dbrx-132b")
+    tcfg = smoke_configs("dbrx-132b")[1]
+    tcfg = dataclasses.replace(tcfg, dtype="float32",
+                               moe=dataclasses.replace(tcfg.moe, expert_axis="model"))
+    monkeypatch.setattr(M, "moe_ffn", functools.partial(M.moe_ffn, dispatch="scatter"))
+    with torch.no_grad():
+        got = apply_model(tp, tcfg, {"tokens": torch.from_numpy(tokens)}, mode="train")[0]
+    assert got.shape == want.shape == (8, 16, tcfg.vocab_size)
+    np.testing.assert_allclose(got.float().numpy(), want, atol=ATOL, rtol=0)

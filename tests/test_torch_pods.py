@@ -1,5 +1,5 @@
 """The port's hierarchical gradient sync on 8 gloo ranks laid out as 2 pods
-x 4 (``launch.mesh.make_pod_axes``), against the JAX package's
+x 4 (``launch.mesh.make_data_axes(4, 1, 2)``), against the JAX package's
 ``shard_map`` over a ``Mesh(devices.reshape(2, 4), ("pod", "data"))``: the
 configured schedule over ``data``, then a ring over ``pod``, as
 ``src/repro/training/train_step.py`` chains them.
@@ -204,7 +204,7 @@ def test_pod_axes_follow_the_mesh_order():
             r // PER_POD, PODS, r % PER_POD, PER_POD)
         assert pod_ranks == [p * PER_POD + r % PER_POD for p in range(PODS)]
         assert data_ranks == [r // PER_POD * PER_POD + d for d in range(PER_POD)]
-        assert "3 pods do not divide 8 ranks" in res["refused"]
+        assert "a (3, 2, 1) mesh does not take 8 ranks" in res["refused"]
 
 
 @pytest.mark.parametrize("idx", range(len(MODES)), ids=[
@@ -316,6 +316,11 @@ def test_train_cli_with_pods_on_cpu(sync, layers, scheds, capfd):
     (["--world-size", "8", "--pods", "2", "--batch", "12"],
      "--batch 12 must divide over 8 ranks"),
     (["--layers", "-1"], "--layers -1 must be at least 0"),
+    (["--world-size", "8", "--pods", "2", "--data-par", "4"],
+     "pods with a model axis is not a layout of this CLI"),
+    (["--world-size", "8", "--data-par", "3"], "--data-par 3 must divide --world-size 8"),
+    (["--world-size", "8", "--data-par", "4", "--batch", "6"],
+     "--batch 6 must divide over 4 ranks"),
 ])
 def test_train_cli_refuses_a_layout_it_cannot_run(argv, why, capsys):
     with pytest.raises(SystemExit):
@@ -324,11 +329,9 @@ def test_train_cli_refuses_a_layout_it_cannot_run(argv, why, capsys):
 
 
 @pytest.mark.parametrize("kw, why", [
-    (dict(axis="data", axes=("pod", "data")), "not both"),
     (dict(axes=()), "needs the data axis"),
 ])
 def test_make_train_step_refuses_an_ambiguous_axis(kw, why):
-    """``axis=`` is the one-axis spelling of ``axes=``: not both at once,
-    and r2ccl sync needs at least one."""
+    """r2ccl sync needs at least one data axis."""
     with pytest.raises(ValueError, match=why):
         make_train_step(get_smoke_config("smollm-360m"), AdamWConfig(), sync="r2ccl", **kw)

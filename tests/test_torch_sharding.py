@@ -32,6 +32,7 @@ from repro.models import list_architectures
 from repro_torch.configs.base import FSDP_TP_RULES, ShardingConfig
 from repro_torch.data import make_batch
 from repro_torch.launch import ranks
+from repro_torch.launch.dryrun import mesh_order
 from repro_torch.launch.mesh import (MeshShape, data_axis_names, production_mesh_shape,
                                      rules_for)
 from repro_torch.launch.sharding import (batch_specs, cache_specs, param_spec,
@@ -213,8 +214,12 @@ def test_mesh_shapes_and_placements():
     spec = param_spec(mesh, rules_for(get_config("deepseek-v3-671b"), "ep2d"),
                       ("experts", "expert_embed", "expert_mlp"), (256, 7168, 2048))
     assert spec == (("model", "data"), None, None)
-    with pytest.raises(ValueError, match="item 8"):
+    with pytest.raises(ValueError, match="not in mesh order"):
         placements(mesh, spec)
+    # the dry run places it on the mesh with its dims permuted to that order
+    order = mesh_order(mesh, [spec, (("data",), None)])
+    assert order == ("model", "data")
+    assert placements(MeshShape(order, mesh.shape), spec) == [Shard(0), Shard(0)]
 
 
 def test_params_placed_on_4_gloo_ranks():
