@@ -36,6 +36,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from repro_torch import tracing
 from repro_torch.device import timed
 from repro_torch.kernels import ops
 from repro_torch.tree import tree_map
@@ -104,10 +105,15 @@ class DataAxis:
     The collectives' ``stats``, when given, is a dict that accumulates
     ``wire_s`` (host clock around each round: staging copies and the
     exchange), ``stage_s`` (the part of it spent in the copies between the
-    card and the pinned buffers), ``merge_s`` (host clock around each
+    card and the pinned buffers), ``wait_s`` (the part spent blocked in the
+    round's ``work.wait()``, or in a library all-reduce), ``merge_s`` (host clock around each
     merge, synchronized on the card) and ``sent_bytes`` (the bytes this
     rank sends in the rounds of a program; a library all-reduce moves what
-    gloo's algorithm moves, and is not counted).
+    gloo's algorithm moves, and is not counted).  While tracing is on the
+    same phases are the spans ``collectives.wire``, ``collectives.stage``,
+    ``collectives.wait`` and ``collectives.merge``, and the bytes the
+    counter ``sent_bytes``; building a program (a miss of the caches
+    behind :func:`program_for`) is the span ``collectives.program_build``.
     """
 
     def __init__(self, group=None, staging: StagingBuffers | None = None):
@@ -134,12 +140,14 @@ class DataAxis:
         if send_to is not None:
             if staged:
                 host = self.staging.get("send", payload.numel(), payload.dtype, cpu)
-                with timed(stats, "stage_s", dev):
+                with timed(stats, "stage_s", dev, span="collectives.stage"):
                     host.copy_(payload.reshape(-1))
                 payload = host
             if stats is not None:
                 stats["sent_bytes"] = (stats.get("sent_bytes", 0)
                                        + payload.numel() * payload.element_size())
+            if tracing.enabled:
+                tracing.count("sent_bytes", payload.numel() * payload.element_size())
             p2p.append(dist.P2POp(dist.isend, payload.contiguous(),
                                   self.global_rank(send_to), self.group))
         recv_host = self.staging.get("recv", like.numel(), like.dtype, cpu)
@@ -147,29 +155,36 @@ class DataAxis:
             p2p.append(dist.P2POp(dist.irecv, recv_host, self.global_rank(recv_from),
                                   self.group))
         if p2p:
-            for work in dist.batch_isend_irecv(p2p):
-                work.wait()
+            works = dist.batch_isend_irecv(p2p)
+            with timed(stats, "wait_s", cpu, span="collectives.wait"):
+                for work in works:
+                    work.wait()
         if not staged:
             return recv_host.view(like.shape)
         recv = self.staging.get("recv", like.numel(), like.dtype, dev,
                                  phase_of=like).view(like.shape)
         if recv_from is not None:
-            with timed(stats, "stage_s", dev):
+            with timed(stats, "stage_s", dev, span="collectives.stage"):
                 recv.copy_(recv_host.view(like.shape))
         return recv
 
     def all_reduce_sum(self, x: torch.Tensor, stats: dict | None = None) -> torch.Tensor:
         """Sum over the ranks (``dist.all_reduce``, staged through the host
-        for a CUDA tensor); returns a new tensor on ``x``'s device."""
+        for a CUDA tensor); returns a new tensor on ``x``'s device.  The
+        blocking ``dist.all_reduce`` is ``wait_s``, as a program's rounds'
+        ``work.wait()`` is."""
+        cpu = torch.device("cpu")
         if x.device.type != "cuda":
             out = x.clone()
-            dist.all_reduce(out, group=self.group)
+            with timed(stats, "wait_s", cpu, span="collectives.wait"):
+                dist.all_reduce(out, group=self.group)
             return out
-        host = self.staging.get("send", x.numel(), x.dtype, torch.device("cpu"))
-        with timed(stats, "stage_s", x.device):
+        host = self.staging.get("send", x.numel(), x.dtype, cpu)
+        with timed(stats, "stage_s", x.device, span="collectives.stage"):
             host.copy_(x.reshape(-1))
-        dist.all_reduce(host, group=self.group)
-        with timed(stats, "stage_s", x.device):
+        with timed(stats, "wait_s", cpu, span="collectives.wait"):
+            dist.all_reduce(host, group=self.group)
+        with timed(stats, "stage_s", x.device, span="collectives.stage"):
             return host.view(x.shape).to(x.device)
 
 
@@ -203,9 +218,9 @@ def execute_schedule(x: torch.Tensor, sched: ChunkSchedule, axis: DataAxis,
         recv_from = next((s for s, d in step.perm if d == rank), None)
         if step.whole_buffer:
             # a whole-buffer accumulate adds nothing on non-destinations
-            with timed(stats, "wire_s", x.device):
+            with timed(stats, "wire_s", x.device, span="collectives.wire"):
                 recv = axis.exchange(chunks, send_to, recv_from, chunks, stats)
-            with timed(stats, "merge_s", x.device):
+            with timed(stats, "merge_s", x.device, span="collectives.merge"):
                 ops.chunk_combine(chunks, recv, [is_dst] * C,
                                   [step.accumulate] * C, out=chunks)
         else:
@@ -214,10 +229,10 @@ def execute_schedule(x: torch.Tensor, sched: ChunkSchedule, axis: DataAxis,
             sc = max(step.send_chunk[rank], 0)
             rc = max(step.recv_chunk[rank], 0)
             row = chunks[rc:rc + 1]
-            with timed(stats, "wire_s", x.device):
+            with timed(stats, "wire_s", x.device, span="collectives.wire"):
                 recv = axis.exchange(chunks[sc] if send_to is not None else None,
                                      send_to, recv_from, row, stats)
-            with timed(stats, "merge_s", x.device):
+            with timed(stats, "merge_s", x.device, span="collectives.merge"):
                 ops.chunk_combine(row, recv, [is_dst], [step.accumulate], out=row)
 
     out = chunks.view(-1)
@@ -248,6 +263,7 @@ def execute_program(x: torch.Tensor, prog: CollectiveProgram, axis: DataAxis,
 # ---------------------------------------------------------------------------
 
 @functools.lru_cache(maxsize=256)
+@tracing.traced("collectives.program_build")
 def _ring_program_cached(n: int) -> CollectiveProgram:
     return CollectiveProgram(
         "ring_all_reduce", n,
@@ -256,6 +272,7 @@ def _ring_program_cached(n: int) -> CollectiveProgram:
 
 
 @functools.lru_cache(maxsize=256)
+@tracing.traced("collectives.program_build")
 def _tree_program_cached(n: int) -> CollectiveProgram:
     return CollectiveProgram(
         "tree_all_reduce", n,
@@ -264,6 +281,7 @@ def _tree_program_cached(n: int) -> CollectiveProgram:
 
 
 @functools.lru_cache(maxsize=256)
+@tracing.traced("collectives.program_build")
 def _r2ccl_program_cached(n: int, degraded: int, x_pct: int, g: int) -> CollectiveProgram:
     prog, _ = build_r2ccl_all_reduce(
         list(range(n)), degraded, x=x_pct / 100.0, g=g)
@@ -271,6 +289,7 @@ def _r2ccl_program_cached(n: int, degraded: int, x_pct: int, g: int) -> Collecti
 
 
 @functools.lru_cache(maxsize=64)
+@tracing.traced("collectives.program_build")
 def _recursive_program_cached(bw_key: tuple[int, ...], g: int) -> CollectiveProgram:
     prog, _ = build_recursive_all_reduce([b / 100.0 for b in bw_key], g=g)
     return prog
@@ -326,7 +345,7 @@ def all_reduce(
     prog = program_for(axis.size, mode=mode, degraded=degraded,
                        lost_fraction=lost_fraction, bandwidths=bandwidths, g=g)
     if prog is None:
-        with timed(stats, "wire_s", x.device):
+        with timed(stats, "wire_s", x.device, span="collectives.wire"):
             return axis.all_reduce_sum(x, stats)
     out = execute_program(x.reshape(-1), prog, axis, stats=stats)
     return out.view(x.shape)

@@ -6,6 +6,10 @@ card by default.
       --strategy r2ccl --fail-at-step 4 --fail-node 1
 
 ``--device cpu --smoke`` runs the reduced config on the CPU.
+``--trace-out PATH`` writes the batch's spans (``tracing``) as Chrome trace
+JSON: ``engine.batch``, and each decode step's ``engine.decode_enqueue``, the
+host's time to enqueue the step; set against the gap to the next one (the
+step's own time), it says whether decoding is bound by the host.
 """
 
 from __future__ import annotations
@@ -15,6 +19,7 @@ import json
 
 import numpy as np
 
+from repro_torch import tracing
 from repro_torch.core.failures import Failure, FailureType
 from repro_torch.models import get_config, get_smoke_config, init_model
 from repro_torch.serving import Request, ServingEngine
@@ -34,6 +39,8 @@ def main(argv: list[str] | None = None) -> None:
     ap.add_argument("--fail-at-step", type=int, default=None)
     ap.add_argument("--fail-node", type=int, default=0)
     ap.add_argument("--fail-rail", type=int, default=0)
+    ap.add_argument("--trace-out", default=None,
+                    help="write the batch's spans to this file as Chrome trace JSON")
     args = ap.parse_args(argv)
 
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
@@ -45,14 +52,21 @@ def main(argv: list[str] | None = None) -> None:
 
     rng = np.random.default_rng(0)
     reqs = [Request(prompt=rng.integers(0, cfg.vocab_size, args.prompt_len),
-                    max_new_tokens=args.max_new)
-            for _ in range(args.requests)]
+                    max_new_tokens=args.max_new, rid=i)
+            for i in range(args.requests)]
     failure = None
     if args.fail_at_step is not None:
         failure = Failure(FailureType.NIC_HARDWARE, args.fail_node, args.fail_rail)
 
+    if args.trace_out:
+        tracing.enable()
     results = engine.run_batch(reqs, fail_at_step=args.fail_at_step,
                                failure=failure)
+    if args.trace_out:
+        tracing.disable()
+        rec = tracing.drain()
+        tracing.write_chrome_trace(args.trace_out, rec)
+        print(f"trace: {len(rec['spans'])} spans written to {args.trace_out}")
     for i, r in enumerate(results):
         print(f"req {i}: ttft={r.ttft*1e3:.1f}ms tpot={r.tpot*1e3:.1f}ms "
               f"total={r.total_latency:.3f}s failovers={r.failovers} "

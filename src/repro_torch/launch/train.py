@@ -2,7 +2,8 @@
 
 The port of the JAX package's ``launch/train.py``, with its flags plus
 ``--world-size`` (ranks, started by ``launch.ranks``), ``--pods``,
-``--layers`` (a cut of depth) and ``--device``.  On a machine with one card
+``--layers`` (a cut of depth), ``--device`` and ``--trace-out`` (rank 0's
+spans of the training loop as Chrome trace JSON, ``tracing``).  On a machine with one card
 every rank runs on ``cuda:0`` and the gradient wire is host-staged gloo
 (``core.collectives``).  ``--data-par D`` below ``--world-size N`` lays the
 ranks out as the JAX package's ``make_host_mesh(data=D, model=N // D)``:
@@ -45,6 +46,7 @@ import time
 
 import torch
 
+from repro_torch import tracing
 from repro_torch.configs.base import CommConfig
 from repro_torch.core.detection import FailureDetector
 from repro_torch.core.failures import Failure, FailureState, FailureType
@@ -89,6 +91,9 @@ def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
     ap.add_argument("--nics-per-node", type=int, default=8)
     ap.add_argument("--checkpoint-dir", default=None)
     ap.add_argument("--log-every", type=int, default=10)
+    ap.add_argument("--trace-out", default=None,
+                    help="write rank 0's spans of the training loop to this "
+                         "file as Chrome trace JSON")
     args = ap.parse_args(argv)
     args.data_par = args.data_par or args.world_size
     if args.data_par < 1 or args.world_size % args.data_par:
@@ -161,15 +166,20 @@ def run_rank(rank: int, world: int, device: str, a: dict) -> dict:
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
     ops.reset_launch_counts()
+    trace_out = a["trace_out"] if rank == 0 else None
+    if trace_out:
+        tracing.enable()
     t_start = time.time()
     for step in range(a["steps"]):
         if a["fail_at_step"] is not None and step == a["fail_at_step"]:
             node, rail = a["fail_node"], a["fail_rail"]
             failure = Failure(FailureType.NIC_HARDWARE, node, rail,
                               at_time=time.time() - t_start)
-            diag = detector.detect(failure, (node, rail),
-                                   ((node + 1) % cluster.num_nodes, rail),
-                                   aux=((node + 2) % cluster.num_nodes, 0))
+            with tracing.span("recovery.detect"):
+                tracing.count("recovery.detect")
+                diag = detector.detect(failure, (node, rail),
+                                       ((node + 1) % cluster.num_nodes, rail),
+                                       aux=((node + 2) % cluster.num_nodes, 0))
             located = diag.location.value
             if "degraded" in steps:
                 log(f"step {step}: NIC failure injected -> located {located} "
@@ -195,6 +205,11 @@ def run_rank(rank: int, world: int, device: str, a: dict) -> dict:
                 f"{float(metrics['grad_norm']):.3f} sched={active} "
                 f"step {stats['step_s']:.3f} s", flush=True)
 
+    if trace_out:
+        tracing.disable()
+        rec = tracing.drain()
+        tracing.write_chrome_trace(trace_out, rec)
+        log(f"trace: {len(rec['spans'])} spans written to {trace_out}", flush=True)
     if a["checkpoint_dir"] and rank == 0:
         save_checkpoint(a["checkpoint_dir"], state, a["steps"])
         log(f"checkpoint saved to {a['checkpoint_dir']}", flush=True)

@@ -30,6 +30,7 @@ from typing import Callable
 import numpy as np
 import torch
 
+from repro_torch import tracing
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.comm_sim import (
     DEJAVU_OVERHEAD_RANGE,
@@ -49,6 +50,7 @@ from repro_torch.runtime.control_plane import ControlPlane, LedgerEntry
 class Request:
     prompt: np.ndarray                 # (T,) token ids
     max_new_tokens: int = 32
+    rid: int | None = None             # the caller's id, in the engine.batch span
 
 
 @dataclasses.dataclass
@@ -98,7 +100,8 @@ class ServingEngine:
         self.nics = nics_per_node
         # Host-clock seam: real compute (prefill/decode) is *measured*, never
         # simulated, and the measurement enters through this injected timer —
-        # the only wall-clock read the serving path makes.  Tests inject a
+        # the only wall-clock read the serving path makes (but the tracer's,
+        # while tracing is on, which moves no result).  Tests inject a
         # fake clock to make the whole engine a pure function of its inputs.
         self.clock = clock if clock is not None else time.perf_counter
         self.prefill = make_prefill_fn(cfg)
@@ -159,7 +162,19 @@ class ServingEngine:
                   failure: Failure | None = None) -> list[RequestResult]:
         """Serve a batch, optionally injecting ``failure`` at decode step
         ``fail_at_step``.  Returns per-request latency accounting in
-        *virtual* time (real compute + modeled network events)."""
+        *virtual* time (real compute + modeled network events).  While
+        tracing is on the call is the span ``engine.batch`` (attributes:
+        the requests' ``rids``, ``B`` and the padded ``T``) and each decode
+        step's call, before its synchronize, ``engine.decode_enqueue``;
+        both read the tracer's clock, never ``clock``."""
+        with tracing.span("engine.batch") as span:
+            if span:
+                span.attrs.update(rids=[r.rid for r in requests], B=len(requests),
+                                  T=max(len(r.prompt) for r in requests))
+            return self._run_batch(requests, fail_at_step, failure)
+
+    def _run_batch(self, requests: list[Request], fail_at_step: int | None,
+                   failure: Failure | None) -> list[RequestResult]:
         cfg = self.cfg
         B = len(requests)
         T = max(len(r.prompt) for r in requests)
@@ -215,7 +230,8 @@ class ServingEngine:
                     rate = self._degraded_rate()
                     failovers += 1
             t0 = self.clock()
-            next_tok, caches = self.decode(self.params, next_tok, caches)
+            with tracing.span("engine.decode_enqueue"):
+                next_tok, caches = self.decode(self.params, next_tok, caches)
             synchronize(self.device)
             dt = self.clock() - t0
             base = dt * (1.0 + (self.dejavu_tax if self.strategy == "dejavu" else 0.0))

@@ -109,9 +109,11 @@ def make_train_step(
     ring (``dist.all_reduce`` under "xla").  The step updates the
     state's tensors in place (``optim.adamw``).  ``stats``, when given,
     accumulates host seconds (synchronized on the card) under ``fwd_bwd_s``,
-    ``sync_s`` (of which ``wire_s``, itself holding ``stage_s``, and
-    ``merge_s``) and ``opt_s``, and the bytes the rank sends in the
-    programs' rounds under ``sent_bytes``.
+    ``sync_s`` (of which ``wire_s``, itself holding ``stage_s`` and
+    ``wait_s``, and ``merge_s``) and ``opt_s``, and the bytes the rank sends in the
+    programs' rounds under ``sent_bytes``.  While tracing is on the three
+    phases are the spans ``train.fwd_bwd``, ``train.sync`` and
+    ``train.opt`` (``tracing``).
     """
     comm = comm or CommConfig()
     if sync not in ("xla", "r2ccl"):
@@ -141,9 +143,9 @@ def make_train_step(
 
     def train_step(state: TrainState, batch, stats: dict | None = None):
         device = leaves(state.params)[0].device
-        with timed(stats, "fwd_bwd_s", device):
+        with timed(stats, "fwd_bwd_s", device, span="train.fwd_bwd"):
             grads, metrics = grads_and_metrics(state.params, batch)
-        with timed(stats, "sync_s", device):
+        with timed(stats, "sync_s", device, span="train.sync"):
             if sync == "xla":
                 if span is not None:
                     grads = tree_map(lambda g: all_reduce_mean(g, span, stats=stats),
@@ -161,7 +163,7 @@ def make_train_step(
                 metrics = mean_metrics(metrics)
         lr_scale = cosine_with_warmup(state.step, warmup_steps=warmup_steps,
                                       total_steps=total_steps)
-        with timed(stats, "opt_s", device):
+        with timed(stats, "opt_s", device, span="train.opt"):
             params, opt_state, gnorm = adamw_update(
                 opt, state.params, grads, state.opt_state, lr_scale=lr_scale)
         metrics = dict(metrics, grad_norm=gnorm,

@@ -210,3 +210,32 @@ def axes_rank(rank, world, device, data, model):
         except ValueError as e:
             refused.append(str(e))
     return axes, refused
+
+
+def tracing_rank(rank, world, device, data, cases):
+    """Each (mode, kwargs) of ``cases`` through ``all_reduce`` on
+    ``data[rank]``, three times: tracing on (a program new to the process:
+    it is built), off, and on again (a cache hit).  Returns per case and run
+    the result, the ``stats``, the drained spans as (name, the enclosing
+    span's name) and the counters, and the result with ``stats`` None."""
+    from repro_torch import tracing
+    from repro_torch.core.collectives import DataAxis, all_reduce
+    axis = DataAxis()
+    x = torch.from_numpy(data[rank]).to(device)
+    out = []
+    for mode, kw in cases:
+        runs = []
+        for on in (True, False, True):
+            if on:
+                tracing.enable()
+            stats = {}
+            y = all_reduce(x, axis, mode=mode, stats=stats, **kw)
+            tracing.disable()
+            rec = tracing.drain()
+            names = {s.index: s.name for s in rec["spans"]}
+            runs.append({"y": y.numpy(), "stats": stats, "counters": rec["counters"],
+                         "spans": [(s.name, names.get(s.parent)) for s in rec["spans"]],
+                         "dropped": rec["dropped"]})
+        plain = all_reduce(x, axis, mode=mode, **kw).numpy()
+        out.append((runs, plain))
+    return out
