@@ -338,7 +338,8 @@ class CostCounter(TorchDispatchMode):
     ``torch.utils.flop_counter``'s registry (which holds the kernels'
     formulas), and its bytes, unfused: each tensor input read and each
     output written, views and allocations moving nothing, a kernel op by
-    its byte formula.  ``flops`` (by class), ``flops_by_op``, ``nbytes``
+    its byte formula, an in-place ``index_put_`` by the slots it writes.
+    ``flops`` (by class), ``flops_by_op``, ``nbytes``
     and ``kernel_calls`` (by kernel op) hold the counts."""
 
     def __init__(self):
@@ -372,7 +373,11 @@ class CostCounter(TorchDispatchMode):
             ins = _tensors(args)
             self.flops[_matmul_class(ins[0].dtype if ins else torch.float32)] += n
             self.flops_by_op[name] += n
-        if not (getattr(func, "is_view", False) or name in _NO_BYTES):
+        if name == "index_put_":
+            # a write at indices (a decode step's cache slot) reads the
+            # indices and the values and writes the values' bytes of self
+            self.nbytes += sum(map(_nbytes, _tensors(args[1:]))) + _nbytes(args[2])
+        elif not (getattr(func, "is_view", False) or name in _NO_BYTES):
             self.nbytes += sum(map(_nbytes, _tensors((args, kwargs))))
             self.nbytes += sum(map(_nbytes, _tensors(out)))
         return out

@@ -257,6 +257,41 @@ def _index_put(op_schema):
                               redistribute_cost=costs)])
 
 
+def _index_write(op_schema):
+    """``aten.index_put_`` writing whole slots in place at 1-D indices (a
+    decode step's ``cache[:, slot] = values``, ``slot`` on the device), the same in
+    every release: ``self`` keeps its placements; over a mesh dim that splits
+    it on a dim the write does not index, the values are split the same way;
+    over one that splits an indexed dim (a cache split on its positions),
+    they are replicated and the slot's owner writes them, as GSPMD lowers a
+    dynamic-update-slice of a split dim; the indices are replicated."""
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor._dtensor_spec import DTensorSpec
+    from torch.distributed.tensor._op_schema import OpSpec, OpStrategy
+    from torch.distributed.tensor._ops.utils import generate_redistribute_costs
+
+    inp, indices, values = op_schema.args_schema[:3]
+    kids = list(getattr(indices, "children", indices))   # a list, None where unindexed
+    in_spec = inp.strategies[0].output_spec
+    # 1-D indices keep self's rank; the values align to its last dims (a
+    # setitem drops their leading ones)
+    off = in_spec.ndim - values.strategies[0].output_spec.ndim
+    indexed = {d for d, k in enumerate(kids) if k is not None}
+    mesh = values.mesh
+    val_pl = [Shard(p.dim - off) if isinstance(p, Shard) and p.dim not in indexed
+              and p.dim >= off else Replicate() for p in in_spec.placements]
+
+    def spec(strategy, placements):
+        return DTensorSpec(mesh, tuple(placements),
+                           tensor_meta=strategy.strategies[0].output_spec.tensor_meta)
+
+    idx = [k for k in kids if k is not None]
+    ins = [in_spec, *(spec(k, [Replicate()] * mesh.ndim) for k in idx), spec(values, val_pl)]
+    costs = [generate_redistribute_costs(s, t) for s, t in zip([inp, *idx, values], ins)]
+    return OpStrategy([OpSpec(output_specs=in_spec, input_specs=tuple(ins),
+                              redistribute_cost=costs)])
+
+
 def _per_mesh_dim(op_schema, found):
     """``found`` (a list of [output, *inputs] placements over one mesh dim)
     expanded over every mesh dim, each combination costed from the inputs'
@@ -375,7 +410,9 @@ def counting_rules() -> Iterator[None]:
         which GSPMD pads instead;
       * ``index_put`` (an embedding lookup's backward, :func:`_index_put`;
         torch 2.11's maps a batch split of the values to a negative dim of
-        ``self``), ``roll`` (:func:`_roll`; 2.11 has none),
+        ``self``), ``index_put_`` (a decode step's cache write at a slot on
+        the device, :func:`_index_write`; 2.13's cannot keep a cache split
+        on its positions), ``roll`` (:func:`_roll`; 2.11 has none),
         ``constant_pad_nd`` (:func:`_constant_pad_nd`; 2.11's places a 1-D
         mesh only);
       * a shard's ``view`` its layout cannot take runs as a copy
@@ -398,6 +435,7 @@ def counting_rules() -> Iterator[None]:
     rules = {aten.gather.default: (_gather_partial,
                                    prop.op_to_schema_info.get(aten.gather.default)),
              aten.index_put.default: (_index_put, RuntimeSchemaInfo(needs_pytree=True)),
+             aten.index_put_.default: (_index_write, RuntimeSchemaInfo(needs_pytree=True)),
              aten.roll.default: (_roll, RuntimeSchemaInfo(1)),
              aten.constant_pad_nd.default: (_constant_pad_nd, RuntimeSchemaInfo(1))}
     add = aten.add.Tensor

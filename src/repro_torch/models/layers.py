@@ -191,12 +191,14 @@ def decode_attention(
     k: torch.Tensor,             # (B, S, KVH, D)   — cache
     v: torch.Tensor,
     *,
-    q_position: int,             # absolute position of the query token
+    q_position: int | torch.Tensor,   # absolute position of the query token
     window: int | None = None,
     logit_cap: float | None = None,
     k_positions: torch.Tensor | None = None,   # (S,) absolute positions
 ) -> torch.Tensor:
-    """Single-token attention over a (possibly ring-buffered) KV cache."""
+    """Single-token attention over a (possibly ring-buffered) KV cache.
+    ``q_position`` may be a 0-dim integer tensor on the cache's device: the
+    mask then reads it there."""
     B, _, KVH, G, D = q.shape
     S = k.shape[1]
     qf = (q[:, 0] * (1.0 / math.sqrt(D))).float()                                 # (B,KVH,G,D)
@@ -239,8 +241,11 @@ class KVCache:
 
     Unlike the JAX package's immutable cache, the port writes prefill and
     decode results into ``k``, ``v`` and ``positions`` in place (the engine
-    never reads an old cache again), and keeps ``index`` as a Python int so
-    that the ring-buffer slot needs no device-to-host copy.
+    never reads an old cache again).  ``index`` is a Python int for the
+    host's bookkeeping; decode reads the position on the device instead, as
+    one more than the largest of row 0's ``positions`` (the slot written
+    last), so that a decode step replayed as a CUDA graph needs nothing from
+    the host.
     """
 
     k: torch.Tensor              # (B, S, KVH, D)
@@ -298,23 +303,24 @@ def gqa_attention(
     if mode == "decode":
         if T != 1:
             raise ValueError(f"decode takes one token, got {T}")
-        pos = cache.index
+        k_pos = cache.positions[0]                       # a view: sees the write below
+        pos = k_pos.max() + 1                            # 0-dim, on the device
         if use_rope:
-            p = torch.full((B, 1), pos, device=x.device)
+            p = pos.expand(B, 1)
             q = apply_rope(q, p, rope_theta)
             k = apply_rope(k, p, rope_theta)
         S = cache.k.shape[1]
-        slot = pos % S                                   # ring buffer
-        cache.k[:, slot] = k[:, 0].to(cache.k.dtype)
-        cache.v[:, slot] = v[:, 0].to(cache.v.dtype)
-        cache.positions[:, slot] = pos
+        slot = (pos % S).long().view(1)                  # ring buffer
+        cache.k[:, slot] = k.to(cache.k.dtype)           # index_put_, no host read
+        cache.v[:, slot] = v.to(cache.v.dtype)
+        cache.positions[:, slot] = pos.expand(B, 1)
         qg = q.reshape(B, 1, num_kv_heads, G, head_dim)
         out = decode_attention(
             qg, cache.k, cache.v, q_position=pos, window=window,
-            logit_cap=logit_cap, k_positions=cache.positions[0],
+            logit_cap=logit_cap, k_positions=k_pos,
         )
         y = _mm(out.reshape(B, 1, num_heads * head_dim), wo)
-        return y, KVCache(cache.k, cache.v, cache.positions, pos + 1)
+        return y, KVCache(cache.k, cache.v, cache.positions, cache.index + 1)
 
     positions = torch.arange(T, device=x.device)[None, :]
     if use_rope:

@@ -338,6 +338,32 @@ def init_caches(cfg: ModelConfig, batch: int, context_len: int,
     return caches
 
 
+def cache_rows(caches: dict, batch: int) -> dict:
+    """The first ``batch`` rows of an :func:`init_caches` dict, as views (the
+    batch axis follows a stacked cache's group axis): writes through them
+    reach ``caches``, whose other rows they leave alone."""
+    def rows(cache, stacked: bool):
+        return type(cache)(**{
+            f.name: ((v[:, :batch] if stacked else v[:batch])
+                     if isinstance(v := getattr(cache, f.name), torch.Tensor) else v)
+            for f in dataclasses.fields(cache)})
+
+    return {name: type(group)(rows(c, name == "blocks") for c in group)
+            for name, group in caches.items()}
+
+
+def reset_caches(caches: dict) -> None:
+    """Refill an :func:`init_caches` dict, or :func:`cache_rows` of one, in
+    place with what ``init_caches`` puts there: zeros, and -1 (empty) in a
+    KV cache's ``positions``."""
+    for group in caches.values():
+        for cache in group:
+            for f in dataclasses.fields(cache):
+                v = getattr(cache, f.name)
+                if isinstance(v, torch.Tensor):
+                    v.fill_(-1 if f.name == "positions" else 0)
+
+
 def _group(cache, g: int):
     """Group ``g``'s view of a stacked cache (a KVCache, MLACache,
     RGLRUState or RWKVState): its tensors indexed on the leading axis, so

@@ -19,6 +19,18 @@ Compute runs for real on ``device`` (prefill attention and the recurrent
 scans in the Hopper kernels on the card); *network* failure costs are modelled in
 virtual time by the port's copy of the control plane and the ``comm_sim``
 constants, as in the JAX package.
+
+On the card a decode step is one CUDA graph, replayed once a token.  The
+engine keeps static buffers of ``G`` rows, the largest batch served so far
+(one cache set and a token vector), and captures ``decode`` over their
+first ``r`` rows for each ``r`` of :func:`graph_rows` (``G`` and the powers
+of two below it), all at once when ``G`` grows.  A batch of ``B`` rows runs
+prefill eagerly in the first ``B`` rows and replays the graph of the
+fewest rows that hold it; the padded rows carry what they last held and
+are thrown away.  A model whose caches are not all of a type whose decode
+needs nothing from the host (``GRAPH_CACHES``; MLA's reads its host
+``index``) decodes eagerly, as does every model on the CPU unless the
+engine is given a ``capture``.
 """
 
 from __future__ import annotations
@@ -42,8 +54,15 @@ from repro_torch.core.failures import Failure, FailureState
 from repro_torch.core.telemetry import TraceLog, stage_totals_from_trace
 from repro_torch.core.topology import make_cluster
 from repro_torch.device import resolve_device, synchronize
-from repro_torch.models import apply_model, init_caches
+from repro_torch.models import apply_model, cache_rows, init_caches, reset_caches
+from repro_torch.models.layers import KVCache
+from repro_torch.models.rglru import RGLRUState
+from repro_torch.models.rwkv6 import RWKVState
 from repro_torch.runtime.control_plane import ControlPlane, LedgerEntry
+
+#: cache types whose decode reads and writes only device tensors, in place:
+#: a model whose caches are all of them decodes through a captured graph
+GRAPH_CACHES = (KVCache, RGLRUState, RWKVState)
 
 
 @dataclasses.dataclass
@@ -83,6 +102,30 @@ def make_decode_fn(cfg: ModelConfig) -> Callable:
     return decode
 
 
+def graph_rows(G: int) -> list[int]:
+    """The row counts the decode step is captured at for static buffers of
+    ``G`` rows: ``G`` and the powers of two below it.  The step reads the
+    same weights at every count, but cuBLAS's float32 GEMMs take longer as
+    the rows grow (deepseek-67b at 8 layers on an H100: 10.1 ms a step at 1
+    row, 12.6 at 4, 15.9 at 16), so a small batch replays a small graph
+    rather than padding up to ``G``."""
+    return sorted({G, *(1 << i for i in range(G.bit_length()) if 1 << i < G)})
+
+
+def cuda_graph(step: Callable[[], None]) -> Callable[[], None]:
+    """Capture ``step``, a call on static buffers, as one CUDA graph after a
+    warm-up call on a side stream; returns the graph's replay."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        step()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        step()
+    return graph.replay
+
+
 class ServingEngine:
     """One model replica serving batched greedy decoding on ``device``."""
 
@@ -91,6 +134,7 @@ class ServingEngine:
                  pp: int = 2, cache_dtype=torch.float32,
                  trace: TraceLog | None = None,
                  clock: Callable[[], float] | None = None,
+                 capture: Callable | None = None,
                  device: str | torch.device = "cuda"):
         self.cfg = cfg
         self.params = params
@@ -107,6 +151,20 @@ class ServingEngine:
         self.prefill = make_prefill_fn(cfg)
         self.decode = make_decode_fn(cfg)
         self.cache_dtype = cache_dtype
+        # Capture seam: ``capture(step)`` returns a call that replays
+        # ``step``; on the card :func:`cuda_graph`, elsewhere none (eager
+        # decode) unless given.  Tests inject one that calls ``step``, so
+        # that the static buffers and the padding run on the CPU too.
+        if capture is None and self.device.type == "cuda":
+            capture = cuda_graph
+        layer_caches = [c for group in init_caches(cfg, 1, context_len,
+                                                   device="meta").values() for c in group]
+        self.capture = capture if all(isinstance(c, GRAPH_CACHES)
+                                      for c in layer_caches) else None
+        self._replays: dict[int, Callable[[], None]] = {}   # by row count
+        self._graph_rows = 0                   # G: the static buffers' rows
+        self._graph_caches: dict | None = None
+        self._graph_tokens: torch.Tensor | None = None
         self.failure_state = FailureState()
         self.failovers = 0
         # steady-state replication tax for DejaVu-style KV streaming
@@ -148,6 +206,30 @@ class ServingEngine:
             return {}
         return {k: v / total for k, v in totals.items()}
 
+    def _graph_for(self, B: int) -> tuple[Callable[[], None], dict]:
+        """The replay that serves ``B`` rows, and the first ``B`` rows of the
+        static caches, reset as ``init_caches`` makes them.  When ``B`` is
+        more than the buffers hold, they are made anew at ``B`` rows and the
+        step captured at each of ``graph_rows(B)``."""
+        if B > self._graph_rows:
+            # the old graphs and buffers go before the new ones are made
+            self._replays, self._graph_caches, self._graph_tokens = {}, None, None
+            caches = init_caches(self.cfg, B, self.context_len, dtype=self.cache_dtype,
+                                 device=self.device)
+            tokens = torch.zeros(B, dtype=torch.int64, device=self.device)
+            decode, params = self.decode, self.params
+            for rows in graph_rows(B):
+                def step(toks=tokens[:rows], views=cache_rows(caches, rows)):
+                    next_tok, _ = decode(params, toks, views)
+                    toks.copy_(next_tok)
+
+                self._replays[rows] = self.capture(step)
+                tracing.count("engine.graph_capture")
+            self._graph_rows, self._graph_caches, self._graph_tokens = B, caches, tokens
+        caches = cache_rows(self._graph_caches, B)
+        reset_caches(caches)
+        return self._replays[min(r for r in self._replays if r >= B)], caches
+
     def _degraded_rate(self) -> float:
         """Residual comm-rate multiplier under the current failures."""
         lost = len(self.failure_state.failed_nics) / self.nics
@@ -165,8 +247,11 @@ class ServingEngine:
         *virtual* time (real compute + modeled network events).  While
         tracing is on the call is the span ``engine.batch`` (attributes:
         the requests' ``rids``, ``B`` and the padded ``T``) and each decode
-        step's call, before its synchronize, ``engine.decode_enqueue``;
-        both read the tracer's clock, never ``clock``."""
+        step's call, before its synchronize, ``engine.decode_enqueue`` (the
+        graph's replay, or the eager call); both read the tracer's clock,
+        never ``clock``.  The counters ``engine.graph_capture`` (a capture),
+        ``engine.graph_replay`` and ``engine.decode_eager`` (a decode step
+        each) say which way decode ran."""
         with tracing.span("engine.batch") as span:
             if span:
                 span.attrs.update(rids=[r.rid for r in requests], B=len(requests),
@@ -183,8 +268,12 @@ class ServingEngine:
             toks[i, T - len(r.prompt):] = r.prompt    # left-pad, no mask
         max_new = max(r.max_new_tokens for r in requests)
 
-        caches = init_caches(cfg, B, self.context_len, dtype=self.cache_dtype,
-                             device=self.device)
+        graph = self.capture is not None
+        if graph:
+            replay, caches = self._graph_for(B)
+        else:
+            caches = init_caches(cfg, B, self.context_len, dtype=self.cache_dtype,
+                                 device=self.device)
         batch = {"tokens": torch.as_tensor(toks, device=self.device)}
 
         vtime = 0.0
@@ -197,6 +286,8 @@ class ServingEngine:
         failovers = 0
 
         generated = [[t] for t in next_tok.tolist()]
+        if graph:
+            self._graph_tokens[:B].copy_(next_tok)
         decode_times: list[float] = []
         rate = 1.0
         step = 0
@@ -229,9 +320,14 @@ class ServingEngine:
                         vtime += R2CCL_MIGRATION_LATENCY
                     rate = self._degraded_rate()
                     failovers += 1
+            tracing.count("engine.graph_replay" if graph else "engine.decode_eager")
             t0 = self.clock()
             with tracing.span("engine.decode_enqueue"):
-                next_tok, caches = self.decode(self.params, next_tok, caches)
+                if graph:
+                    replay()
+                    next_tok = self._graph_tokens[:B]
+                else:
+                    next_tok, caches = self.decode(self.params, next_tok, caches)
             synchronize(self.device)
             dt = self.clock() - t0
             base = dt * (1.0 + (self.dejavu_tax if self.strategy == "dejavu" else 0.0))
