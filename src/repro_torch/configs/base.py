@@ -43,6 +43,23 @@ class CommConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class YaRNConfig:
+    """YaRN scaling of the rotary frequencies (arXiv:2309.00071), as
+    DeepSeek-V3's ``rope_scaling`` states it: frequencies blended between
+    the plain ones and ``factor`` times slower across the band that
+    ``beta_fast`` and ``beta_slow`` rotations bound at
+    ``original_max_position_embeddings``; the softmax scale multiplied by
+    ``(0.1 * mscale_all_dim * ln(factor) + 1) ** 2``."""
+
+    factor: float = 1.0
+    original_max_position_embeddings: int = 4096
+    beta_fast: float = 32.0
+    beta_slow: float = 1.0
+    mscale: float = 1.0
+    mscale_all_dim: float = 0.0
+
+
+@dataclasses.dataclass(frozen=True)
 class AttentionConfig:
     kind: str = "gqa"                  # "gqa" | "mla" | "none"
     num_heads: int = 8
@@ -59,6 +76,12 @@ class AttentionConfig:
     qk_nope_head_dim: int = 0
     qk_rope_head_dim: int = 0
     v_head_dim: int = 0
+    # --- the port's own, past the JAX package (defaults: its behaviour) ---
+    #: MLA's RMSNorms on the q and kv latents (``q_a_layernorm``,
+    #: ``kv_a_layernorm``); the kv cache holds the normed latent
+    latent_norms: bool = False
+    #: YaRN scaling of MLA's rotary dims; None: plain rope
+    yarn: YaRNConfig | None = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -75,6 +98,21 @@ class MoEConfig:
     #: data-dependent); "model" = force sharded dispatch buffers
     #: (see EXPERIMENTS.md §Perf, dbrx hillclimb).
     expert_axis: str | None = None
+    # --- the port's own, past the JAX package (defaults: its behaviour) ---
+    #: router scores: "softmax" (top-k of the softmax, renormalised) or
+    #: "sigmoid" (DeepSeek-V3's ``noaux_tc``: top-k of sigmoid scores plus
+    #: the ``router_bias`` parameter among the ``topk_group`` groups of
+    #: ``n_group`` whose two best biased scores sum highest; the unbiased
+    #: scores of the chosen experts renormalised)
+    scoring: str = "softmax"
+    n_group: int = 1
+    topk_group: int = 1
+    #: multiplies the routed experts' weights (DeepSeek-V3: 2.5)
+    routed_scaling_factor: float = 1.0
+    #: the experts held here, ``(first, count)``: the layer routes over all
+    #: ``num_experts`` and computes only these experts' part of the result,
+    #: dropless; None: all of them, through the capacity dispatch
+    held_experts: tuple[int, int] | None = None
 
 
 @dataclasses.dataclass(frozen=True)

@@ -8,7 +8,9 @@ paper: one extra block over [h_t ; emb(t_{t+1})] predicting token t+2,
 weighted 0.3 in the training loss (cfg.mtp / cfg.mtp_loss_weight).
 """
 
-from repro_torch.configs.base import AttentionConfig, ModelConfig, MoEConfig
+import dataclasses
+
+from repro_torch.configs.base import AttentionConfig, ModelConfig, MoEConfig, YaRNConfig
 
 
 CONFIG = ModelConfig(
@@ -56,3 +58,26 @@ def smoke_config() -> ModelConfig:
         remat=False,
         mtp=True,
     )
+
+
+#: ``rope_scaling`` of the published config.json
+YARN = YaRNConfig(factor=40.0, original_max_position_embeddings=4096, beta_fast=32.0,
+                  beta_slow=1.0, mscale=1.0, mscale_all_dim=1.0)
+
+
+def published(cfg: ModelConfig = CONFIG, *, held_experts: tuple[int, int] | None = None,
+              n_group: int = 8, topk_group: int = 4, **changes) -> ModelConfig:
+    """``cfg`` as DeepSeek-V3's config.json states the model, past what the
+    JAX package runs: the latent norms, YaRN (``YARN``), the sigmoid router
+    over ``n_group`` groups keeping ``topk_group``, routed weights times 2.5;
+    served, so no MTP head.  The layer holds ``held_experts`` (first,
+    count) of the experts (None: all of them).  ``changes`` replace other
+    fields (``num_layers``)."""
+    m = cfg.moe
+    return dataclasses.replace(
+        cfg, mtp=False,
+        attention=dataclasses.replace(cfg.attention, latent_norms=True, yarn=YARN),
+        moe=dataclasses.replace(m, scoring="sigmoid", n_group=n_group, topk_group=topk_group,
+                                routed_scaling_factor=2.5,
+                                held_experts=held_experts or (0, m.num_experts)),
+        **changes)

@@ -132,9 +132,12 @@ def rope_frequencies(head_dim: int, theta: float, device=None) -> torch.Tensor:
     return 1.0 / (theta ** exps)
 
 
-def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
-    """x: (..., T, H, D); positions: broadcastable to (..., T).  Split-half."""
-    freqs = rope_frequencies(x.shape[-1], theta, x.device)          # (D/2,)
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
+               freqs: torch.Tensor | None = None) -> torch.Tensor:
+    """x: (..., T, H, D); positions: broadcastable to (..., T).  Split-half.
+    ``freqs`` (D/2,) replaces ``rope_frequencies(D, theta)`` (YaRN's)."""
+    if freqs is None:
+        freqs = rope_frequencies(x.shape[-1], theta, x.device)      # (D/2,)
     angles = positions[..., None].float() * freqs                   # (..., T, D/2)
     angles = angles[..., None, :]                                   # (..., T, 1, D/2)
     cos, sin = torch.cos(angles), torch.sin(angles)

@@ -63,6 +63,10 @@ def _check_supported(cfg: ModelConfig) -> None:
                        f"{cfg.attention.kind if cfg.attention else None!r}")
     if cfg.modality.kind not in ("text", "vision_text", "audio_frames"):
         missing.append(f"{cfg.modality.kind} frontend")
+    m = cfg.moe
+    if m is not None and m.scoring != "softmax" and m.held_experts is None:
+        missing.append(f"the {m.scoring} router outside the held-expert layer "
+                       f"(set moe.held_experts)")
     if missing:
         raise NotImplementedError(
             f"{cfg.name}: the port runs GQA or MLA (dense or MoE) and recurrent "
@@ -92,7 +96,9 @@ def _init_ffn(gen: torch.Generator, cfg: ModelConfig, layer_idx: int, lead=()):
     if _uses_moe(cfg, layer_idx):
         return "moe", MOE.init_moe(gen, cfg.d_model, m.expert_d_ff or cfg.d_ff,
                                    m.num_experts, m.num_shared_experts,
-                                   cfg.activation, lead)
+                                   cfg.activation, lead,
+                                   held=m.held_experts and m.held_experts[1],
+                                   router_bias=m.scoring == "sigmoid")
     return "mlp", L.init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.activation, lead)
 
 
@@ -107,7 +113,7 @@ def _init_layer(gen: torch.Generator, cfg: ModelConfig, kind: str, layer_idx: in
                 gen, cfg.d_model, a.num_heads, q_lora_rank=a.q_lora_rank,
                 kv_lora_rank=a.kv_lora_rank, qk_nope_head_dim=a.qk_nope_head_dim,
                 qk_rope_head_dim=a.qk_rope_head_dim, v_head_dim=a.v_head_dim,
-                lead=lead)
+                latent_norms=a.latent_norms, lead=lead)
         else:
             params["attn"] = L.init_gqa(gen, cfg.d_model, a.num_heads,
                                         a.num_kv_heads, a.head_dim, lead)
@@ -150,7 +156,7 @@ def _apply_layer(params, cfg: ModelConfig, kind: str, x, *, cache, mode,
         y, new_cache = MLA.mla_attention(
             params["attn"], h, num_heads=a.num_heads,
             qk_nope_head_dim=a.qk_nope_head_dim, qk_rope_head_dim=a.qk_rope_head_dim,
-            v_head_dim=a.v_head_dim, rope_theta=a.rope_theta, cache=cache,
+            v_head_dim=a.v_head_dim, rope_theta=a.rope_theta, yarn=a.yarn, cache=cache,
             mode=mode, impl=kernel_impl)
     elif kind in ATTN_KINDS:
         a = cfg.attention
@@ -171,7 +177,15 @@ def _apply_layer(params, cfg: ModelConfig, kind: str, x, *, cache, mode,
         return x + y.to(x.dtype), new_cache, aux
     x = x + y.to(x.dtype)
     h2 = norm_fn(params["norm2"], x)
-    if "moe" in params:
+    if "moe" in params and cfg.moe.held_experts is not None:
+        m = cfg.moe
+        y2 = MOE.moe_ffn_held(params["moe"], h2, num_experts=m.num_experts,
+                              top_k=m.top_k, held=m.held_experts,
+                              activation=cfg.activation, scoring=m.scoring,
+                              n_group=m.n_group, topk_group=m.topk_group,
+                              routed_scaling_factor=m.routed_scaling_factor,
+                              decode=mode == "decode")
+    elif "moe" in params:
         m = cfg.moe
         y2, aux = MOE.moe_ffn(params["moe"], h2, num_experts=m.num_experts,
                               top_k=m.top_k, capacity_factor=m.capacity_factor,
@@ -247,6 +261,8 @@ def _layer_axes(cfg: ModelConfig, kind: str, layer_idx: int) -> dict:
     axes: dict[str, Any] = {"norm1": L.norm_axes(cfg.norm)}
     if kind in ATTN_KINDS:
         axes["attn"] = dict(MLA.MLA_AXES if cfg.attention.kind == "mla" else L.GQA_AXES)
+        if cfg.attention.kind == "mla" and cfg.attention.latent_norms:
+            axes["attn"].update(MLA.LATENT_NORM_AXES)
     elif kind == "rglru":
         axes["rglru"] = dict(RG.RGLRU_AXES)
     else:
@@ -254,7 +270,8 @@ def _layer_axes(cfg: ModelConfig, kind: str, layer_idx: int) -> dict:
         return axes
     axes["norm2"] = L.norm_axes(cfg.norm)
     if _uses_moe(cfg, layer_idx):
-        axes["moe"] = MOE.moe_axes(cfg.moe.num_shared_experts, cfg.activation)
+        axes["moe"] = MOE.moe_axes(cfg.moe.num_shared_experts, cfg.activation,
+                                   router_bias=cfg.moe.scoring == "sigmoid")
     else:
         axes["mlp"] = L.mlp_axes(cfg.activation)
     return axes
@@ -291,12 +308,13 @@ def model_axes(cfg: ModelConfig) -> dict:
 
 
 def _layer_cache(cfg: ModelConfig, kind: str, batch: int, context_len: int,
-                 window_override, dtype, dev, lead=()):
+                 window_override, dtype, dev, lead=(), device_index=False):
     if kind in ATTN_KINDS:
         a = cfg.attention
         if a.kind == "mla":
             return MLA.init_mla_cache(batch, context_len, a.kv_lora_rank,
-                                      a.qk_rope_head_dim, dtype, dev, lead)
+                                      a.qk_rope_head_dim, dtype, dev, lead,
+                                      device_index=device_index)
         if kind == "local_attn" and a.sliding_window:
             size = min(a.sliding_window, context_len)
         elif window_override:
@@ -314,18 +332,20 @@ def _layer_cache(cfg: ModelConfig, kind: str, batch: int, context_len: int,
 
 def init_caches(cfg: ModelConfig, batch: int, context_len: int,
                 window_override=None, dtype=torch.bfloat16,
-                device: str | torch.device = "cuda") -> dict:
+                device: str | torch.device = "cuda", device_index: bool = False) -> dict:
     """Cache dict matching the model structure, one cache per layer by its
     kind; ``blocks`` caches carry the leading ``n_groups`` axis like the
     params.  ``window_override`` sizes the caches of ``attn`` and
-    ``global_attn`` layers as ``apply_model``'s argument windows them."""
+    ``global_attn`` layers as ``apply_model``'s argument windows them.
+    ``device_index`` gives each ``MLACache`` its position as a tensor on
+    the device (the engine's captured decode)."""
     _check_supported(cfg)
     dev = resolve_device(device)
     n_groups, pattern, remainder = _pattern_split(cfg)
 
     def one(kind, lead=()):
         return _layer_cache(cfg, kind, batch, context_len, window_override, dtype,
-                            dev, lead)
+                            dev, lead, device_index)
 
     caches: dict[str, Any] = {}
     if n_groups > 0:
@@ -341,11 +361,13 @@ def init_caches(cfg: ModelConfig, batch: int, context_len: int,
 def cache_rows(caches: dict, batch: int) -> dict:
     """The first ``batch`` rows of an :func:`init_caches` dict, as views (the
     batch axis follows a stacked cache's group axis): writes through them
-    reach ``caches``, whose other rows they leave alone."""
+    reach ``caches``, whose other rows they leave alone.  A device
+    ``index`` has no batch axis: the views share it."""
     def rows(cache, stacked: bool):
         return type(cache)(**{
             f.name: ((v[:, :batch] if stacked else v[:batch])
-                     if isinstance(v := getattr(cache, f.name), torch.Tensor) else v)
+                     if isinstance(v := getattr(cache, f.name), torch.Tensor)
+                     and f.name != "index" else v)
             for f in dataclasses.fields(cache)})
 
     return {name: type(group)(rows(c, name == "blocks") for c in group)
@@ -475,7 +497,8 @@ def apply_model(
             # index its layer advanced to
             new_caches["blocks"] = tuple(
                 dataclasses.replace(c, index=last[i].index)
-                if isinstance(c, (L.KVCache, MLA.MLACache)) else c
+                if isinstance(c, (L.KVCache, MLA.MLACache))
+                and not isinstance(c.index, torch.Tensor) else c
                 for i, c in enumerate(caches["blocks"]))
     if remainder:
         tail = []

@@ -27,10 +27,11 @@ first ``r`` rows for each ``r`` of :func:`graph_rows` (``G`` and the powers
 of two below it), all at once when ``G`` grows.  A batch of ``B`` rows runs
 prefill eagerly in the first ``B`` rows and replays the graph of the
 fewest rows that hold it; the padded rows carry what they last held and
-are thrown away.  A model whose caches are not all of a type whose decode
-needs nothing from the host (``GRAPH_CACHES``; MLA's reads its host
-``index``) decodes eagerly, as does every model on the CPU unless the
-engine is given a ``capture``.
+are thrown away.  The engine's caches hold MLA's position on the device
+(``init_caches(device_index=True)``).  A model whose caches are not all of
+a type whose decode needs nothing from the host (``GRAPH_CACHES``) decodes
+eagerly, as does every model on the CPU unless the engine is given a
+``capture``.
 """
 
 from __future__ import annotations
@@ -56,13 +57,15 @@ from repro_torch.core.topology import make_cluster
 from repro_torch.device import resolve_device, synchronize
 from repro_torch.models import apply_model, cache_rows, init_caches, reset_caches
 from repro_torch.models.layers import KVCache
+from repro_torch.models.mla import MLACache
 from repro_torch.models.rglru import RGLRUState
 from repro_torch.models.rwkv6 import RWKVState
 from repro_torch.runtime.control_plane import ControlPlane, LedgerEntry
 
-#: cache types whose decode reads and writes only device tensors, in place:
-#: a model whose caches are all of them decodes through a captured graph
-GRAPH_CACHES = (KVCache, RGLRUState, RWKVState)
+#: cache types whose decode reads and writes only device tensors, in place
+#: (an ``MLACache`` made with ``device_index``): a model whose caches are
+#: all of them decodes through a captured graph
+GRAPH_CACHES = (KVCache, MLACache, RGLRUState, RWKVState)
 
 
 @dataclasses.dataclass
@@ -215,7 +218,7 @@ class ServingEngine:
             # the old graphs and buffers go before the new ones are made
             self._replays, self._graph_caches, self._graph_tokens = {}, None, None
             caches = init_caches(self.cfg, B, self.context_len, dtype=self.cache_dtype,
-                                 device=self.device)
+                                 device=self.device, device_index=True)
             tokens = torch.zeros(B, dtype=torch.int64, device=self.device)
             decode, params = self.decode, self.params
             for rows in graph_rows(B):
@@ -273,7 +276,7 @@ class ServingEngine:
             replay, caches = self._graph_for(B)
         else:
             caches = init_caches(cfg, B, self.context_len, dtype=self.cache_dtype,
-                                 device=self.device)
+                                 device=self.device, device_index=True)
         batch = {"tokens": torch.as_tensor(toks, device=self.device)}
 
         vtime = 0.0

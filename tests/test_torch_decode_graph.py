@@ -18,6 +18,7 @@ import pytest
 import torch
 
 from repro_torch import tracing
+from repro_torch.configs.deepseek_v3_671b import published
 from repro_torch.models import apply_model, get_config, get_smoke_config, init_caches, init_model
 from repro_torch.models import layers as L
 from repro_torch.serving import Request, ServingEngine
@@ -117,7 +118,8 @@ def test_graph_rows(G, rows):
     assert graph_rows(G) == rows
 
 
-@pytest.mark.parametrize("arch", ["glm4-9b", "gemma2-27b", "recurrentgemma-9b", "rwkv6-1.6b"])
+@pytest.mark.parametrize("arch", ["glm4-9b", "gemma2-27b", "recurrentgemma-9b", "rwkv6-1.6b",
+                                  "deepseek-v3-671b"])
 def test_one_set_of_captures_serves_smaller_batches(arch):
     """B 16, then 5 (in the 8-row graph), then 1, from the captures made at
     16 rows, the padded rows holding what the earlier batches left
@@ -165,19 +167,24 @@ def test_a_larger_batch_captures_again():
 
 
 def test_mla_decodes_eagerly_with_a_capture_given():
-    """MLA's decode reads its cache's host ``index``: its engine takes no
-    capture and counts each step eager."""
+    """The engine's MLA caches hold their position on the device
+    (``init_caches(device_index=True)``), so its engine takes the capture
+    it is given: two batches through the seam, tokens equal to an eager
+    engine's, one replay a step."""
     cfg = get_smoke_config("deepseek-v3-671b")
     params = init_model(cfg, seed=0, device="cpu")
     engine = ServingEngine(cfg, params, context_len=64, device="cpu", capture=calls_step)
-    assert engine.capture is None
+    assert engine.capture is calls_step
+    batches = [_requests(cfg, 2, 12, 4, 7), _requests(cfg, 3, 10, 6, 8)]
     tracing.enable()
     try:
-        engine.run_batch(_requests(cfg, 2, 12, 4, 7))
+        got = [_tokens(engine, reqs) for reqs in batches]
     finally:
         tracing.disable()
         rec = tracing.drain()
-    assert rec["counters"] == {"engine.decode_eager": 3}
+    assert rec["counters"] == {"engine.graph_capture": 2 + 3, "engine.graph_replay": 3 + 5}
+    for reqs, tokens in zip(batches, got):
+        assert tokens == _tokens(ServingEngine(cfg, params, context_len=64, device="cpu"), reqs)
 
 
 # ---------------------------------------------------------------------------
@@ -231,7 +238,7 @@ def test_cuda_graph_equals_eager_decode(cuda_device):
 @pytest.mark.requires_cuda
 @pytest.mark.parametrize("arch", ["smollm-360m", "paper-7b", "glm4-9b", "gemma2-27b",
                                   "deepseek-67b", "dbrx-132b", "recurrentgemma-9b",
-                                  "rwkv6-1.6b"])
+                                  "rwkv6-1.6b", "deepseek-v3-671b"])
 def test_cuda_graph_captures_every_family(cuda_device, arch):
     """Each family the engine captures, at its smoke size: B 4 then B 3 (24
     tokens wrap the 16-slot windows), tokens equal to eager calls of the step
@@ -244,3 +251,34 @@ def test_cuda_graph_captures_every_family(cuda_device, arch):
     for reqs in (_requests(cfg, 4, 24, 10, 21), _requests(cfg, 3, 16, 12, 22)):
         assert _tokens(graph, reqs) == _tokens(stepped, reqs)
     assert graph._graph_rows == 4
+
+
+@pytest.mark.requires_cuda
+def test_mla_graph_decode_equals_eager_at_the_cells_widths(cuda_device):
+    """DeepSeek-V3 as published at full width (d 7168, 128 MLA heads with
+    the latent norms and YaRN, the sigmoid router over 256 experts, experts
+    0-7 held), 5 of its layers (3 dense, 2 MoE: a stacked group of two),
+    fp32 cache of 512 positions, one batch of 6 rows (captured at 1, 2, 4
+    and 6): the captured engine's tokens equal eager calls of the step on
+    the same static buffers and a plain eager engine's, to the bit; every decode step a replay, none eager."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = published(num_layers=5, held_experts=(0, 8))
+    params = init_model(cfg, seed=0, device="cuda")
+
+    def engine(**kw):
+        return ServingEngine(cfg, params, context_len=512, cache_dtype=torch.float32,
+                             device="cuda", **kw)
+
+    graph, stepped, plain = engine(), engine(capture=calls_step), engine()
+    plain.capture = None
+    reqs = _requests(cfg, 6, 200, 12, 31)
+    tracing.enable()
+    try:
+        got = _tokens(graph, reqs)
+    finally:
+        tracing.disable()
+        rec = tracing.drain()
+    assert rec["counters"]["engine.graph_replay"] == 11
+    assert "engine.decode_eager" not in rec["counters"]
+    assert sorted(graph._replays) == [1, 2, 4, 6]
+    assert got == _tokens(stepped, reqs) == _tokens(plain, reqs)

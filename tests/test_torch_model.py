@@ -29,11 +29,15 @@ from repro.configs.base import ShardingConfig as JShardingConfig
 from repro.models import get_config as jax_get_config
 from repro.models import get_smoke_config as jax_smoke
 from repro.models.registry import ARCHITECTURES as JAX_ARCHITECTURES
-from repro_torch.configs.base import FSDP_TP_RULES, ShardingConfig
+from repro_torch.configs.base import AttentionConfig, FSDP_TP_RULES, MoEConfig, ShardingConfig
 from repro_torch.data import make_batch
 from repro_torch.models import (apply_model, get_config, get_smoke_config,
                                 init_caches, init_model, list_architectures)
 
+#: the fields the port's config dataclasses add past the JAX package's
+PORT_ONLY = {"attention": ("latent_norms", "yarn"),
+             "moe": ("scoring", "n_group", "topk_group", "routed_scaling_factor",
+                     "held_experts")}
 ARCHS = ["smollm-360m", "paper-7b", "glm4-9b", "recurrentgemma-9b", "rwkv6-1.6b",
          "gemma2-27b", "deepseek-67b", "dbrx-132b", "deepseek-v3-671b",
          "paligemma-3b", "hubert-xlarge"]
@@ -67,13 +71,41 @@ def test_params_layout_matches_jax(pair):
 
 @pytest.mark.parametrize("arch", ARCHS)
 def test_configs_match_jax(arch):
+    """Every field of the JAX package's configs is the port's, and every
+    field the port adds past it (DeepSeek-V3 as published: the latent
+    norms, YaRN, the sigmoid router, the held experts) sits at its default
+    in every registry config, so each runs as the JAX package does."""
     def as_dict(c):
         d = dataclasses.asdict(c)
         d.pop("comm")          # CommConfig: compared field by field below
         return d
+
+    def split(ours, theirs, path=()):
+        """(the port's values at the JAX package's keys, the port-only
+        fields with their paths)."""
+        if not isinstance(ours, dict) or not isinstance(theirs, dict):
+            return ours, {}
+        same, extra = {}, {}
+        for k, v in ours.items():
+            if k in theirs:
+                same[k], more = split(v, theirs[k], (*path, k))
+                extra.update(more)
+            else:
+                extra[(*path, k)] = v
+        return same, extra
+
+    defaults = {(group, f.name): f.default
+                for group, cls in (("attention", AttentionConfig), ("moe", MoEConfig))
+                for f in dataclasses.fields(cls)}
     for ours, theirs in ((get_config(arch), jax_get_config(arch)),
                          (get_smoke_config(arch), jax_smoke(arch))):
-        assert as_dict(ours) == as_dict(theirs)
+        same, extra = split(as_dict(ours), as_dict(theirs))
+        assert same == as_dict(theirs)
+        assert set(extra) <= set(defaults), sorted(set(extra) - set(defaults))
+        assert all(v == defaults[k] for k, v in extra.items()), extra
+        for group, cls in (("attention", AttentionConfig), ("moe", MoEConfig)):
+            if getattr(ours, group) is not None:
+                assert {(group, f) for f in PORT_ONLY[group]} <= set(extra)
         assert dataclasses.asdict(ours.comm) == dataclasses.asdict(theirs.comm)
         assert ours.param_count() == theirs.param_count()
     # the logical-axis sharding rules (one copy each side, whatever the arch)
