@@ -14,11 +14,14 @@ Phases, each printing its own lines and seconds, and raising on failure
                the main paths' shapes and at shape / dtype / mask cases, plus
                its time, the plain version's time, one PyTorch library call's
                time as a yardstick where one exists, and the card's bound;
+               small_mm against float64 at 1-16 rows, and a decode step's
+               products of each serving cell timed at 1, 4, 8 and 16 rows;
   4. serve   — full-width smollm-360m (random fp32 weights from a seed) in the
                port's ServingEngine(strategy="r2ccl"): 4 requests of 512-token
                prompts, 16 new tokens, healthy and with a NIC failure at decode
                step 4; tokens must be identical, launch counts are read around
-               the two runs, and prefill logits through the kernel are held
+               the two runs (small_mm's held to the products routed to it:
+               decode's), and prefill logits through the kernel are held
                against the plain attention on the card;
  4b. roofline — the dry run (``launch/dryrun.py``: the step counted on the
                meta device by the kernels' formulas, ``cost_analysis`` at the
@@ -69,8 +72,10 @@ Phases, each printing its own lines and seconds, and raising on failure
                embeddings (a bidirectional prefix, the flash kernel's
                prefix-LM mask at head_dim 256) and 256 text tokens, then 15
                greedy decode steps, 4 requests; 18 flash_attention launches a
-               prefill, none in decode; tokens and prefill logits held to the
-               plain versions; TTFT, TPOT and peak memory printed;
+               prefill; in decode one small_mm a product it takes (the
+               layers'; the tied head stays on cuBLAS); tokens and prefill
+               logits held to the plain versions; TTFT, TPOT and peak memory
+               printed;
  10. serve_hubert — hubert-xlarge at full width and depth (48 layers, 3.8
                GB): the encoder's forward over 4 clips of 1024 frames (the
                non-causal mask at head_dim 80), 48 flash_attention launches,
@@ -217,6 +222,12 @@ KERNELS = {
         source="src/repro_torch/kernels/csrc/wkv_scan_bwd.cu",
         replaces="src/repro/models/rwkv6.py:97",
         note="no Pallas counterpart; replaces jax.grad through wkv_scan_ref"),
+    "small_mm": dict(
+        route="cuda",
+        source="src/repro_torch/kernels/csrc/small_mm.cu",
+        replaces=None,
+        note="no TPU kernel; replaces cuBLAS for decode's float32 products at 1-16 rows "
+             "(XLA's dot on the TPU), models/layers.py::_mm and models/moe.py::_expert_mm"),
 }
 #: the other GQA families, full width at a cut depth: (arch, layers kept,
 #: batch, prompt, context, kernel launches per prefill).  gemma2's prompts
@@ -241,7 +252,7 @@ MLA_PHASES = {
 MAIN_PATH = {"flash_attention": "serve", "flash_attention_bwd": "train",
              "chunk_combine": "train", "lru_scan": "serve_recurrentgemma",
              "wkv_scan": "serve_rwkv6", "lru_scan_bwd": "train_recurrent",
-             "wkv_scan_bwd": "train_recurrent"}
+             "wkv_scan_bwd": "train_recurrent", "small_mm": "serve_deepseek67b"}
 NO_LIBRARY = "no single PyTorch call computes this recurrence"
 
 ARCH, BATCH, PROMPT, NEW_TOKENS, CONTEXT = "smollm-360m", 4, 512, 16, 1024
@@ -327,6 +338,31 @@ SCAN_RTOL = 1e-5
 # relative to max(1, max |gradient|): the CPU block gradient tests' bound (a
 # gradient sums over the T steps of the reverse recurrence, gu over B and T)
 SCAN_BWD_RTOL = 1e-4
+# small_mm against a float64 product, relative to the rounding scale
+# sum |x| |w| of each element: fp32 sums in a fixed order read ~1e-8-1e-7 at
+# the cells' K on random data, products in TF32 ~1e-5, bf16 weights ~1e-4
+MM_RTOL = 2e-6
+#: a decode step's products through ``_mm`` and ``_expert_mm`` in the two
+#: serving cells: (name, K, N, G experts, times a step).  deepseek-67b at 8
+#: layers: q, k, v, o, gate, up, down a layer and the untied head (57
+#: launches); DeepSeek-V3 at 10 layers (3 dense, 7 MoE holding 8 experts):
+#: MLA's five a layer, the dense FFN's three, the held experts' and the
+#: shared expert's three each, the head (102 launches)
+SMALL_MM_STEPS = {
+    "deepseek-67b-8l": [("q", 8192, 8192, 1, 8), ("k", 8192, 1024, 1, 8),
+                        ("v", 8192, 1024, 1, 8), ("o", 8192, 8192, 1, 8),
+                        ("gate", 8192, 22016, 1, 8), ("up", 8192, 22016, 1, 8),
+                        ("down", 22016, 8192, 1, 8), ("head", 8192, 102400, 1, 1)],
+    "deepseek-v3-10l-ep32": [
+        ("w_dq", 7168, 1536, 1, 10), ("w_uq", 1536, 24576, 1, 10), ("w_dkv", 7168, 512, 1, 10),
+        ("w_kpe", 7168, 64, 1, 10), ("w_o", 16384, 7168, 1, 10), ("ffn_gate", 7168, 18432, 1, 3),
+        ("ffn_up", 7168, 18432, 1, 3), ("ffn_down", 18432, 7168, 1, 3),
+        ("experts_gate", 7168, 2048, 8, 7), ("experts_up", 7168, 2048, 8, 7),
+        ("experts_down", 2048, 7168, 8, 7), ("shared_gate", 7168, 2048, 1, 7),
+        ("shared_up", 7168, 2048, 1, 7), ("shared_down", 2048, 7168, 1, 7),
+        ("head", 7168, 129280, 1, 1)],
+}
+SMALL_MM_ROWS = (1, 4, 8, 16)
 # the recurrent families' training shape: one rank's LOCAL_BATCH sequences
 # of SEQ tokens; recurrentgemma-9b's LRU width, rwkv6-1.6b's 32 heads of 64
 LRU_TRAIN = (2, 512, 4096)
@@ -1441,6 +1477,117 @@ def check_wkv_scan_bwd(gen) -> dict:
                 device_ms_by_launch={n: v["ms"] for n, v in prof.items()})
 
 
+def check_small_mm(gen) -> dict:
+    """The small-row product against float64 at every row count 1-16 and at
+    the cells' shapes (one of each (K, N, G)), float32 and bfloat16 x, twice
+    for identical bits; a TF32 product read the same way, to show the
+    tolerance tells them apart.  Then a decode step's products of each
+    serving cell (``SMALL_MM_STEPS``, each weight allocated once and read
+    in the step's order, so the 50 MB L2 never holds the next), each
+    captured as one CUDA graph as the decode step is and timed by CUDA
+    events over its replays: through the kernel, its plain version
+    (``torch.bmm``) and ``torch.matmul`` (cuBLAS, the library yardstick the
+    port no longer calls on this path), at 1, 4, 8 and 16 rows, with the
+    kernel's device time (torch.profiler, eager launches) and the bound
+    (the bytes at 3.35 TB/s)."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.small_mm import MAX_ROWS, plan, small_mm_cuda
+    from repro_torch.launch import cost_analysis as CA
+    from repro_torch.launch.profile_kernels import device_ms, graph_ms
+
+    worst, tf32_least = 0.0, float("inf")
+    shapes = sorted({(K, N, G) for steps in SMALL_MM_STEPS.values() for _, K, N, G, _ in steps})
+    for K, N, G in shapes:
+        x16 = torch.randn(G, MAX_ROWS, K, device="cuda", generator=gen)
+        w = torch.randn(G, K, N, device="cuda", generator=gen) / K ** 0.5
+        y64 = torch.bmm(x16.double(), w.double())
+        scale = torch.bmm(x16.double().abs(), w.double().abs())
+        for dtype in (torch.float32, torch.bfloat16):
+            xd = x16.to(dtype)
+            if dtype == torch.bfloat16:
+                y64 = torch.bmm(xd.double(), w.double())
+            for M in range(1, MAX_ROWS + 1):
+                y = small_mm_cuda(xd[:, :M], w)
+                err = ((y.double() - y64[:, :M]).abs() / scale[:, :M]).max().item()
+                worst = max(worst, err)
+                if not err <= MM_RTOL:
+                    raise RuntimeError(f"small_mm ({G}, {M}, {K}) x ({K}, {N}) {dtype}: "
+                                       f"err {err} > {MM_RTOL}")
+                if not torch.equal(y, small_mm_cuda(xd[:, :M], w)):
+                    raise RuntimeError(f"small_mm ({G}, {M}, {K}) x ({K}, {N}): two calls "
+                                       "on the same inputs differ")
+        torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            t32 = torch.bmm(x16, w)
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = False
+        y64 = torch.bmm(x16.double(), w.double())
+        tf32_least = min(tf32_least, ((t32.double() - y64).abs() / scale).max().item())
+        del x16, w, y64, scale
+    log("kernels", f"small_mm at {len(shapes)} (K, N, G) of the cells' decode steps, M = 1.."
+        f"{MAX_ROWS}, float32 and bfloat16 x, against float64: worst {worst:.3e} of sum |x||w| "
+        f"(tol {MM_RTOL:g}); two calls give the same bits in every case; a TF32 product "
+        f"reads at least {tf32_least:.3e} (least over the shapes)")
+    if not tf32_least > MM_RTOL:
+        raise RuntimeError(f"a TF32 product reads {tf32_least} <= MM_RTOL {MM_RTOL}")
+
+    out = {}
+    for cell, steps in SMALL_MM_STEPS.items():
+        ws = {name: torch.randn(G, K, N, device="cuda", generator=gen) / K ** 0.5
+              for name, K, N, G, _ in steps}
+        layers = max(n for *_, n in steps)
+        order = [(name, K, N, G) for i in range(layers) for name, K, N, G, n in steps if i < n]
+        launches = len(order)
+        nbytes = sum(CA.small_mm_cost((G, 1, K), (G, K, N)).nbytes - 4 * G * (K + N)
+                     for _, K, N, G in order)          # the weights alone
+        xs = {K: torch.randn(MAX_ROWS, K, device="cuda", generator=gen)
+              for _, K, _, _, _ in steps}
+        rows = {}
+        for M in SMALL_MM_ROWS:
+            args = [(xs[K][:M].expand(G, M, K), ws[name]) for name, K, N, G in order]
+
+            def kernel():
+                for x, w in args:
+                    small_mm_cuda(x, w)
+
+            def plain():
+                for x, w in args:
+                    ref.reference_small_mm(x, w)
+
+            def library():
+                for x, w in args:
+                    torch.matmul(x, w)
+
+            ms = graph_ms(kernel, replays=5)
+            t_plain = graph_ms(plain, replays=5)
+            t_lib = graph_ms(library, replays=5)
+            ms2 = graph_ms(kernel, replays=5)
+            dev = sum(device_ms(kernel, calls=2).values()) or None
+            cost = sum(CA.small_mm_cost((G, M, K), (G, K, N)).bound()["bound_ms"]
+                       for _, K, N, G in order)
+            rows[M] = dict(ms=min(ms, ms2), ms_again=max(ms, ms2), device_ms=dev,
+                           plain_ms=t_plain, library_ms=t_lib, bound_ms=cost,
+                           tb_s=nbytes / min(ms, ms2) / 1e9)
+            log("kernels", f"small_mm {cell} decode step's {launches} products at {M} rows "
+                f"({nbytes / 1e9:.2f} GB of weights), a graph's replay: kernel {ms:.4f} / "
+                f"{ms2:.4f} ms "
+                f"({nbytes / min(ms, ms2) / 1e9:.3f} TB/s, {cost / min(ms, ms2):.1%} of the "
+                f"bound {cost:.4f} ms, bytes), device {fmt_ms(dev)}; plain (torch.bmm) "
+                f"{t_plain:.4f} ms; library (torch.matmul) {t_lib:.4f} ms")
+        one, most = rows[1]["ms"], rows[MAX_ROWS]["ms"]
+        log("kernels", f"small_mm {cell}: {MAX_ROWS} rows take {most / one:.3f}x the 1-row "
+            f"time; tiles and splits "
+            f"{ {name: plan(G, K, N) for name, K, N, G, _ in steps} }")
+        out[cell] = dict(launches_per_step=launches, weight_gb=nbytes / 1e9, by_rows=rows)
+        del ws, xs, args
+        torch.cuda.empty_cache()
+    main = out["deepseek-67b-8l"]["by_rows"][MAX_ROWS]
+    return dict(name="small_mm", **KERNELS["small_mm"], launches=0, max_rel_err=worst,
+                tol=MM_RTOL, tf32_least_err=tf32_least, ms=main["ms"],
+                plain_ms=main["plain_ms"], bound_ms=main["bound_ms"], bound_by="bytes",
+                library_ms=main["library_ms"], device_ms=main["device_ms"], steps=out)
+
+
 @contextlib.contextmanager
 def recorded_routes(replay: list | None = None):
     """Yields a list that collects each MoE layer's chosen experts (top_i,
@@ -1472,10 +1619,12 @@ def serve(card: str, phase: str, arch: str, batch: int, prompt: int, context: in
           layers: int | None = None, overrides: dict | None = None) -> dict[str, int]:
     """One serve phase: the engine healthy and with a NIC failure, launch
     counts held to ``per_prefill`` times the two prefills (every other
-    kernel at 0), then the prefill logits through the kernels against the
+    kernel at 0, but ``small_mm`` at the products the model routed to it,
+    at least one: decode's, captured into graphs or not), then the prefill logits through the kernels against the
     plain versions of all of them.  ``layers`` cuts the depth (full width);
     ``overrides`` replaces config fields (deepseek-v3's ``mtp=False``).
     Returns the launch counts."""
+    from repro_torch import tracing
     from repro_torch.core.failures import Failure, FailureType
     from repro_torch.kernels import ops
     from repro_torch.models import apply_model, get_config, init_caches, init_model
@@ -1521,10 +1670,15 @@ def serve(card: str, phase: str, arch: str, batch: int, prompt: int, context: in
 
     engine().run_batch(requests(2))        # warm-up: cuBLAS handles, kernel load
     ops.reset_launch_counts()
-    healthy = engine().run_batch(requests())
-    failing = engine()
-    failed = failing.run_batch(requests(), fail_at_step=FAIL_STEP,
-                               failure=Failure(FailureType.NIC_HARDWARE, 1, 0))
+    tracing.enable()
+    try:
+        healthy = engine().run_batch(requests())
+        failing = engine()
+        failed = failing.run_batch(requests(), fail_at_step=FAIL_STEP,
+                                   failure=Failure(FailureType.NIC_HARDWARE, 1, 0))
+    finally:
+        tracing.disable()
+    mm = {k: v for k, v in tracing.drain()["counters"].items() if k.startswith("mm.")}
     launches = ops.launch_counts()
     prefills = 2
 
@@ -1536,14 +1690,17 @@ def serve(card: str, phase: str, arch: str, batch: int, prompt: int, context: in
     if failed[0].failovers != 1 or failing.last_recovery is None \
             or not failing.last_recovery.total > 0:
         raise RuntimeError("r2ccl failover not taken through the control plane")
-    want = counts(**{k: n * prefills for k, n in per_prefill.items()})
-    if launches != want:
+    want = counts(**{k: n * prefills for k, n in per_prefill.items()},
+                  small_mm=mm.get("mm.small_rows", 0))
+    if launches != want or not want["small_mm"]:
         raise RuntimeError(f"launches {launches}, want {want} ({per_prefill} per "
-                           f"prefill x {prefills} prefills)")
+                           f"prefill x {prefills} prefills; small_mm as the products "
+                           f"routed to it, {mm}, at least one)")
     log(phase, f"tokens identical healthy vs NIC failure at step {FAIL_STEP}; "
         f"failovers={failed[0].failovers}, hiccup {failing.last_recovery.total * 1e3:.4f} ms "
         f"(stages {failing.last_recovery.stages}); launches {launches} ({per_prefill} "
-        f"per prefill, as predicted)")
+        f"per prefill, as predicted; small_mm one a product routed to it, of {mm}: the "
+        f"decode steps' and their captures')")
     log(phase, f"healthy: TTFT {healthy[0].ttft * 1e3:.3f} ms, TPOT "
         f"{healthy[0].tpot * 1e3:.3f} ms; with failure: TTFT {failed[0].ttft * 1e3:.3f} ms, "
         f"TPOT {failed[0].tpot * 1e3:.3f} ms, total {failed[0].total_latency * 1e3:.3f} ms "
@@ -2201,8 +2358,10 @@ def generate(params, cfg, batch: dict, new: int, context: int, impl: str,
     synchronize.  With ``forced`` (B, new) tokens, decode is fed those
     instead of its own argmax (the plain run replays the kernels' run, so
     that every step's argmax can be compared).  Returns the tokens (B, new),
-    each step's last-position float32 logits (B, new, V), TTFT, TPOT and the
-    launch counts of the prefill and of the decode."""
+    each step's last-position float32 logits (B, new, V), TTFT, TPOT, the
+    launch counts of the prefill and of the decode, and the decode's
+    products by route (``mm.small_rows``, ``mm.library``)."""
+    from repro_torch import tracing
     from repro_torch.kernels import ops
     from repro_torch.models import apply_model, init_caches
     B = batch["tokens"].shape[0]
@@ -2219,29 +2378,36 @@ def generate(params, cfg, batch: dict, new: int, context: int, impl: str,
         ttft = time.perf_counter() - t0
         prefill_launches = ops.launch_counts()
         ops.reset_launch_counts()
+        tracing.drain()
+        tracing.enable()
         t0 = time.perf_counter()
-        for i in range(new):
-            toks.append(nxt)
-            logits.append(out[:, -1].float())
-            if i == new - 1:
-                break
-            feed = nxt if forced is None else forced[:, i]
-            out, caches, _ = apply_model(params, cfg, {"tokens": feed[:, None]},
-                                         mode="decode", caches=caches, kernel_impl=impl)
-            nxt = out[:, -1].argmax(-1)
-        torch.cuda.synchronize()
+        try:
+            for i in range(new):
+                toks.append(nxt)
+                logits.append(out[:, -1].float())
+                if i == new - 1:
+                    break
+                feed = nxt if forced is None else forced[:, i]
+                out, caches, _ = apply_model(params, cfg, {"tokens": feed[:, None]},
+                                             mode="decode", caches=caches, kernel_impl=impl)
+                nxt = out[:, -1].argmax(-1)
+            torch.cuda.synchronize()
+        finally:
+            tracing.disable()
         tpot = (time.perf_counter() - t0) / max(new - 1, 1)
     return dict(tokens=torch.stack(toks, 1), logits=torch.stack(logits, 1), ttft=ttft,
                 tpot=tpot, prefill_launches=prefill_launches,
-                decode_launches=ops.launch_counts())
+                decode_launches=ops.launch_counts(),
+                decode_products=tracing.drain()["counters"])
 
 
 def serve_paligemma(card: str) -> dict[str, int]:
     """paligemma-3b at full width and depth: prefill over 256 image-patch
     embeddings and 256 text tokens, then greedy decode, through
     ``apply_model`` (the serving engine feeds tokens only, as the JAX
-    package's).  Launches: one flash forward per layer per prefill, none in
-    decode.  Kernels against their plain versions: with a float32 residual
+    package's).  Launches: one flash forward per layer per prefill; in
+    decode, small_mm for each product routed to it (the layers' seven; the
+    tied head stays on cuBLAS).  Kernels against their plain versions: with a float32 residual
     stream the plain run replays the kernels' tokens and its argmax must
     agree at every step whose top-2 margin exceeds LOGIT_ATOL_F32 (so a
     free greedy run gives the same tokens), and the prefill logits agree
@@ -2272,9 +2438,12 @@ def serve_paligemma(card: str) -> dict[str, int]:
     generate(params, cfg, feed, 2, context, "auto")      # warm-up
     run = generate(params, cfg, feed, new, context, "auto")
     want = counts(flash_attention=cfg.num_layers)
-    if run["prefill_launches"] != want or run["decode_launches"] != counts():
+    routed = run["decode_products"].get("mm.small_rows", 0)
+    if run["prefill_launches"] != want or run["decode_launches"] != counts(small_mm=routed) \
+            or not routed:
         raise RuntimeError(f"launches: prefill {run['prefill_launches']} (want {want}), "
-                           f"decode {run['decode_launches']} (want none)")
+                           f"decode {run['decode_launches']} (want small_mm only, one a "
+                           f"product routed to it: {run['decode_products']})")
     toks = run["tokens"]
     if not (toks.shape == (batch, new) and bool(((toks >= 0) & (toks < cfg.vocab_size)).all())):
         raise RuntimeError(f"bad tokens {toks.tolist()}")
@@ -3106,7 +3275,7 @@ def main() -> int:
     t0 = time.perf_counter()
     rows = [check_flash_attention(gen), check_flash_attention_bwd(gen),
             check_chunk_combine(gen), check_lru_scan(gen), check_wkv_scan(gen),
-            check_lru_scan_bwd(gen), check_wkv_scan_bwd(gen)]
+            check_lru_scan_bwd(gen), check_wkv_scan_bwd(gen), check_small_mm(gen)]
     log("kernels", f"{time.perf_counter() - t0:.1f} s")
     torch.cuda.empty_cache()
     by_path = {}

@@ -12,6 +12,8 @@
                         starting state (RecurrentGemma prefill)
   wkv_scan            — the RWKV-6 WKV recurrence with its matrix state, from
                         a starting state, also returning the final state
+  small_mm            — float32 products at 1-16 rows (decode's), streaming
+                        the weights once; no TPU counterpart (XLA's dot)
 
 Each kernel has a ctypes wrapper that checks its inputs and counts its
 launches, a plain PyTorch version in ``ref.py``, and dispatch by device in

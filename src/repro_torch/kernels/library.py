@@ -37,6 +37,7 @@ from . import ref
 from .chunk_combine import chunk_combine_cuda
 from .flash_attention import flash_attention_bwd_cuda, flash_attention_cuda
 from .lru_scan import lru_scan_bwd_cuda, lru_scan_cuda
+from .small_mm import small_mm_cuda
 from .wkv_scan import CHUNK, wkv_scan_bwd_cuda, wkv_scan_cuda
 
 NAMESPACE = "repro_torch"
@@ -65,6 +66,7 @@ SCHEMAS = {
         "wkv_scan_bwd(Tensor r, Tensor k, Tensor v, Tensor w, Tensor u, Tensor ckpt, "
         "Tensor gy, Tensor? gs_t, bool want_gs0) "
         "-> (Tensor, Tensor, Tensor, Tensor, Tensor, Tensor)"),
+    "small_mm": "small_mm(Tensor x, Tensor w) -> Tensor",
 }
 
 
@@ -224,6 +226,18 @@ def _wkv_bwd_cost(r, k, v, w, u, ckpt, gy, gs_t, want_gs0):
     return CA.wkv_scan_bwd_cost(*r.shape, gs_t=gs_t is not None, want_gs0=want_gs0)
 
 
+# ---------------------------------------------------------------------------
+# the small-row product
+# ---------------------------------------------------------------------------
+
+def _small_mm_fake(x, w):
+    return w.new_empty((x.shape[0], x.shape[1], w.shape[2]), dtype=torch.float32)
+
+
+def _small_mm_cost(x, w):
+    return CA.small_mm_cost(x.shape, w.shape, x.dtype)
+
+
 #: name -> (CUDA launch, CPU plain version, meta fake, cost)
 OPS = {
     "flash_attention_fwd": (_flash_fwd_cuda, _flash_fwd_cpu, _flash_fwd_fake, _flash_fwd_cost),
@@ -233,6 +247,7 @@ OPS = {
     "lru_scan_bwd": (_lru_bwd_cuda, _lru_bwd_cpu, _lru_bwd_fake, _lru_bwd_cost),
     "wkv_scan": (wkv_scan_cuda, _wkv_cpu, _wkv_fake, _wkv_cost),
     "wkv_scan_bwd": (_wkv_bwd_cuda, _wkv_bwd_cpu, _wkv_bwd_fake, _wkv_bwd_cost),
+    "small_mm": (small_mm_cuda, ref.reference_small_mm, _small_mm_fake, _small_mm_cost),
 }
 
 
@@ -300,7 +315,9 @@ def _sharding_rule(arg_dims, out_dims):
 def register_shardings() -> None:
     """Give every op its sharding rule for DTensor (``SHARD_DIMS``); a
     second call changes nothing.  ``chunk_combine`` has none: it merges a
-    rank's own buffers inside the explicit gradient programs."""
+    rank's own buffers inside the explicit gradient programs.  Nor has
+    ``small_mm``: the model routes only CUDA tensors to it, and the sharded
+    count's meta DTensors keep ``x @ w``."""
     from torch.distributed.tensor.experimental import register_sharding
 
     for name, (arg_dims, out_dims) in SHARD_DIMS.items():

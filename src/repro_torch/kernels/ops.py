@@ -22,6 +22,8 @@ from . import library, ref  # noqa: F401  (library registers the ops)
 from .chunk_combine import chunk_combine_cuda
 from .flash_attention import FlashAttention, flash_attention_bwd_cuda, flash_attention_cuda
 from .lru_scan import LRUScan, lru_scan_bwd_cuda, lru_scan_cuda
+from .small_mm import small_mm_cuda
+from .small_mm import x_aligned as small_mm_x_aligned
 from .wkv_scan import WKVScan, wkv_scan_bwd_cuda, wkv_scan_cuda
 
 IMPLS = ("auto", "reference", "op")
@@ -129,13 +131,33 @@ def wkv_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
     return torch.ops.repro_torch.wkv_scan(r, k, v, w, u, s0, None)
 
 
+def small_mm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` for w (K, N), x (..., K), or ``x[g] @ w[g]`` for w
+    (G, K, N), x (G, ..., K): float32, x float32 or bfloat16 (widened).
+    Through the op, the small-row kernel, which takes at most
+    ``small_mm.MAX_ROWS`` rows a batch entry (``small_mm.fits``); an x
+    whose rows are off the 16-byte grid is copied first; no autograd."""
+    K, N = w.shape[-2:]
+    G = 1 if w.dim() == 2 else w.shape[0]
+    x3 = x.reshape(G, -1, K)
+    w3 = w.unsqueeze(0) if w.dim() == 2 else w
+    if _plain("auto", "small_mm", x):
+        y = ref.reference_small_mm(x3, w3)
+    else:
+        if x3.device.type == "cuda" and not small_mm_x_aligned(x3):
+            x3 = x3.clone(memory_format=torch.contiguous_format)
+        y = torch.ops.repro_torch.small_mm(x3, w3)
+    return y.reshape(*x.shape[:-1], N)
+
+
 _WRAPPERS = {"flash_attention": flash_attention_cuda,
              "flash_attention_bwd": flash_attention_bwd_cuda,
              "chunk_combine": chunk_combine_cuda,
              "lru_scan": lru_scan_cuda,
              "lru_scan_bwd": lru_scan_bwd_cuda,
              "wkv_scan": wkv_scan_cuda,
-             "wkv_scan_bwd": wkv_scan_bwd_cuda}
+             "wkv_scan_bwd": wkv_scan_bwd_cuda,
+             "small_mm": small_mm_cuda}
 
 
 def launch_counts() -> dict[str, int]:

@@ -137,6 +137,13 @@ def reference_chunk_combine(local: torch.Tensor, recv: torch.Tensor,
     return torch.where(seg, comb, lf).to(local.dtype)
 
 
+def reference_small_mm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Plain version of the small-row product: x (G, M, K) float32 or
+    bfloat16, w (G, K, N) float32 -> ``x[g] @ w[g]`` (G, M, N) float32, x
+    widened first (exact), as ``torch.bmm`` computes it."""
+    return torch.bmm(x.to(torch.float32), w)
+
+
 def reference_lru_scan(a: torch.Tensor, x: torch.Tensor,
                        h0: torch.Tensor) -> torch.Tensor:
     """Plain version of the RG-LRU scan: ``h_t = a_t * h_{t-1} + x_t`` from

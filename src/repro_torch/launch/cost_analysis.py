@@ -266,6 +266,16 @@ def chunk_combine_cost(shape, dtype: torch.dtype, seg_mask, accumulate, *,
     return KernelCost(adds * M, moved * M * _elt(dtype), "fp32")
 
 
+def small_mm_cost(x_shape, w_shape, x_dtype: torch.dtype = torch.float32) -> KernelCost:
+    """The small-row product y[g] = x[g] @ w[g], x (G, M, K), w (G, K, N)
+    float32: a multiply-add a (row, k, column) on the CUDA cores; x read
+    (in its dtype), w read, the float32 y written.  Bound by w's bytes."""
+    G, M, K = x_shape
+    N = w_shape[-1]
+    nbytes = G * M * K * _elt(x_dtype) + 4 * G * K * N + 4 * G * M * N
+    return KernelCost(2 * G * M * K * N, nbytes, "fp32")
+
+
 def lru_scan_cost(B: int, T: int, W: int) -> KernelCost:
     """h_t = a_t h_{t-1} + x_t in fp32: a multiply and an add an element;
     a, x read, h written, h0 read."""

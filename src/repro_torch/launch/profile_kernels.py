@@ -66,6 +66,30 @@ def events_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def graph_ms(fn, replays: int = 10) -> float:
+    """ms a replay of ``fn`` captured as one CUDA graph (after a warm-up
+    call on a side stream), by CUDA events over ``replays`` replays: the
+    device's time for ``fn``'s launches with no host launch cost between
+    them, as a decode step's graph runs them."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / replays
+
+
 #: marker launches at the head of a profile: once a process has run
 #: torch.compile, the profiler drops the first kernel event of each window
 #: (seen with torch 2.11 on an H100), and a marker takes that loss

@@ -19,13 +19,16 @@ JAX package computes it outside any kernel.
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import dataclasses
 import math
 
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels import ops
+from repro_torch import tracing
+from repro_torch.kernels import ops, small_mm
 
 Params = dict
 
@@ -64,8 +67,41 @@ def embed_init(gen: torch.Generator, shape, dtype=torch.float32) -> torch.Tensor
     return (randn(gen, shape) * 0.02).to(dtype)
 
 
+#: true while ``apply_model(kernel_impl="reference")`` runs: a product on
+#: the card keeps ``x @ w``, the small-row kernel's plain version
+_plain_products = contextvars.ContextVar("plain_products", default=False)
+
+
+@contextlib.contextmanager
+def plain_products(on: bool = True):
+    """Inside, :func:`_mm` and ``moe._expert_mm`` leave every product to
+    ``x @ w`` and ``torch.bmm`` (with ``on``)."""
+    token = _plain_products.set(on)
+    try:
+        yield
+    finally:
+        _plain_products.reset(token)
+
+
+def _small_rows(x: torch.Tensor, w: torch.Tensor) -> bool:
+    """Whether a product on the card goes to the small-row kernel
+    (``small_mm.fits``: float32, at most 16 rows, w row-major, no grad; not
+    inside :func:`plain_products`) rather than to cuBLAS, counted under
+    ``mm.small_rows`` or ``mm.library`` while tracing is on.  A CPU or meta
+    product (the JAX parity tests, the dry run) keeps ``x @ w`` and counts
+    nothing."""
+    if not (x.is_cuda and w.is_cuda):
+        return False
+    take = not _plain_products.get() and small_mm.fits(x, w)
+    tracing.count("mm.small_rows" if take else "mm.library")
+    return take
+
+
 def _mm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """``x @ w`` in the promoted dtype (``jnp.result_type``)."""
+    """``x @ w`` in the promoted dtype (``jnp.result_type``); on the card,
+    through the small-row kernel where :func:`_small_rows` says so."""
+    if _small_rows(x, w):
+        return ops.small_mm(x, w)
     dt = torch.promote_types(x.dtype, w.dtype)
     return x.to(dt) @ w.to(dt)
 

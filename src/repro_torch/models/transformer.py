@@ -433,8 +433,17 @@ def apply_model(
     ``window_override``) in place and return them.  ``window_override``
     windows ``global_attn`` and ``attn`` layers.
     ``kernel_impl="reference"`` runs every kernel of the model (attention,
-    ``lru_scan``, ``wkv_scan``) through its plain version on any device.
+    ``lru_scan``, ``wkv_scan``, the small-row products) through its plain
+    version on any device.
     """
+    with L.plain_products(kernel_impl == "reference"):
+        return _forward(params, cfg, batch, mode=mode, caches=caches,
+                        kernel_impl=kernel_impl, window_override=window_override)
+
+
+def _forward(params, cfg: ModelConfig, batch: dict[str, torch.Tensor], *, mode: str,
+             caches: dict | None, kernel_impl: str, window_override: int | None):
+    """:func:`apply_model`'s forward pass."""
     _check_supported(cfg)
     if mode not in ("train", "prefill", "decode"):
         raise ValueError(f"mode must be train, prefill or decode, got {mode!r}")

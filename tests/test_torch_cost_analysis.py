@@ -170,6 +170,7 @@ def _op_cases():
     local, recv = _t(rng, 4, 7, dtype=BF16), _t(rng, 4, 7, dtype=BF16)
     seg, acc = [False, True, True, False], [False, True, False, True]
     attn = tuple(kw.values())
+    xm, wm = _t(rng, 3, 5, 12, dtype=BF16), _t(rng, 3, 12, 8)
     return [
         ("flash_attention_fwd", (q, k, v, lse, *attn, 0, None), out),
         ("flash_attention_bwd", (q, k, v, out, do, lse, *attn),
@@ -180,6 +181,7 @@ def _op_cases():
         ("wkv_scan", (r, kk, vv, w, u, s0, ckpt), ref.reference_wkv(r, kk, vv, w, u, s0)),
         ("wkv_scan_bwd", (r, kk, vv, w, u, ckpt, gy, None, True),
          ref.reference_wkv_bwd(r, kk, vv, w, u, s0, gy)),
+        ("small_mm", (xm, wm), torch.bmm(xm.float(), wm)),
     ]
 
 

@@ -206,7 +206,10 @@ def test_cuda_graph_equals_eager_decode(cuda_device):
     buffers (the CPU's seam on the card), to the bit; B 16 equals a plain
     eager engine's (the same shapes); the B 7 served after B 1 equals B 7
     served right after another B 16.  One capture a row count of
-    ``graph_rows(16)``, one replay a step."""
+    ``graph_rows(16)``, one replay a step; the layers' products of every
+    captured step take the small-row kernel (4 layers x 7, in the warm-up
+    call and the capture of each of the 5 row counts), the tied head
+    cuBLAS."""
     torch.backends.cuda.matmul.allow_tf32 = False
     cfg = dataclasses.replace(get_config("smollm-360m"), num_layers=4)
     params = init_model(cfg, seed=0, device="cuda")
@@ -224,7 +227,9 @@ def test_cuda_graph_equals_eager_decode(cuda_device):
     finally:
         tracing.disable()
         rec = tracing.drain()
-    assert rec["counters"] == {"engine.graph_capture": 5, "engine.graph_replay": 4 * 23}
+    engine_counts = {k: v for k, v in rec["counters"].items() if k.startswith("engine.")}
+    assert engine_counts == {"engine.graph_capture": 5, "engine.graph_replay": 4 * 23}
+    assert rec["counters"]["mm.small_rows"] == 5 * 2 * 4 * 7
     for reqs, tokens in zip(batches, got):
         assert tokens == _tokens(stepped, reqs)
     plain = engine()
@@ -281,4 +286,36 @@ def test_mla_graph_decode_equals_eager_at_the_cells_widths(cuda_device):
     assert rec["counters"]["engine.graph_replay"] == 11
     assert "engine.decode_eager" not in rec["counters"]
     assert sorted(graph._replays) == [1, 2, 4, 6]
+    assert got == _tokens(stepped, reqs) == _tokens(plain, reqs)
+
+
+@pytest.mark.requires_cuda
+def test_gqa_graph_decode_equals_eager_at_the_cells_widths(cuda_device):
+    """deepseek-67b at full width (d 8192, 64 / 8 heads, d_ff 22016, the
+    untied head of 102400), 2 of its layers, the bf16 residual, fp32 cache
+    of 256 positions, one batch of 6 rows (captured at 1, 2, 4 and 6):
+    every product of a captured step takes the small-row kernel (2 layers
+    x 7 and the head, in the warm-up call and the capture of each row
+    count; the prefill's head at 6 rows too), and the captured engine's
+    tokens equal eager calls of the step on the same static buffers and a
+    plain eager engine's, to the bit."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(get_config("deepseek-67b"), num_layers=2, dtype="bfloat16")
+    params = init_model(cfg, seed=0, device="cuda")
+
+    def engine(**kw):
+        return ServingEngine(cfg, params, context_len=256, cache_dtype=torch.float32,
+                             device="cuda", **kw)
+
+    graph, stepped, plain = engine(), engine(capture=calls_step), engine()
+    plain.capture = None
+    reqs = _requests(cfg, 6, 120, 12, 41)
+    tracing.enable()
+    try:
+        got = _tokens(graph, reqs)
+    finally:
+        tracing.disable()
+        rec = tracing.drain()
+    assert rec["counters"]["engine.graph_replay"] == 11
+    assert rec["counters"]["mm.small_rows"] == 4 * 2 * (2 * 7 + 1) + 1
     assert got == _tokens(stepped, reqs) == _tokens(plain, reqs)
