@@ -1727,12 +1727,12 @@ def serve(card: str, phase: str, arch: str, batch: int, prompt: int, context: in
         c = dataclasses.replace(cfg, dtype=dtype)
         logits, routes = {}, {}
         for name, impl, replay in runs:
-            with torch.no_grad(), recorded_routes(routes.get(replay)) as routes[name]:
+            with (torch.no_grad(), ops.use(impl),
+                  recorded_routes(routes.get(replay)) as routes[name]):
                 logits[name] = apply_model(
                     params, c, {"tokens": toks}, mode="prefill",
                     caches=init_caches(c, batch, context, dtype=torch.float32,
-                                       device="cuda"),
-                    kernel_impl=impl)[0][:, -1].float()
+                                       device="cuda"))[0][:, -1].float()
         if cfg.moe:
             flips = sum(int((a.sort(-1).values != b.sort(-1).values).any(-1).sum())
                         for a, b in zip(routes["auto"], routes["reference"], strict=True))
@@ -1925,10 +1925,10 @@ def pinned_wkv(replay: list | None = None):
                                         allow_unused=True)
             return (None, None, *grads)
 
-    def recording(*ins, impl="auto"):
+    def recording(*ins):
         if pinned is not None:
             return Pinned.apply(*next(pinned), *ins)
-        outs = scan(*ins, impl=impl)
+        outs = scan(*ins)
         calls.append(tuple(t.detach().clone() for t in outs))
         return outs
 
@@ -1948,7 +1948,7 @@ def float64_wkv():
     from repro_torch.kernels import ops
     scan = ops.wkv_scan
 
-    def wide(r, k, v, w, u, s0, impl="auto"):
+    def wide(r, k, v, w, u, s0):
         r, k, v, w, u, s = (t.double() for t in (r, k, v, w, u, s0))
         outs = []
         for t in range(r.shape[1]):
@@ -1991,8 +1991,9 @@ def grad_check(cfg, phase: str = "train") -> dict[str, int]:
 
     def run(c, impl):
         ops.reset_launch_counts()
-        total, _ = compute_loss(params, c, batch, kernel_impl=impl)
-        return total.item(), param_grads(total, flat), ops.launch_counts()
+        with ops.use(impl):
+            total, _ = compute_loss(params, c, batch)
+            return total.item(), param_grads(total, flat), ops.launch_counts()
 
     def gaps(got, want) -> dict[str, float]:
         return {n: float((a - r).norm() / r.norm().clamp(min=1e-30))
@@ -2367,12 +2368,11 @@ def generate(params, cfg, batch: dict, new: int, context: int, impl: str,
     B = batch["tokens"].shape[0]
     caches = init_caches(cfg, B, context, dtype=torch.float32, device="cuda")
     toks, logits = [], []
-    with torch.no_grad():
+    with torch.no_grad(), ops.use(impl):
         ops.reset_launch_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        out, caches, _ = apply_model(params, cfg, batch, mode="prefill", caches=caches,
-                                     kernel_impl=impl)
+        out, caches, _ = apply_model(params, cfg, batch, mode="prefill", caches=caches)
         nxt = out[:, -1].argmax(-1)
         torch.cuda.synchronize()
         ttft = time.perf_counter() - t0
@@ -2389,7 +2389,7 @@ def generate(params, cfg, batch: dict, new: int, context: int, impl: str,
                     break
                 feed = nxt if forced is None else forced[:, i]
                 out, caches, _ = apply_model(params, cfg, {"tokens": feed[:, None]},
-                                             mode="decode", caches=caches, kernel_impl=impl)
+                                             mode="decode", caches=caches)
                 nxt = out[:, -1].argmax(-1)
             torch.cuda.synchronize()
         finally:
@@ -2519,8 +2519,8 @@ def serve_hubert(card: str) -> dict[str, int]:
         make_batch(cfg, seq_len=frames, batch_size=batch, step=0)["frames"]).cuda()}
 
     def encode(c, impl):
-        with torch.no_grad():
-            return apply_model(params, c, feed, mode="train", kernel_impl=impl)[0].float()
+        with torch.no_grad(), ops.use(impl):
+            return apply_model(params, c, feed, mode="train")[0].float()
 
     encode(cfg, "auto")                                   # warm-up
     ops.reset_launch_counts()

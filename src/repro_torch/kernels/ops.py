@@ -5,23 +5,32 @@ CUDA tensor goes to the kernel's dispatcher op (``library.py``), which
 launches the hand-written Hopper kernel or raises: there is no fallback from
 the card to the plain version.  A meta tensor goes to the op too, whose fake
 gives the output's shape and dtype, so a dry run never walks a plain scan's
-time loop.  ``impl="reference"`` asks for the plain version on any device,
-for checks that hold a model through the kernels against it;
-``impl="op"`` sends a CPU tensor through the op as well (its CPU
-implementation is the plain version), so that a CPU run counts the kernels'
-work by their formulas as the card's does.  Off the CPU path, inputs that
-require grad (with grad mode on) go through the kernel's
+time loop.  :func:`mm`, the models' one product, takes the small-row
+kernel on the card where it fits and ``@`` / ``bmm`` (cuBLAS) elsewhere.
+
+This module alone chooses, and :func:`use` is its one switch:
+``use("reference")`` asks for the plain version of every kernel on any
+device (and cuBLAS for every product), for checks that hold a model through
+the kernels against it; ``use("op")`` sends a CPU tensor through the op as
+well (its CPU implementation is the plain version), so that a CPU run counts
+the kernels' work by their formulas as the card's does.  Off the CPU path,
+inputs that require grad (with grad mode on) go through the kernel's
 ``autograd.Function``.
 """
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
+
 import torch
 
+from repro_torch import tracing
 from . import library, ref  # noqa: F401  (library registers the ops)
 from .chunk_combine import chunk_combine_cuda
 from .flash_attention import FlashAttention, flash_attention_bwd_cuda, flash_attention_cuda
 from .lru_scan import LRUScan, lru_scan_bwd_cuda, lru_scan_cuda
+from .small_mm import fits as small_mm_fits
 from .small_mm import small_mm_cuda
 from .small_mm import x_aligned as small_mm_x_aligned
 from .wkv_scan import WKVScan, wkv_scan_bwd_cuda, wkv_scan_cuda
@@ -29,14 +38,33 @@ from .wkv_scan import WKVScan, wkv_scan_bwd_cuda, wkv_scan_cuda
 IMPLS = ("auto", "reference", "op")
 DEVICES = ("cpu", "cuda", "meta")
 
+_impl = contextvars.ContextVar("kernel_impl", default="auto")
 
-def _plain(impl: str, name: str, t: torch.Tensor) -> bool:
-    """Whether ``impl`` and ``t``'s device take the plain version (else the
-    op); raises on an unknown impl or a device with no kernel."""
+
+@contextlib.contextmanager
+def use(impl: str):
+    """Inside, every function of this module takes ``impl`` (one of
+    ``IMPLS``; ``"auto"`` outside any ``use``); raises on another."""
     if impl not in IMPLS:
         raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
+    token = _impl.set(impl)
+    try:
+        yield
+    finally:
+        _impl.reset(token)
+
+
+def current() -> str:
+    """The implementation :func:`use` has chosen here."""
+    return _impl.get()
+
+
+def _plain(name: str, t: torch.Tensor) -> bool:
+    """Whether the current impl and ``t``'s device take the plain version
+    (else the op); raises on a device with no kernel."""
     if t.device.type not in DEVICES:
         raise ValueError(f"no {name} kernel for device {t.device}")
+    impl = _impl.get()
     return impl == "reference" or (impl == "auto" and t.device.type == "cpu")
 
 
@@ -56,7 +84,6 @@ def flash_attention(
     scale: float | None = None,
     q_offset: int = 0,
     k_valid_len: int | None = None,
-    impl: str = "auto",
 ) -> torch.Tensor:
     """(B,Tq,KVH,G,D) x (B,Tk,KVH,D)^2 -> (B,Tq,KVH,G,D), in q's dtype.
 
@@ -65,7 +92,7 @@ def flash_attention(
     no ``q_offset`` or ``k_valid_len`` (decode and cache reads are
     inference-only) and raises if given them.
     """
-    if _plain(impl, "flash_attention", q):
+    if _plain("flash_attention", q):
         return ref.reference_attention(q, k, v, causal=causal, window=window,
                                        prefix_len=prefix_len, logit_cap=logit_cap,
                                        scale=scale, q_offset=q_offset,
@@ -86,7 +113,7 @@ def chunk_combine(local: torch.Tensor, recv: torch.Tensor, seg_mask, accumulate,
     """Fused R2CCL stage-2 merge of (C, M) buffers with (C,) row masks
     (sequences of bools); ``out=local`` merges in place.  Returns ``out`` (a
     new tensor if not given)."""
-    if _plain("auto", "chunk_combine", local):
+    if _plain("chunk_combine", local):
         res = ref.reference_chunk_combine(local, recv, seg_mask, accumulate)
         return res if out is None else out.copy_(res)
     if out is None:
@@ -104,13 +131,12 @@ def _bools(mask) -> list | tuple:
     return torch.as_tensor(mask).bool().tolist()
 
 
-def lru_scan(a: torch.Tensor, x: torch.Tensor, h0: torch.Tensor, *,
-             impl: str = "auto") -> torch.Tensor:
+def lru_scan(a: torch.Tensor, x: torch.Tensor, h0: torch.Tensor) -> torch.Tensor:
     """RG-LRU states ``h_t = a_t * h_{t-1} + x_t`` from ``h0``: a, x
     (B, T, W), h0 (B, W) -> (B, T, W) float32.  Through the op, inputs that
     require grad go through :class:`LRUScan`, whose backward is the
     ``lru_scan_bwd`` kernel."""
-    if _plain(impl, "lru_scan", a):
+    if _plain("lru_scan", a):
         return ref.reference_lru_scan(a, x, h0)
     if _wants_grad(a, x, h0):
         return LRUScan.apply(a, x, h0)
@@ -118,13 +144,12 @@ def lru_scan(a: torch.Tensor, x: torch.Tensor, h0: torch.Tensor, *,
 
 
 def wkv_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
-             u: torch.Tensor, s0: torch.Tensor, *, impl: str = "auto"
-             ) -> tuple[torch.Tensor, torch.Tensor]:
+             u: torch.Tensor, s0: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """RWKV-6 WKV recurrence in the model's layout: r, k, v, w (B, T, H, K),
     u (H, K), s0 (B, H, K, K) -> (out (B, T, H, K), s_T (B, H, K, K)),
     float32.  Through the op, inputs that require grad go through
     :class:`WKVScan`, whose backward is the ``wkv_scan_bwd`` kernel."""
-    if _plain(impl, "wkv_scan", r):
+    if _plain("wkv_scan", r):
         return ref.reference_wkv(r, k, v, w, u, s0)
     if _wants_grad(r, k, v, w, u, s0):
         return WKVScan.apply(r, k, v, w, u, s0)
@@ -141,13 +166,41 @@ def small_mm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     G = 1 if w.dim() == 2 else w.shape[0]
     x3 = x.reshape(G, -1, K)
     w3 = w.unsqueeze(0) if w.dim() == 2 else w
-    if _plain("auto", "small_mm", x):
+    if _plain("small_mm", x):
         y = ref.reference_small_mm(x3, w3)
     else:
         if x3.device.type == "cuda" and not small_mm_x_aligned(x3):
             x3 = x3.clone(memory_format=torch.contiguous_format)
         y = torch.ops.repro_torch.small_mm(x3, w3)
     return y.reshape(*x.shape[:-1], N)
+
+
+def _small_rows(x: torch.Tensor, w: torch.Tensor) -> bool:
+    """Whether :func:`mm` sends a product to the small-row kernel: on the
+    card, where ``small_mm.fits`` (float32, at most 16 rows, w row-major, no
+    grad) and not inside ``use("reference")``, counted under
+    ``mm.small_rows``, else cuBLAS, under ``mm.library`` (while tracing is
+    on; once a capture inside a graph).  A CPU or meta product (the JAX
+    parity tests, the dry run) keeps ``@`` and counts nothing."""
+    if not (x.is_cuda and w.is_cuda):
+        return False
+    take = _impl.get() != "reference" and small_mm_fits(x, w)
+    tracing.count("mm.small_rows" if take else "mm.library")
+    return take
+
+
+def mm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` for w (K, N), or ``x[g] @ w[g]`` for w (G, K, N) and x
+    (G, ..., K), in the promoted dtype (``jnp.result_type``): the models'
+    one product, through :func:`small_mm` where :func:`_small_rows` says so,
+    else ``@`` / one ``bmm``."""
+    if _small_rows(x, w):
+        return small_mm(x, w)
+    dt = torch.promote_types(x.dtype, w.dtype)
+    if w.dim() == 2:
+        return x.to(dt) @ w.to(dt)
+    K, N = w.shape[-2:]
+    return torch.bmm(x.to(dt).reshape(w.shape[0], -1, K), w.to(dt)).reshape(*x.shape[:-1], N)
 
 
 _WRAPPERS = {"flash_attention": flash_attention_cuda,

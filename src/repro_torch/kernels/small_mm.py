@@ -4,9 +4,9 @@ Replaces no TPU kernel: it takes from cuBLAS the float32 products a decode
 step makes at 1-16 rows, ``y[g] = x[g] @ w[g]`` with w stored (K, N),
 which are bound by the weights' bytes.  The plain version is
 ``ref.reference_small_mm``; ``ops.small_mm`` picks between them by the
-tensors' device.  :func:`fits` is the rule the model's product helpers
-(``models/layers.py::_mm``, ``models/moe.py::_expert_mm``) route a product
-on the card by; :func:`plan` chooses the kernel's tile and K split.
+tensors' device.  :func:`fits` is the rule ``ops.mm``, the models' one
+product, routes a product on the card by; :func:`plan` chooses the
+kernel's tile and K split.
 """
 
 from __future__ import annotations

@@ -19,16 +19,13 @@ JAX package computes it outside any kernel.
 
 from __future__ import annotations
 
-import contextlib
-import contextvars
 import dataclasses
 import math
 
 import torch
 import torch.nn.functional as F
 
-from repro_torch import tracing
-from repro_torch.kernels import ops, small_mm
+from repro_torch.kernels import ops
 
 Params = dict
 
@@ -67,43 +64,9 @@ def embed_init(gen: torch.Generator, shape, dtype=torch.float32) -> torch.Tensor
     return (randn(gen, shape) * 0.02).to(dtype)
 
 
-#: true while ``apply_model(kernel_impl="reference")`` runs: a product on
-#: the card keeps ``x @ w``, the small-row kernel's plain version
-_plain_products = contextvars.ContextVar("plain_products", default=False)
-
-
-@contextlib.contextmanager
-def plain_products(on: bool = True):
-    """Inside, :func:`_mm` and ``moe._expert_mm`` leave every product to
-    ``x @ w`` and ``torch.bmm`` (with ``on``)."""
-    token = _plain_products.set(on)
-    try:
-        yield
-    finally:
-        _plain_products.reset(token)
-
-
-def _small_rows(x: torch.Tensor, w: torch.Tensor) -> bool:
-    """Whether a product on the card goes to the small-row kernel
-    (``small_mm.fits``: float32, at most 16 rows, w row-major, no grad; not
-    inside :func:`plain_products`) rather than to cuBLAS, counted under
-    ``mm.small_rows`` or ``mm.library`` while tracing is on.  A CPU or meta
-    product (the JAX parity tests, the dry run) keeps ``x @ w`` and counts
-    nothing."""
-    if not (x.is_cuda and w.is_cuda):
-        return False
-    take = not _plain_products.get() and small_mm.fits(x, w)
-    tracing.count("mm.small_rows" if take else "mm.library")
-    return take
-
-
-def _mm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """``x @ w`` in the promoted dtype (``jnp.result_type``); on the card,
-    through the small-row kernel where :func:`_small_rows` says so."""
-    if _small_rows(x, w):
-        return ops.small_mm(x, w)
-    dt = torch.promote_types(x.dtype, w.dtype)
-    return x.to(dt) @ w.to(dt)
+#: ``x @ w`` in the promoted dtype, on the card through the small-row
+#: kernel where it fits (``ops.mm``)
+_mm = ops.mm
 
 
 def _einsum(eq: str, *ops: torch.Tensor) -> torch.Tensor:
@@ -211,7 +174,6 @@ def blockwise_attention(
     q_offset: int = 0,           # absolute position of q[0] (decode)
     k_valid_len: int | None = None,   # valid prefix of k/v (cache fill level)
     scale: float | None = None,  # logit scale; None: 1/sqrt(D)
-    impl: str = "auto",
 ) -> torch.Tensor:
     """Attention with the model zoo's mask menu; returns (B, Tq, KVH, G, D).
 
@@ -222,7 +184,7 @@ def blockwise_attention(
     return ops.flash_attention(
         q.contiguous(), k.contiguous(), v.contiguous(), causal=causal,
         window=window, prefix_len=prefix_len, logit_cap=logit_cap, scale=scale,
-        q_offset=q_offset, k_valid_len=k_valid_len, impl=impl)
+        q_offset=q_offset, k_valid_len=k_valid_len)
 
 
 def decode_attention(
@@ -324,7 +286,6 @@ def gqa_attention(
     logit_cap: float | None = None,
     cache: KVCache | None = None,
     mode: str = "prefill",       # train | prefill | decode
-    impl: str = "auto",
 ) -> tuple[torch.Tensor, KVCache | None]:
     """GQA attention with optional sliding window and prefix-LM mask (the
     first ``prefix_len`` positions attend to each other both ways).
@@ -367,7 +328,7 @@ def gqa_attention(
         k = apply_rope(k, positions, rope_theta)
     qg = q.reshape(B, T, num_kv_heads, G, head_dim)
     out = blockwise_attention(qg, k, v, causal=causal, window=window,
-                              prefix_len=prefix_len, logit_cap=logit_cap, impl=impl)
+                              prefix_len=prefix_len, logit_cap=logit_cap)
     y = _mm(out.reshape(B, T, num_heads * head_dim), wo)
     if mode == "train":
         return y, None

@@ -169,7 +169,6 @@ def mla_attention(
     yarn: YaRNConfig | None = None,
     cache: MLACache | None = None,
     mode: str = "train",         # train | prefill | decode
-    impl: str = "auto",
 ) -> tuple[torch.Tensor, MLACache | None]:
     """MLA over ``x``.  ``train`` keeps no cache; ``prefill`` writes the
     latents of the last ``min(S, T)`` tokens into slots ``[0, min(S, T))`` of
@@ -233,7 +232,7 @@ def mla_attention(
     # v padded to the query/key width for the one-width kernel, then sliced
     v_in = F.pad(v, (0, qk - v_head_dim)) if v_head_dim < qk else v
     out = blockwise_attention(q_full.reshape(B, T, H, 1, qk), k, v_in, causal=True,
-                              scale=scale, impl=impl)
+                              scale=scale)
     y = _out_proj(out.reshape(B, T, H, qk)[..., :v_head_dim], params["w_o"])
     if mode == "train":
         return y, None

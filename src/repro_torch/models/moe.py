@@ -69,7 +69,7 @@ from repro_torch.core.sharding import constrain, rows_local
 
 from repro_torch.kernels import ops
 
-from .layers import _einsum, _mm, _small_rows, dense_init
+from .layers import _einsum, _mm, dense_init
 
 
 def init_moe(gen: torch.Generator, d_model: int, expert_d_ff: int,
@@ -125,19 +125,9 @@ def _gelu(a: torch.Tensor) -> torch.Tensor:
 
 
 def _expert_mm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """``einsum("...ecd,edf->...ecf")`` in the promoted dtype, as one
-    ``bmm`` over the experts, or on the card at few rows the small-row
-    kernel (``layers._small_rows``): the (E, d, f) weights are read in
-    place, never permuted or copied."""
-    E, C, d = x.shape[-3:]
-    lead = x.shape[:-3]
-    xe = x.movedim(-3, 0)
-    if _small_rows(xe, w):
-        y = ops.small_mm(xe, w)
-    else:
-        dt = torch.promote_types(x.dtype, w.dtype)
-        y = torch.bmm(x.to(dt).movedim(-3, 0).reshape(E, -1, d), w.to(dt))
-    return y.reshape(E, *lead, C, w.shape[-1]).movedim(0, -3)
+    """``einsum("...ecd,edf->...ecf")`` as one ``ops.mm`` over the experts:
+    the (E, d, f) weights are read in place, never permuted or copied."""
+    return ops.mm(x.movedim(-3, 0), w).movedim(0, -3)
 
 
 def _expert_ffn(params, x: torch.Tensor, activation: str) -> torch.Tensor:

@@ -99,11 +99,9 @@ def rglru_block(
     conv_width: int,
     state: RGLRUState | None = None,
     mode: str = "train",
-    impl: str = "auto",
 ) -> tuple[torch.Tensor, RGLRUState | None]:
     """Returns (y in x's dtype, the state updated in place, or None in
-    train mode).  Prefill and decode need ``state`` (:func:`init_rglru_state`);
-    ``impl`` is ``ops.lru_scan``'s."""
+    train mode).  Prefill and decode need ``state`` (:func:`init_rglru_state`)."""
     if mode not in ("train", "prefill", "decode"):
         raise ValueError(f"mode must be train, prefill or decode, got {mode!r}")
     if mode != "train" and state is None:
@@ -136,7 +134,7 @@ def rglru_block(
     a, x_in = _gates(params, cu)                                # (B,T,W)
     h0 = state.h.float() if state is not None \
         else torch.zeros((B, W), device=x.device)
-    h = ops.lru_scan(a, x_in, h0.contiguous(), impl=impl)       # (B,T,W)
+    h = ops.lru_scan(a, x_in, h0.contiguous())                  # (B,T,W)
     y = (h * gate) @ params["w_out"].float()
     if mode == "train":
         return y.to(x.dtype), None

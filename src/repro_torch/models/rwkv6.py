@@ -101,11 +101,9 @@ def rwkv_block(
     head_size: int,
     state: RWKVState | None = None,
     mode: str = "train",
-    impl: str = "auto",
 ) -> tuple[torch.Tensor, RWKVState | None]:
     """Returns (y in x's dtype, the state updated in place, or None in
-    train mode).  Prefill and decode need ``state`` (:func:`init_rwkv_state`);
-    ``impl`` is ``ops.wkv_scan``'s."""
+    train mode).  Prefill and decode need ``state`` (:func:`init_rwkv_state`)."""
     if mode not in ("train", "prefill", "decode"):
         raise ValueError(f"mode must be train, prefill or decode, got {mode!r}")
     if mode != "train" and state is None:
@@ -142,7 +140,7 @@ def rwkv_block(
     if mode == "decode":
         out, s_t = ref.reference_wkv(r, k, v, w, u, s0)
     else:
-        out, s_t = ops.wkv_scan(r, k, v, w, u, s0.contiguous(), impl=impl)
+        out, s_t = ops.wkv_scan(r, k, v, w, u, s0.contiguous())
 
     # group-norm per head (RWKV's ln_x), then gate and project out
     mu_ = out.mean(-1, keepdim=True)

@@ -42,6 +42,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
+from repro_torch.kernels import ops
 from . import layers as L
 from . import mla as MLA
 from . import moe as MOE
@@ -142,8 +143,16 @@ def _window(cfg: ModelConfig, kind: str, window_override):
     return window_override or cfg.attention.sliding_window
 
 
+def _same_impl():
+    """``checkpoint``'s ``context_fn``: the forward and its recompute in the
+    backward pass, outside the caller's ``ops.use``, take the forward's
+    choice of implementation."""
+    impl = ops.current()
+    return ops.use(impl), ops.use(impl)
+
+
 def _apply_layer(params, cfg: ModelConfig, kind: str, x, *, cache, mode,
-                 kernel_impl="auto", window_override=None, prefix_len=None):
+                 window_override=None, prefix_len=None):
     """Returns (x_out, new_cache, aux_loss); aux_loss is None for a layer
     without MoE.  ``prefix_len`` (the image prefix of a vision_text batch)
     reaches GQA attention; MLA and the recurrent blocks take none, as in the
@@ -157,7 +166,7 @@ def _apply_layer(params, cfg: ModelConfig, kind: str, x, *, cache, mode,
             params["attn"], h, num_heads=a.num_heads,
             qk_nope_head_dim=a.qk_nope_head_dim, qk_rope_head_dim=a.qk_rope_head_dim,
             v_head_dim=a.v_head_dim, rope_theta=a.rope_theta, yarn=a.yarn, cache=cache,
-            mode=mode, impl=kernel_impl)
+            mode=mode)
     elif kind in ATTN_KINDS:
         a = cfg.attention
         y, new_cache = L.gqa_attention(
@@ -165,15 +174,15 @@ def _apply_layer(params, cfg: ModelConfig, kind: str, x, *, cache, mode,
             num_kv_heads=a.num_kv_heads, head_dim=a.head_dim,
             rope_theta=a.rope_theta, use_rope=a.use_rope, causal=a.causal,
             window=_window(cfg, kind, window_override), prefix_len=prefix_len,
-            logit_cap=a.logit_softcap, cache=cache, mode=mode, impl=kernel_impl)
+            logit_cap=a.logit_softcap, cache=cache, mode=mode)
     elif kind == "rglru":
         y, new_cache = RG.rglru_block(params["rglru"], h,
                                       conv_width=cfg.rglru.conv_width,
-                                      state=cache, mode=mode, impl=kernel_impl)
+                                      state=cache, mode=mode)
     else:
         y, new_cache = RW.rwkv_block(params["rwkv"], h,
                                      head_size=cfg.rwkv.head_size,
-                                     state=cache, mode=mode, impl=kernel_impl)
+                                     state=cache, mode=mode)
         return x + y.to(x.dtype), new_cache, aux
     x = x + y.to(x.dtype)
     h2 = norm_fn(params["norm2"], x)
@@ -415,7 +424,6 @@ def apply_model(
     *,
     mode: str = "prefill",          # train | prefill | decode
     caches: dict | None = None,
-    kernel_impl: str = "auto",
     window_override: int | None = None,
 ) -> tuple[torch.Tensor, dict | None, Any]:
     """Forward pass.  ``batch`` keys by modality: ``tokens`` (B, T) for
@@ -431,19 +439,10 @@ def apply_model(
     ``train`` takes no caches and returns None for them; prefill and decode
     update ``caches`` (from :func:`init_caches`, with the same
     ``window_override``) in place and return them.  ``window_override``
-    windows ``global_attn`` and ``attn`` layers.
-    ``kernel_impl="reference"`` runs every kernel of the model (attention,
-    ``lru_scan``, ``wkv_scan``, the small-row products) through its plain
-    version on any device.
+    windows ``global_attn`` and ``attn`` layers.  Each kernel and product
+    runs as ``kernels.ops`` chooses (``ops.use``; under remat the recompute
+    takes the forward's choice).
     """
-    with L.plain_products(kernel_impl == "reference"):
-        return _forward(params, cfg, batch, mode=mode, caches=caches,
-                        kernel_impl=kernel_impl, window_override=window_override)
-
-
-def _forward(params, cfg: ModelConfig, batch: dict[str, torch.Tensor], *, mode: str,
-             caches: dict | None, kernel_impl: str, window_override: int | None):
-    """:func:`apply_model`'s forward pass."""
     _check_supported(cfg)
     if mode not in ("train", "prefill", "decode"):
         raise ValueError(f"mode must be train, prefill or decode, got {mode!r}")
@@ -469,15 +468,14 @@ def _forward(params, cfg: ModelConfig, batch: dict[str, torch.Tensor], *, mode: 
     x = x.to(torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32)
 
     n_groups, pattern, remainder = _pattern_split(cfg)
-    kw = dict(mode=mode, kernel_impl=kernel_impl, window_override=window_override,
-              prefix_len=prefix_len)
+    kw = dict(mode=mode, window_override=window_override, prefix_len=prefix_len)
     total_aux = torch.zeros((), device=x.device)
 
     def layer(p, kind, x, cache):
         nonlocal total_aux
         if train and cfg.remat:
             x, c, aux = checkpoint(_apply_layer, p, cfg, kind, x, cache=None,
-                                   use_reentrant=False, **kw)
+                                   use_reentrant=False, context_fn=_same_impl, **kw)
         else:
             x, c, aux = _apply_layer(p, cfg, kind, x, cache=cache, **kw)
         if aux is not None:
@@ -531,7 +529,7 @@ def _forward(params, cfg: ModelConfig, batch: dict[str, torch.Tensor], *, mode: 
         emb_shift = torch.cat([emb[:, 1:], torch.zeros_like(emb[:, :1])], dim=1)
         h = L._mm(torch.cat([xn, emb_shift], dim=-1), params["mtp_proj"]).to(xn.dtype)
         h, _, aux = _apply_layer(params["mtp_block"], cfg, cfg.block_pattern[-1], h,
-                                 cache=None, mode="train", kernel_impl=kernel_impl)
+                                 cache=None, mode="train")
         if aux is not None:
             total_aux = total_aux + aux
         mtp_logits = L.unembed(params["embed"], norm_fn(params["mtp_norm"], h),

@@ -20,18 +20,16 @@ scans in the Hopper kernels on the card); *network* failure costs are modelled i
 virtual time by the port's copy of the control plane and the ``comm_sim``
 constants, as in the JAX package.
 
-On the card a decode step is one CUDA graph, replayed once a token.  The
-engine keeps static buffers of ``G`` rows, the largest batch served so far
-(one cache set and a token vector), and captures ``decode`` over their
-first ``r`` rows for each ``r`` of :func:`graph_rows` (``G`` and the powers
-of two below it), all at once when ``G`` grows.  A batch of ``B`` rows runs
-prefill eagerly in the first ``B`` rows and replays the graph of the
-fewest rows that hold it; the padded rows carry what they last held and
-are thrown away.  The engine's caches hold MLA's position on the device
-(``init_caches(device_index=True)``).  A model whose caches are not all of
-a type whose decode needs nothing from the host (``GRAPH_CACHES``) decodes
-eagerly, as does every model on the CPU unless the engine is given a
-``capture``.
+Decode takes one path on every device: the engine keeps static buffers of
+``G`` rows, the largest batch served so far (one cache set and a token
+vector), and captures ``decode`` over their first ``r`` rows for each ``r``
+of :func:`graph_rows` (``G`` and the powers of two below it), all at once
+when ``G`` grows.  On the card a capture is one CUDA graph, replayed once a
+token; elsewhere it is the call itself.  A batch of ``B`` rows runs prefill
+eagerly in the first ``B`` rows and replays the capture of the fewest rows
+that hold it; the padded rows carry what they last held and are thrown
+away.  Every cache holds its position on the device
+(``init_caches(device_index=True)``), so no step reads the host.
 """
 
 from __future__ import annotations
@@ -56,16 +54,7 @@ from repro_torch.core.telemetry import TraceLog, stage_totals_from_trace
 from repro_torch.core.topology import make_cluster
 from repro_torch.device import resolve_device, synchronize
 from repro_torch.models import apply_model, cache_rows, init_caches, reset_caches
-from repro_torch.models.layers import KVCache
-from repro_torch.models.mla import MLACache
-from repro_torch.models.rglru import RGLRUState
-from repro_torch.models.rwkv6 import RWKVState
 from repro_torch.runtime.control_plane import ControlPlane, LedgerEntry
-
-#: cache types whose decode reads and writes only device tensors, in place
-#: (an ``MLACache`` made with ``device_index``): a model whose caches are
-#: all of them decodes through a captured graph
-GRAPH_CACHES = (KVCache, MLACache, RGLRUState, RWKVState)
 
 
 @dataclasses.dataclass
@@ -155,15 +144,9 @@ class ServingEngine:
         self.decode = make_decode_fn(cfg)
         self.cache_dtype = cache_dtype
         # Capture seam: ``capture(step)`` returns a call that replays
-        # ``step``; on the card :func:`cuda_graph`, elsewhere none (eager
-        # decode) unless given.  Tests inject one that calls ``step``, so
-        # that the static buffers and the padding run on the CPU too.
-        if capture is None and self.device.type == "cuda":
-            capture = cuda_graph
-        layer_caches = [c for group in init_caches(cfg, 1, context_len,
-                                                   device="meta").values() for c in group]
-        self.capture = capture if all(isinstance(c, GRAPH_CACHES)
-                                      for c in layer_caches) else None
+        # ``step``; on the card :func:`cuda_graph`, elsewhere the call itself.
+        self.capture = capture or (cuda_graph if self.device.type == "cuda"
+                                   else lambda step: step)
         self._replays: dict[int, Callable[[], None]] = {}   # by row count
         self._graph_rows = 0                   # G: the static buffers' rows
         self._graph_caches: dict | None = None
@@ -251,10 +234,9 @@ class ServingEngine:
         tracing is on the call is the span ``engine.batch`` (attributes:
         the requests' ``rids``, ``B`` and the padded ``T``) and each decode
         step's call, before its synchronize, ``engine.decode_enqueue`` (the
-        graph's replay, or the eager call); both read the tracer's clock,
-        never ``clock``.  The counters ``engine.graph_capture`` (a capture),
-        ``engine.graph_replay`` and ``engine.decode_eager`` (a decode step
-        each) say which way decode ran."""
+        capture's replay); both read the tracer's clock, never ``clock``.
+        The counters are ``engine.graph_capture`` (a capture) and
+        ``engine.graph_replay`` (a decode step)."""
         with tracing.span("engine.batch") as span:
             if span:
                 span.attrs.update(rids=[r.rid for r in requests], B=len(requests),
@@ -263,7 +245,6 @@ class ServingEngine:
 
     def _run_batch(self, requests: list[Request], fail_at_step: int | None,
                    failure: Failure | None) -> list[RequestResult]:
-        cfg = self.cfg
         B = len(requests)
         T = max(len(r.prompt) for r in requests)
         toks = np.zeros((B, T), np.int64)
@@ -271,17 +252,12 @@ class ServingEngine:
             toks[i, T - len(r.prompt):] = r.prompt    # left-pad, no mask
         max_new = max(r.max_new_tokens for r in requests)
 
-        graph = self.capture is not None
-        if graph:
-            replay, caches = self._graph_for(B)
-        else:
-            caches = init_caches(cfg, B, self.context_len, dtype=self.cache_dtype,
-                                 device=self.device, device_index=True)
+        replay, caches = self._graph_for(B)
         batch = {"tokens": torch.as_tensor(toks, device=self.device)}
 
         vtime = 0.0
         t0 = self.clock()
-        next_tok, caches = self.prefill(self.params, batch, caches)
+        next_tok, _ = self.prefill(self.params, batch, caches)
         synchronize(self.device)
         prefill_time = self.clock() - t0
         vtime += prefill_time
@@ -289,8 +265,7 @@ class ServingEngine:
         failovers = 0
 
         generated = [[t] for t in next_tok.tolist()]
-        if graph:
-            self._graph_tokens[:B].copy_(next_tok)
+        self._graph_tokens[:B].copy_(next_tok)
         decode_times: list[float] = []
         rate = 1.0
         step = 0
@@ -323,14 +298,11 @@ class ServingEngine:
                         vtime += R2CCL_MIGRATION_LATENCY
                     rate = self._degraded_rate()
                     failovers += 1
-            tracing.count("engine.graph_replay" if graph else "engine.decode_eager")
+            tracing.count("engine.graph_replay")
             t0 = self.clock()
             with tracing.span("engine.decode_enqueue"):
-                if graph:
-                    replay()
-                    next_tok = self._graph_tokens[:B]
-                else:
-                    next_tok, caches = self.decode(self.params, next_tok, caches)
+                replay()
+                next_tok = self._graph_tokens[:B]
             synchronize(self.device)
             dt = self.clock() - t0
             base = dt * (1.0 + (self.dejavu_tax if self.strategy == "dejavu" else 0.0))

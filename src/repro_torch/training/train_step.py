@@ -58,13 +58,11 @@ def init_train_state(params) -> TrainState:
     return TrainState(params=params, opt_state=init_opt_state(params), step=0)
 
 
-def compute_loss(params, cfg: ModelConfig, batch, *,
-                 kernel_impl: str = "auto") -> tuple[torch.Tensor, dict]:
+def compute_loss(params, cfg: ModelConfig, batch) -> tuple[torch.Tensor, dict]:
     """(total loss, metrics) of the model in train mode on ``batch``; with
     ``cfg.mtp`` the MTP head's cross-entropy, weighted by
     ``cfg.mtp_loss_weight``, joins the total."""
-    logits, _, aux = apply_model(params, cfg, batch, mode="train",
-                                 kernel_impl=kernel_impl)
+    logits, _, aux = apply_model(params, cfg, batch, mode="train")
     loss = losses.task_loss(cfg, logits, batch)
     mtp_loss = torch.zeros((), device=loss.device)
     if isinstance(aux, tuple):                 # MTP head active

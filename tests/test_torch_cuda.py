@@ -170,8 +170,9 @@ def test_flash_attention_backward_matches_plain(cuda_device, shape, dtype, kw):
     grads = {}
     for impl in ("auto", "reference"):
         qa, ka, va = (t.clone().requires_grad_() for t in (q, k, v))
-        out = ops.flash_attention(qa, ka, va, impl=impl, **kw)
-        grads[impl] = torch.autograd.grad(out, (qa, ka, va), do)
+        with ops.use(impl):
+            out = ops.flash_attention(qa, ka, va, **kw)
+            grads[impl] = torch.autograd.grad(out, (qa, ka, va), do)
     torch.cuda.synchronize()
     rtol = 3e-2 if dtype == torch.bfloat16 else 1e-3
     for a, b in zip(grads["auto"], grads["reference"]):
@@ -306,10 +307,10 @@ def test_recurrent_block_gradients_match_plain_on_the_card(cuda_device, family):
     dy = torch.randn(2, 40, 64, device=cuda_device, generator=gen)
     if family == "rglru":
         params = rglru.init_rglru_block(gen, 64, 48, 4)
-        block = lambda p, x, impl: rglru.rglru_block(p, x, conv_width=4, impl=impl)
+        block = lambda p, x: rglru.rglru_block(p, x, conv_width=4)
     else:
         params = rwkv6.init_rwkv_block(gen, 64, 16, 8, 4)
-        block = lambda p, x, impl: rwkv6.rwkv_block(p, x, head_size=16, impl=impl)
+        block = lambda p, x: rwkv6.rwkv_block(p, x, head_size=16)
     kernel = "lru_scan" if family == "rglru" else "wkv_scan"
     names = sorted(params)
     grads = {}
@@ -317,8 +318,9 @@ def test_recurrent_block_gradients_match_plain_on_the_card(cuda_device, family):
         leaves = [params[n].detach().clone().requires_grad_() for n in names]
         xi = x.clone().requires_grad_()
         before = ops.launch_counts()
-        y, _ = block(dict(zip(names, leaves)), xi, impl)
-        grads[impl] = torch.autograd.grad((y * dy).sum(), leaves + [xi])
+        with ops.use(impl):
+            y, _ = block(dict(zip(names, leaves)), xi)
+            grads[impl] = torch.autograd.grad((y * dy).sum(), leaves + [xi])
         torch.cuda.synchronize()
         after = ops.launch_counts()
         ran = {n: after[n] - before[n] for n in after}
@@ -473,8 +475,9 @@ def test_mla_training_gradients_match_plain(cuda_device):
     for impl in ("auto", "reference"):
         leaves = {n: params[n].detach().clone().requires_grad_() for n in names}
         before = ops.launch_counts()
-        y, _ = mla.mla_attention(leaves, x, mode="train", impl=impl, **dims)
-        grads[impl] = torch.autograd.grad(y, [leaves[n] for n in names], dy)
+        with ops.use(impl):
+            y, _ = mla.mla_attention(leaves, x, mode="train", **dims)
+            grads[impl] = torch.autograd.grad(y, [leaves[n] for n in names], dy)
         after = ops.launch_counts()
         want = 1 if impl == "auto" else 0
         assert after["flash_attention"] == before["flash_attention"] + want

@@ -4,9 +4,10 @@ graph on the card.
 On the CPU: GQA decode, which reads its position on the device, against the
 host-index algorithm it replaced (bit for bit, with a ring buffer that
 wraps); the engine's static buffers and padding through a capture seam that
-calls the step, against a fresh eager engine; the counters.  On the card
-(``requires_cuda``): a real capture against eager calls on the same static
-buffers.  This file imports no JAX:
+calls the step, against the plain oracle (``_torch_serve_oracle.py``); the
+counters.  On the card (``requires_cuda``): a real capture against eager
+calls on the same static buffers and the plain oracle.  This file imports
+no JAX:
 
     PYTHONPATH=src python -m pytest -m requires_cuda tests/test_torch_decode_graph.py
 """
@@ -17,6 +18,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_serve_oracle import plain_tokens
 from repro_torch import tracing
 from repro_torch.configs.deepseek_v3_671b import published
 from repro_torch.models import apply_model, get_config, get_smoke_config, init_caches, init_model
@@ -125,7 +127,7 @@ def test_one_set_of_captures_serves_smaller_batches(arch):
     16 rows, the padded rows holding what the earlier batches left
     (gemma2-smoke's and recurrentgemma-smoke's 24-token prompts wrap their
     16-slot windows; the recurrent states start from zero again): each
-    batch's tokens equal a fresh eager engine's.  The counters read one
+    batch's tokens equal the plain oracle's.  The counters read one
     capture a row count of ``graph_rows(16)`` and one replay a decode
     step."""
     cfg = get_smoke_config(arch)
@@ -140,9 +142,7 @@ def test_one_set_of_captures_serves_smaller_batches(arch):
         tracing.disable()
         rec = tracing.drain()
     for reqs, tokens in zip(batches, got):
-        eager = ServingEngine(cfg, params, context_len=64, device="cpu")
-        assert eager.capture is None
-        assert tokens == _tokens(eager, reqs)
+        assert tokens == plain_tokens(cfg, params, reqs, context_len=64)
     steps = sum(max(r.max_new_tokens for r in reqs) - 1 for reqs in batches)
     assert rec["counters"] == {"engine.graph_capture": 5, "engine.graph_replay": steps}
     assert graph._graph_rows == 16 and sorted(graph._replays) == [1, 2, 4, 8, 16]
@@ -150,7 +150,7 @@ def test_one_set_of_captures_serves_smaller_batches(arch):
 
 def test_a_larger_batch_captures_again():
     """B 3 (captured at 1, 2 and 3 rows), then 6 (buffers of 6 rows, captured
-    again at 1, 2, 4 and 6), then 2: tokens as eager."""
+    again at 1, 2, 4 and 6), then 2: tokens as the plain oracle's."""
     cfg = get_smoke_config("glm4-9b")
     params = init_model(cfg, seed=0, device="cpu")
     graph = ServingEngine(cfg, params, context_len=64, device="cpu", capture=calls_step)
@@ -162,15 +162,15 @@ def test_a_larger_batch_captures_again():
         tracing.disable()
         rec = tracing.drain()
     for reqs, tokens in zip(batches, got):
-        assert tokens == _tokens(ServingEngine(cfg, params, context_len=64, device="cpu"), reqs)
+        assert tokens == plain_tokens(cfg, params, reqs, context_len=64)
     assert rec["counters"] == {"engine.graph_capture": 7, "engine.graph_replay": 12}
 
 
-def test_mla_decodes_eagerly_with_a_capture_given():
+def test_mla_serves_through_the_capture_seam():
     """The engine's MLA caches hold their position on the device
-    (``init_caches(device_index=True)``), so its engine takes the capture
-    it is given: two batches through the seam, tokens equal to an eager
-    engine's, one replay a step."""
+    (``init_caches(device_index=True)``), so the captured step reads
+    nothing from the host: two batches through the seam, tokens equal to
+    the plain oracle's, one replay a step."""
     cfg = get_smoke_config("deepseek-v3-671b")
     params = init_model(cfg, seed=0, device="cpu")
     engine = ServingEngine(cfg, params, context_len=64, device="cpu", capture=calls_step)
@@ -184,7 +184,7 @@ def test_mla_decodes_eagerly_with_a_capture_given():
         rec = tracing.drain()
     assert rec["counters"] == {"engine.graph_capture": 2 + 3, "engine.graph_replay": 3 + 5}
     for reqs, tokens in zip(batches, got):
-        assert tokens == _tokens(ServingEngine(cfg, params, context_len=64, device="cpu"), reqs)
+        assert tokens == plain_tokens(cfg, params, reqs, context_len=64)
 
 
 # ---------------------------------------------------------------------------
@@ -203,8 +203,8 @@ def test_cuda_graph_equals_eager_decode(cuda_device):
     """smollm-360m's widths at 4 of its 32 layers, fp32 cache of 128
     positions: the captured engine serves B 16, 7, 1, then 7 again, and its
     tokens equal those of eager calls of the step on the same static
-    buffers (the CPU's seam on the card), to the bit; B 16 equals a plain
-    eager engine's (the same shapes); the B 7 served after B 1 equals B 7
+    buffers (the CPU's seam on the card), to the bit; B 16 equals the plain
+    oracle's (the same shapes); the B 7 served after B 1 equals B 7
     served right after another B 16.  One capture a row count of
     ``graph_rows(16)``, one replay a step; the layers' products of every
     captured step take the small-row kernel (4 layers x 7, in the warm-up
@@ -232,9 +232,7 @@ def test_cuda_graph_equals_eager_decode(cuda_device):
     assert rec["counters"]["mm.small_rows"] == 5 * 2 * 4 * 7
     for reqs, tokens in zip(batches, got):
         assert tokens == _tokens(stepped, reqs)
-    plain = engine()
-    plain.capture = None
-    assert got[0] == _tokens(plain, batches[0])
+    assert got[0] == plain_tokens(cfg, params, batches[0], context_len=128, device="cuda")
     fresh = engine()
     fresh.run_batch(_requests(cfg, 16, 64, 8, 15))
     assert got[3] == _tokens(fresh, batches[3])
@@ -265,7 +263,8 @@ def test_mla_graph_decode_equals_eager_at_the_cells_widths(cuda_device):
     0-7 held), 5 of its layers (3 dense, 2 MoE: a stacked group of two),
     fp32 cache of 512 positions, one batch of 6 rows (captured at 1, 2, 4
     and 6): the captured engine's tokens equal eager calls of the step on
-    the same static buffers and a plain eager engine's, to the bit; every decode step a replay, none eager."""
+    the same static buffers and the plain oracle's, to the bit; one
+    capture a row count, one replay a decode step."""
     torch.backends.cuda.matmul.allow_tf32 = False
     cfg = published(num_layers=5, held_experts=(0, 8))
     params = init_model(cfg, seed=0, device="cuda")
@@ -274,8 +273,7 @@ def test_mla_graph_decode_equals_eager_at_the_cells_widths(cuda_device):
         return ServingEngine(cfg, params, context_len=512, cache_dtype=torch.float32,
                              device="cuda", **kw)
 
-    graph, stepped, plain = engine(), engine(capture=calls_step), engine()
-    plain.capture = None
+    graph, stepped = engine(), engine(capture=calls_step)
     reqs = _requests(cfg, 6, 200, 12, 31)
     tracing.enable()
     try:
@@ -283,10 +281,11 @@ def test_mla_graph_decode_equals_eager_at_the_cells_widths(cuda_device):
     finally:
         tracing.disable()
         rec = tracing.drain()
-    assert rec["counters"]["engine.graph_replay"] == 11
-    assert "engine.decode_eager" not in rec["counters"]
+    engine_counts = {k: v for k, v in rec["counters"].items() if k.startswith("engine.")}
+    assert engine_counts == {"engine.graph_capture": 4, "engine.graph_replay": 11}
     assert sorted(graph._replays) == [1, 2, 4, 6]
-    assert got == _tokens(stepped, reqs) == _tokens(plain, reqs)
+    assert got == _tokens(stepped, reqs) == plain_tokens(cfg, params, reqs, context_len=512,
+                                                         device="cuda")
 
 
 @pytest.mark.requires_cuda
@@ -297,8 +296,8 @@ def test_gqa_graph_decode_equals_eager_at_the_cells_widths(cuda_device):
     every product of a captured step takes the small-row kernel (2 layers
     x 7 and the head, in the warm-up call and the capture of each row
     count; the prefill's head at 6 rows too), and the captured engine's
-    tokens equal eager calls of the step on the same static buffers and a
-    plain eager engine's, to the bit."""
+    tokens equal eager calls of the step on the same static buffers and the
+    plain oracle's, to the bit."""
     torch.backends.cuda.matmul.allow_tf32 = False
     cfg = dataclasses.replace(get_config("deepseek-67b"), num_layers=2, dtype="bfloat16")
     params = init_model(cfg, seed=0, device="cuda")
@@ -307,8 +306,7 @@ def test_gqa_graph_decode_equals_eager_at_the_cells_widths(cuda_device):
         return ServingEngine(cfg, params, context_len=256, cache_dtype=torch.float32,
                              device="cuda", **kw)
 
-    graph, stepped, plain = engine(), engine(capture=calls_step), engine()
-    plain.capture = None
+    graph, stepped = engine(), engine(capture=calls_step)
     reqs = _requests(cfg, 6, 120, 12, 41)
     tracing.enable()
     try:
@@ -318,4 +316,5 @@ def test_gqa_graph_decode_equals_eager_at_the_cells_widths(cuda_device):
         rec = tracing.drain()
     assert rec["counters"]["engine.graph_replay"] == 11
     assert rec["counters"]["mm.small_rows"] == 4 * 2 * (2 * 7 + 1) + 1
-    assert got == _tokens(stepped, reqs) == _tokens(plain, reqs)
+    assert got == _tokens(stepped, reqs) == plain_tokens(cfg, params, reqs, context_len=256,
+                                                         device="cuda")

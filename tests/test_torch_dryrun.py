@@ -5,7 +5,7 @@ the JAX package's where both count the same work.
   shapes and dtypes (every arch's smoke config).
 * ``FlopCounterMode`` counts the same FLOPs for a smoke model on the meta
   device (the ops' fakes) and on the CPU through the ops (their plain
-  versions, ``kernel_impl="op"``), in prefill and in a training step's
+  versions, ``ops.use("op")``), in prefill and in a training step's
   forward and backward, with remat on; exact (integer counts).
 * Per-device argument bytes equal XLA's ``argument_size_in_bytes`` of JAX's
   compiled step on a (4, 2) ``("data", "model")`` mesh, for glm4-smoke,
@@ -48,6 +48,7 @@ from repro_torch.launch import dryrun as DR
 from repro_torch.launch import roofline as RL
 from repro_torch.launch.cost_analysis import COLLECTIVE_KINDS, CostCounter, program_wire_bytes
 from repro_torch.core.collectives import program_for
+from repro_torch.kernels import ops
 from repro_torch.launch.mesh import MeshShape, rules_for
 from repro_torch.models import apply_model, get_config, get_smoke_config, init_caches, init_model
 from repro_torch.tree import leaves, leaves_with_path
@@ -100,9 +101,9 @@ def test_flop_counter_same_on_meta_and_through_the_ops(arch):
         if not cfg.encoder_only:
             caches = init_caches(cfg, B, 32, device=dev)
             batch = _batch(cfg, B, T, dev, "prefill")
-            with torch.no_grad():
+            with torch.no_grad(), ops.use(impl):
                 pre = _flops(lambda: apply_model(params, cfg, batch, mode="prefill",
-                                                 caches=caches, kernel_impl=impl))
+                                                 caches=caches))
         else:
             pre = None
         for p in leaves(params):
@@ -110,7 +111,9 @@ def test_flop_counter_same_on_meta_and_through_the_ops(arch):
         batch = _batch(cfg, B, T, dev, "train")
 
         def fwd_bwd():
-            total, _ = compute_loss(params, cfg, batch, kernel_impl=impl)
+            with ops.use(impl):
+                total, _ = compute_loss(params, cfg, batch)
+            # remat's recompute runs here, outside the ``use``
             param_grads(total, leaves(params))
         counts[dev] = (pre, _flops(fwd_bwd))
     assert counts["meta"] == counts["cpu"]

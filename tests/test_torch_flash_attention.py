@@ -116,16 +116,16 @@ def test_cpu_tensor_takes_plain_path_without_counting():
     assert counts["flash_attention"] == 0 and not any(counts.values())
     torch.testing.assert_close(out, ref.reference_attention(q, k, v),
                                rtol=0, atol=0)
-    torch.testing.assert_close(ops.flash_attention(q, k, v, impl="reference"), out,
-                               rtol=0, atol=0)
+    with ops.use("reference"):
+        torch.testing.assert_close(ops.flash_attention(q, k, v), out, rtol=0, atol=0)
 
 
 def test_kernel_wrapper_refuses_cpu_tensors_and_bad_impl():
     q, k, v = (torch.from_numpy(a) for a in _inputs(5, 1, 8, 8, 1, 1, 16))
     with pytest.raises(ValueError, match="CUDA"):
         flash_attention_cuda(q, k, v)
-    with pytest.raises(ValueError, match="impl"):
-        ops.flash_attention(q, k, v, impl="pallas")
+    with pytest.raises(ValueError, match="impl"), ops.use("pallas"):
+        ops.flash_attention(q, k, v)
     with pytest.raises(TypeError):
         flash_attention_cuda(q.double(), k.double(), v.double())
     with pytest.raises(ValueError, match="head_dim"):

@@ -95,18 +95,20 @@ def test_lru_matches_model_scan():
 
 
 def test_lru_scan_dispatch_and_gradient_on_cpu():
-    """``impl="reference"`` is the CPU path itself, and so is the op's CPU
-    implementation (``impl="op"``); an unknown impl raises; a meta tensor
+    """``ops.use("reference")`` is the CPU path itself, and so is the op's
+    CPU implementation (``ops.use("op")``); an unknown impl raises; a meta tensor
     goes to the op's fake (shapes and dtypes, no time loop); on the CPU the
     plain scan is differentiable, with the gradients of ``jax.grad`` through
     the model's scan."""
     a, x, h0 = (torch.from_numpy(v) for v in _inputs(2, 9, 4, seed=3))
-    torch.testing.assert_close(ops.lru_scan(a, x, h0),
-                               ops.lru_scan(a, x, h0, impl="reference"), rtol=0, atol=0)
-    with pytest.raises(ValueError, match="impl"):
-        ops.lru_scan(a, x, h0, impl="pallas")
-    torch.testing.assert_close(ops.lru_scan(a, x, h0, impl="op"),
-                               ops.lru_scan(a, x, h0), rtol=0, atol=0)
+    with ops.use("reference"):
+        plain = ops.lru_scan(a, x, h0)
+    torch.testing.assert_close(ops.lru_scan(a, x, h0), plain, rtol=0, atol=0)
+    with pytest.raises(ValueError, match="impl"), ops.use("pallas"):
+        ops.lru_scan(a, x, h0)
+    with ops.use("op"):
+        through_op = ops.lru_scan(a, x, h0)
+    torch.testing.assert_close(through_op, ops.lru_scan(a, x, h0), rtol=0, atol=0)
     fake = ops.lru_scan(a.to("meta"), x.to("meta"), h0.to("meta"))
     assert (fake.device.type, fake.shape, fake.dtype) == ("meta", a.shape, torch.float32)
     cot = np.random.default_rng(4).standard_normal(a.shape).astype(np.float32)

@@ -31,6 +31,7 @@ from repro.models import get_smoke_config as jax_smoke
 from repro.models.registry import ARCHITECTURES as JAX_ARCHITECTURES
 from repro_torch.configs.base import AttentionConfig, FSDP_TP_RULES, MoEConfig, ShardingConfig
 from repro_torch.data import make_batch
+from repro_torch.kernels import ops
 from repro_torch.models import (apply_model, get_config, get_smoke_config,
                                 init_caches, init_model, list_architectures)
 
@@ -136,7 +137,7 @@ def test_registry_and_device_rules():
 
 
 def test_attn_impl_reference_equals_auto_on_cpu(pair):
-    """``kernel_impl="reference"`` (the plain version of every kernel) is the
+    """``ops.use("reference")`` (the plain version of every kernel) is the
     CPU path itself: prefill for the decoders (paligemma's over its image
     prefix and 7 text tokens), train mode for the encoder."""
     arch, cfg, _, tp = pair
@@ -154,5 +155,6 @@ def test_attn_impl_reference_equals_auto_on_cpu(pair):
 
     def run(impl):
         caches = None if cfg.encoder_only else init_caches(tcfg, 1, ctx, device="cpu")
-        return apply_model(tp, tcfg, batch, mode=mode, caches=caches, kernel_impl=impl)[0]
+        with ops.use(impl):
+            return apply_model(tp, tcfg, batch, mode=mode, caches=caches)[0]
     torch.testing.assert_close(run("auto"), run("reference"), rtol=0, atol=0)

@@ -92,7 +92,7 @@ def test_routing_rule(case, device):
     """``small_mm.fits`` says which products the kernel takes: float32
     after promotion (x float32 or bfloat16, w float32), 1-16 rows a batch
     entry, w row-major with N contiguous on the 16-byte grid, no gradient
-    wanted.  Off the card nothing takes it: ``_small_rows`` is false on the
+    wanted.  Off the card nothing takes it: ``ops._small_rows`` is false on the
     CPU and the meta device (the JAX parity tests, the dry run) and counts
     nothing."""
     _, make_x, make_w, grad, want = case
@@ -106,7 +106,7 @@ def test_routing_rule(case, device):
         assert SM.fits(x, w) is want
         tracing.enable()
         try:
-            assert L._small_rows(x, w) is False
+            assert ops._small_rows(x, w) is False
         finally:
             tracing.disable()
         assert tracing.drain()["counters"] == {}
@@ -202,25 +202,29 @@ def test_helpers_off_the_card_are_unchanged():
 
 @pytest.mark.parametrize("impl,plain", [("auto", False), ("reference", True)])
 def test_reference_run_keeps_every_product_off_the_kernel(impl, plain, monkeypatch):
-    """``apply_model(kernel_impl="reference")`` runs its products inside
-    ``layers.plain_products``, so on the card they keep cuBLAS (the
-    kernel's plain version); ``auto`` leaves them to the rule.  The switch
-    is unset again after the call."""
+    """``apply_model`` inside ``ops.use("reference")`` runs every product
+    under that choice, so on the card they keep cuBLAS (the kernel's plain
+    version); ``auto`` leaves them to the rule.  The choice is ``auto``
+    again after the block, and a nested ``use`` gives the outer one back."""
     from repro_torch.models import apply_model, get_smoke_config, init_caches, init_model
 
     seen = []
     mm = L._mm
-    monkeypatch.setattr(L, "_mm", lambda x, w: seen.append(L._plain_products.get()) or mm(x, w))
+    monkeypatch.setattr(L, "_mm",
+                        lambda x, w: seen.append(ops.current() == "reference") or mm(x, w))
     cfg = get_smoke_config("glm4-9b")
     params = init_model(cfg, seed=0, device="cpu")
     caches = init_caches(cfg, 2, 16, dtype=F32, device="cpu")
-    apply_model(params, cfg, {"tokens": torch.zeros(2, 5, dtype=torch.long)}, mode="prefill",
-                caches=caches, kernel_impl=impl)
+    with ops.use(impl):
+        apply_model(params, cfg, {"tokens": torch.zeros(2, 5, dtype=torch.long)},
+                    mode="prefill", caches=caches)
     assert seen and set(seen) == {plain}
-    assert L._plain_products.get() is False
-    with L.plain_products():
-        assert L._plain_products.get() is True
-    assert L._plain_products.get() is False
+    assert ops.current() == "auto"
+    with ops.use("reference"):
+        with ops.use("op"):
+            assert ops.current() == "op"
+        assert ops.current() == "reference"
+    assert ops.current() == "auto"
 
 
 def test_kernel_wrapper_refuses_cpu_tensors():

@@ -393,7 +393,7 @@ def test_serve_cli_writes_engine_spans(tmp_path, capsys):
     enqueues = [e for e in events if e["name"] == "engine.decode_enqueue"]
     assert len(enqueues) == 3
     assert all(e["args"]["parent"] == batch["args"]["index"] for e in enqueues)
-    # each decode step counted on the way it ran: eagerly, on the CPU
+    # one capture a row count of the 3-row buffers, one replay a decode step
     assert len(events) == 4 and doc["otherData"] == {
-        "counters": {"engine.decode_eager": 3}, "dropped": 0}
+        "counters": {"engine.graph_capture": 3, "engine.graph_replay": 3}, "dropped": 0}
     assert "4 spans written to" in capsys.readouterr().out

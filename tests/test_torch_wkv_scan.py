@@ -82,8 +82,8 @@ def test_wkv_matches_model_scan(zero_state):
 
 
 def test_wkv_scan_dispatch_and_gradient_on_cpu():
-    """``impl="reference"`` is the CPU path itself, and so is the op's CPU
-    implementation (``impl="op"``); an unknown impl raises; a meta tensor
+    """``ops.use("reference")`` is the CPU path itself, and so is the op's
+    CPU implementation (``ops.use("op")``); an unknown impl raises; a meta tensor
     goes to the op's fake; on the CPU the plain recurrence is
     differentiable, with the gradients of ``jax.grad`` through the model's
     scan (of output and final state)."""
@@ -91,12 +91,15 @@ def test_wkv_scan_dispatch_and_gradient_on_cpu():
     ins = _inputs((B, T, H, K), K, (H, K), seed=5)
     s0 = np.random.default_rng(6).standard_normal((B, H, K, K)).astype(np.float32)
     ts = [torch.from_numpy(a) for a in (*ins, s0)]
-    a, b = ops.wkv_scan(*ts), ops.wkv_scan(*ts, impl="reference")
-    for x, y in zip(a, b):
+    with ops.use("reference"):
+        b = ops.wkv_scan(*ts)
+    for x, y in zip(ops.wkv_scan(*ts), b):
         torch.testing.assert_close(x, y, rtol=0, atol=0)
-    with pytest.raises(ValueError, match="impl"):
-        ops.wkv_scan(*ts, impl="pallas")
-    for x, y in zip(ops.wkv_scan(*ts, impl="op"), b):
+    with pytest.raises(ValueError, match="impl"), ops.use("pallas"):
+        ops.wkv_scan(*ts)
+    with ops.use("op"):
+        through_op = ops.wkv_scan(*ts)
+    for x, y in zip(through_op, b):
         torch.testing.assert_close(x, y, rtol=0, atol=0)
     fake = ops.wkv_scan(*(t.to("meta") for t in ts))
     assert [(t.device.type, t.shape) for t in fake] == [("meta", y.shape) for y in b]
