@@ -16,6 +16,10 @@ Phases, each printing its own lines and seconds, and raising on failure
                time as a yardstick where one exists, and the card's bound;
                small_mm against float64 at 1-16 rows, and a decode step's
                products of each serving cell timed at 1, 4, 8 and 16 rows;
+               mla_decode against float64 at the DeepSeek-V3 cell's widths,
+               and a decode step's 10 attention cores timed at 1, 4, 8 and
+               16 rows and live lengths 1024, 2048 and 2432 beside the plain
+               version over the whole cache;
   4. serve   — full-width smollm-360m (random fp32 weights from a seed) in the
                port's ServingEngine(strategy="r2ccl"): 4 requests of 512-token
                prompts, 16 new tokens, healthy and with a NIC failure at decode
@@ -65,8 +69,9 @@ Phases, each printing its own lines and seconds, and raising on failure
                shared; 60.4 GB), its MTP head off (train-only): Multi-head
                Latent Attention, whose prefill runs the flash kernel at head_dim
                192 (128 KV heads of one query) and whose decode attends to the
-               latent cache in plain PyTorch; 4 requests of 512-token prompts,
-               4 flash_attention launches per prefill, routing flips counted;
+               latent cache in the mla_decode kernel (one call a layer a
+               capture); 4 requests of 512-token prompts, 4 flash_attention
+               launches per prefill, routing flips counted;
   9. serve_paligemma — paligemma-3b at full width and depth (18 layers, fp32
                weights, 10.0 GB): apply_model prefill over 256 image-patch
                embeddings (a bidirectional prefix, the flash kernel's
@@ -228,6 +233,12 @@ KERNELS = {
         replaces=None,
         note="no TPU kernel; replaces cuBLAS for decode's float32 products at 1-16 rows "
              "(XLA's dot on the TPU), models/layers.py::_mm and models/moe.py::_expert_mm"),
+    "mla_decode": dict(
+        route="cuda",
+        source="src/repro_torch/kernels/csrc/mla_decode.cu",
+        replaces=None,
+        note="no TPU kernel; replaces MLA decode's absorbed attention core in plain "
+             "PyTorch (jnp in src/repro/models/mla.py), models/mla.py's decode branch"),
 }
 #: the other GQA families, full width at a cut depth: (arch, layers kept,
 #: batch, prompt, context, kernel launches per prefill).  gemma2's prompts
@@ -252,7 +263,8 @@ MLA_PHASES = {
 MAIN_PATH = {"flash_attention": "serve", "flash_attention_bwd": "train",
              "chunk_combine": "train", "lru_scan": "serve_recurrentgemma",
              "wkv_scan": "serve_rwkv6", "lru_scan_bwd": "train_recurrent",
-             "wkv_scan_bwd": "train_recurrent", "small_mm": "serve_deepseek67b"}
+             "wkv_scan_bwd": "train_recurrent", "small_mm": "serve_deepseek67b",
+             "mla_decode": "serve_deepseekv3"}
 NO_LIBRARY = "no single PyTorch call computes this recurrence"
 
 ARCH, BATCH, PROMPT, NEW_TOKENS, CONTEXT = "smollm-360m", 4, 512, 16, 1024
@@ -363,6 +375,20 @@ SMALL_MM_STEPS = {
         ("head", 7168, 129280, 1, 1)],
 }
 SMALL_MM_ROWS = (1, 4, 8, 16)
+# mla_decode against float64, relative to each quantity's rounding scale:
+# X = scale * sum |q| |k| (the largest over the live slots) for the scores,
+# read through the row's log-sum-exp; sum p |c| (1 + 2 X) for the context,
+# since a score's rounding error d moves its probability by e^d - 1 and the
+# row's by the mean of them: an fp32 score of X ~ 60 carries d ~ 1e-6, which
+# moves the context by ~1e-6 of sum p |c| in any fp32 evaluation.  3xTF32
+# products with fp32 sums read ~1e-8-1e-7 on both scales, TF32 products ~1e-4
+MLA_RTOL = 1e-6
+#: the DeepSeek-V3 cell's decode attention: heads, kv_lora, rope, the cache's
+#: slots, the layers of a step; the rows and live lengths it is timed at,
+#: and the positions it is checked at (live 1, 17, 1023, 2048, 2432, the ring)
+MLA_DECODE = dict(heads=128, rank=512, rope=64, slots=2432, layers=10)
+MLA_ROWS, MLA_LIVE = (1, 4, 8, 16), (1024, 2048, 2432)
+MLA_CHECK_ROWS, MLA_CHECK_POS = (1, 3, 8, 16), (0, 16, 1022, 2047, 2431, 3131)
 # the recurrent families' training shape: one rank's LOCAL_BATCH sequences
 # of SEQ tokens; recurrentgemma-9b's LRU width, rwkv6-1.6b's 32 heads of 64
 LRU_TRAIN = (2, 512, 4096)
@@ -1588,6 +1614,189 @@ def check_small_mm(gen) -> dict:
                 library_ms=main["library_ms"], device_ms=main["device_ms"], steps=out)
 
 
+def mla_float64(q_abs, q_pe, c_kv, k_pe, pos: int, scale: float):
+    """MLA decode's core in float64 over the live slots ``s <= pos``: (ctx,
+    each row's log-sum-exp, sum p |c|, the scores' rounding scale X: the
+    largest scale * sum |q| |k| over the live slots); the context's
+    rounding scale is sum p |c| (1 + 2 X) (``MLA_RTOL``)."""
+    qa, qp, c, kp = (t.double() for t in (q_abs, q_pe, c_kv, k_pe))
+    live = torch.arange(c.shape[1], device=c.device) <= pos
+    s = (torch.einsum("bthr,bsr->bhs", qa, c) + torch.einsum("bthk,bsk->bhs", qp, kp)) * scale
+    s = s.masked_fill(~live, -torch.inf)
+    p = torch.softmax(s, -1)
+    mag = (torch.einsum("bthr,bsr->bhs", qa.abs(), c.abs())
+           + torch.einsum("bthk,bsk->bhs", qp.abs(), kp.abs())) * scale
+    return (torch.einsum("bhs,bsr->bhr", p, c), s.logsumexp(-1),
+            torch.einsum("bhs,bsr->bhr", p, c.abs()), mag.masked_fill(~live, 0).amax(-1))
+
+
+def check_mla_decode(gen) -> dict:
+    """MLA decode's attention core at the DeepSeek-V3 cell's widths:
+    :func:`mla_decode_errors`, then :func:`time_mla_decode`."""
+    worst = mla_decode_errors(gen)
+    timed = time_mla_decode(gen)
+    main = timed["8x2048"]
+    return dict(name="mla_decode", **KERNELS["mla_decode"], launches=0,
+                max_rel_err=max(max(w["kernel_ctx"], w["kernel_scores"])
+                                for w in worst.values()),
+                tol=MLA_RTOL, errors=worst, ms=main["ms"], device_ms=main["device_ms"],
+                plain_ms=main["plain_ms"], bound_ms=main["bound_ms"], bound_by="operations",
+                library_ms=None, library_note="no single PyTorch call computes it",
+                steps=timed)
+
+
+def _mla_setup():
+    from repro_torch.configs.deepseek_v3_671b import YARN
+    from repro_torch.models.mla import softmax_scale
+
+    H, R, P, S, layers = (MLA_DECODE[k] for k in ("heads", "rank", "rope", "slots", "layers"))
+    return H, R, P, S, layers, softmax_scale(128 + P, YARN)
+
+
+def mla_decode_errors(gen) -> dict:
+    """The kernel at the DeepSeek-V3 cell's widths (128 heads, kv_lora
+    512, rope 64, 2432 slots, its softmax scale) against float64: rows 1 /
+    3 / 8 / 16, live lengths 1 to the whole ring (``MLA_CHECK_POS``),
+    float32 and bfloat16 caches, the context's error over sum p |c| and the
+    scores' (through the row's log-sum-exp) over scale * sum |q| |k|; the
+    plain version's context error (float32 products, TF32 off: the path the
+    kernel replaces) and the same with TF32 on, to show the tolerance tells
+    them apart; two calls, and the position read on the device, give the
+    same bits.  Raises past ``MLA_RTOL``."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.mla_decode import mla_decode_cuda
+
+    H, R, P, S, _, scale = _mla_setup()
+    B = max(MLA_CHECK_ROWS)
+
+    def ctx_errs(ctx, want):
+        """(over sum p |c|, over its rounding scale sum p |c| (1 + 2 X))"""
+        ctx64, _, pc, x = want
+        err = (ctx[:, 0].double() - ctx64).abs()
+        return (err / pc).max().item(), (err / (pc * (1 + 2 * x[..., None]))).max().item()
+
+    worst = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        ins = (torch.randn(B, 1, H, R, device="cuda", generator=gen),
+               torch.randn(B, 1, H, P, device="cuda", generator=gen),
+               torch.randn(B, S, R, device="cuda", generator=gen).to(dtype),
+               torch.randn(B, S, P, device="cuda", generator=gen).to(dtype))
+        k_pc = k_ctx = k_s = p_pc = p_ctx = t_ctx = 0.0
+        for rows in MLA_CHECK_ROWS:
+            x = [t[:rows] for t in ins]
+            for pos in MLA_CHECK_POS:
+                want = mla_float64(*x, pos, scale)
+                lse = torch.empty(rows, H, device="cuda")
+                ctx = mla_decode_cuda(*x, None, pos, scale, lse=lse)
+                pc, ce = ctx_errs(ctx, want)
+                se = ((lse.double() - want[1]).abs() / want[3]).max().item()
+                if not (ce <= MLA_RTOL and se <= MLA_RTOL):
+                    raise RuntimeError(f"mla_decode {rows} rows, pos {pos}, {dtype} cache: "
+                                       f"context err {ce:.3e}, scores err {se:.3e} > "
+                                       f"{MLA_RTOL}")
+                if not torch.equal(ctx, mla_decode_cuda(*x, None, pos, scale)):
+                    raise RuntimeError(f"mla_decode {rows} rows, pos {pos}: two calls differ")
+                index = torch.tensor(pos, device="cuda")
+                if not torch.equal(ctx, mla_decode_cuda(*x, index, 0, scale)):
+                    raise RuntimeError(f"mla_decode {rows} rows, pos {pos}: the position "
+                                       "on the device gives other bits than on the host")
+                k_pc, k_ctx, k_s = max(k_pc, pc), max(k_ctx, ce), max(k_s, se)
+                plain = ref.reference_mla_decode(*x, pos, scale)
+                pc, ce = ctx_errs(plain, want)
+                p_pc, p_ctx = max(p_pc, pc), max(p_ctx, ce)
+                torch.backends.cuda.matmul.allow_tf32 = True
+                try:
+                    t32 = ref.reference_mla_decode(*x, pos, scale)
+                finally:
+                    torch.backends.cuda.matmul.allow_tf32 = False
+                t_ctx = max(t_ctx, ctx_errs(t32, want)[1])
+        name = "fp32" if dtype == torch.float32 else "bf16"
+        worst[name] = dict(kernel_ctx=k_ctx, kernel_scores=k_s, plain_ctx=p_ctx,
+                           tf32_ctx=t_ctx, kernel_ctx_of_pc=k_pc, plain_ctx_of_pc=p_pc)
+        log("kernels", f"mla_decode {name} cache, rows {MLA_CHECK_ROWS}, positions "
+            f"{MLA_CHECK_POS} of {S} slots, against float64: context {k_ctx:.3e} of sum "
+            f"p|c| (1 + 2X) ({k_pc:.3e} of sum p|c|), scores {k_s:.3e} of X = scale sum "
+            f"|q||k| (tol {MLA_RTOL:g}); the plain version's context {p_ctx:.3e} "
+            f"({p_pc:.3e} of sum p|c|), with TF32 on {t_ctx:.3e}; two calls and the "
+            f"device position give the same bits")
+        del ins
+    if not worst["fp32"]["tf32_ctx"] > MLA_RTOL:
+        raise RuntimeError(f"TF32 products read {worst['fp32']['tf32_ctx']} <= MLA_RTOL")
+    return worst
+
+
+def time_mla_decode(gen) -> dict:
+    """A decode step's 10 attention cores (``MLA_DECODE``: each layer its
+    own queries and fp32 cache, so the 50 MB L2 never holds the next
+    layer's), each way captured as one CUDA graph and timed by CUDA events
+    over its replays: the kernel at the live length, and the plain version
+    over the whole cache as ``models/mla.py`` ran it, at 1, 4, 8 and 16 rows
+    and live lengths 1024, 2048 and 2432, with both ways' device time
+    (torch.profiler) and the kernel's bound (3xTF32 at 165 TFLOP/s).  By
+    "<rows>x<live>"."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.mla_decode import mla_decode_cuda, splits
+    from repro_torch.launch import cost_analysis as CA
+    from repro_torch.launch.profile_kernels import device_ms, graph_ms
+
+    H, R, P, S, layers, scale = _mla_setup()
+    B = max(MLA_ROWS)
+    qs = [[torch.randn(B, 1, H, R, device="cuda", generator=gen),
+           torch.randn(B, 1, H, P, device="cuda", generator=gen),
+           torch.randn(B, S, R, device="cuda", generator=gen),
+           torch.randn(B, S, P, device="cuda", generator=gen)]
+          for _ in range(layers)]
+    index = torch.zeros((), dtype=torch.int64, device="cuda")
+    timed = {}
+    for rows in MLA_ROWS:
+        x = [[t[:rows] for t in layer] for layer in qs]
+
+        def kernel():
+            for layer in x:
+                mla_decode_cuda(*layer, index, 0, scale)
+
+        def plain():
+            for layer in x:
+                ref.reference_mla_decode(*layer, index, scale)
+
+        for live in MLA_LIVE:
+            index.fill_(live - 1)
+            ms = graph_ms(kernel, replays=20)
+            t_plain = graph_ms(plain, replays=10)
+            ms2 = graph_ms(kernel, replays=20)
+            dev = sum(device_ms(kernel, calls=5).values())
+            dev_plain = sum(device_ms(plain, calls=3).values())
+            cost = CA.mla_decode_cost((rows, 1, H, R), P, S, live - 1)
+            bound = layers * cost.bound()["bound_ms"]
+            best = min(ms, ms2)
+            timed[f"{rows}x{live}"] = dict(
+                ms=best, ms_again=max(ms, ms2), device_ms=dev, plain_ms=t_plain,
+                plain_device_ms=dev_plain, bound_ms=bound, gflop=layers * cost.flops / 1e9,
+                splits=splits(rows, H, S))
+            log("kernels", f"mla_decode a step's {layers} cores at {rows} rows, live "
+                f"{live} of {S}, a graph's replay: kernel {ms:.4f} / {ms2:.4f} ms, device "
+                f"{dev:.4f} ({layers * cost.flops / 1e9:.2f} GFLOP, {bound / best:.1%} of "
+                f"the bound {bound:.4f} ms, operations at 3xTF32; {splits(rows, H, S)} "
+                f"splits); plain over the whole cache {t_plain:.4f} ms, device "
+                f"{dev_plain:.4f} (the kernel {best / t_plain:.3f} of it)")
+    for layer in qs:                      # the same step over a bf16 cache
+        layer[2:] = [t.to(torch.bfloat16) for t in layer[2:]]
+    x = [[t[:8] for t in layer] for layer in qs]
+
+    def kernel_bf16():
+        for layer in x:
+            mla_decode_cuda(*layer, index, 0, scale)
+
+    index.fill_(2047)
+    ms = graph_ms(kernel_bf16, replays=20)
+    timed["8x2048_bf16"] = dict(ms=ms)
+    log("kernels", f"mla_decode a step's {layers} cores at 8 rows, live 2048, bf16 cache "
+        f"(two TF32 products a term, the cache exact in TF32): {ms:.4f} ms")
+    del qs, x
+    torch.cuda.empty_cache()
+    return timed
+
+
 @contextlib.contextmanager
 def recorded_routes(replay: list | None = None):
     """Yields a list that collects each MoE layer's chosen experts (top_i,
@@ -1678,7 +1887,8 @@ def serve(card: str, phase: str, arch: str, batch: int, prompt: int, context: in
                                    failure=Failure(FailureType.NIC_HARDWARE, 1, 0))
     finally:
         tracing.disable()
-    mm = {k: v for k, v in tracing.drain()["counters"].items() if k.startswith("mm.")}
+    counters = tracing.drain()["counters"]
+    mm = {k: v for k, v in counters.items() if k.startswith(("mm.", "attn."))}
     launches = ops.launch_counts()
     prefills = 2
 
@@ -1691,16 +1901,19 @@ def serve(card: str, phase: str, arch: str, batch: int, prompt: int, context: in
             or not failing.last_recovery.total > 0:
         raise RuntimeError("r2ccl failover not taken through the control plane")
     want = counts(**{k: n * prefills for k, n in per_prefill.items()},
-                  small_mm=mm.get("mm.small_rows", 0))
-    if launches != want or not want["small_mm"]:
+                  small_mm=mm.get("mm.small_rows", 0),
+                  mla_decode=mm.get("attn.mla_decode", 0))
+    mla = cfg.attention is not None and cfg.attention.kind == "mla"
+    if launches != want or not want["small_mm"] or mla != bool(want["mla_decode"]):
         raise RuntimeError(f"launches {launches}, want {want} ({per_prefill} per "
-                           f"prefill x {prefills} prefills; small_mm as the products "
-                           f"routed to it, {mm}, at least one)")
+                           f"prefill x {prefills} prefills; small_mm and mla_decode as the "
+                           f"calls routed to them, {mm}: small_mm at least one, "
+                           f"mla_decode at least one in an MLA model, else none)")
     log(phase, f"tokens identical healthy vs NIC failure at step {FAIL_STEP}; "
         f"failovers={failed[0].failovers}, hiccup {failing.last_recovery.total * 1e3:.4f} ms "
         f"(stages {failing.last_recovery.stages}); launches {launches} ({per_prefill} "
-        f"per prefill, as predicted; small_mm one a product routed to it, of {mm}: the "
-        f"decode steps' and their captures')")
+        f"per prefill, as predicted; small_mm and mla_decode one a call routed to them, of "
+        f"{mm}: the decode steps' and their captures')")
     log(phase, f"healthy: TTFT {healthy[0].ttft * 1e3:.3f} ms, TPOT "
         f"{healthy[0].tpot * 1e3:.3f} ms; with failure: TTFT {failed[0].ttft * 1e3:.3f} ms, "
         f"TPOT {failed[0].tpot * 1e3:.3f} ms, total {failed[0].total_latency * 1e3:.3f} ms "
@@ -3275,7 +3488,8 @@ def main() -> int:
     t0 = time.perf_counter()
     rows = [check_flash_attention(gen), check_flash_attention_bwd(gen),
             check_chunk_combine(gen), check_lru_scan(gen), check_wkv_scan(gen),
-            check_lru_scan_bwd(gen), check_wkv_scan_bwd(gen), check_small_mm(gen)]
+            check_lru_scan_bwd(gen), check_wkv_scan_bwd(gen), check_small_mm(gen),
+            check_mla_decode(gen)]
     log("kernels", f"{time.perf_counter() - t0:.1f} s")
     torch.cuda.empty_cache()
     by_path = {}

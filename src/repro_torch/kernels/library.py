@@ -37,6 +37,7 @@ from . import ref
 from .chunk_combine import chunk_combine_cuda
 from .flash_attention import flash_attention_bwd_cuda, flash_attention_cuda
 from .lru_scan import lru_scan_bwd_cuda, lru_scan_cuda
+from .mla_decode import mla_decode_cuda
 from .small_mm import small_mm_cuda
 from .wkv_scan import CHUNK, wkv_scan_bwd_cuda, wkv_scan_cuda
 
@@ -67,6 +68,9 @@ SCHEMAS = {
         "Tensor gy, Tensor? gs_t, bool want_gs0) "
         "-> (Tensor, Tensor, Tensor, Tensor, Tensor, Tensor)"),
     "small_mm": "small_mm(Tensor x, Tensor w) -> Tensor",
+    "mla_decode": (
+        "mla_decode(Tensor q_abs, Tensor q_pe, Tensor c_kv, Tensor k_pe, Tensor? index, "
+        "int pos, float scale, Tensor(a!)? lse) -> Tensor"),
 }
 
 
@@ -238,6 +242,43 @@ def _small_mm_cost(x, w):
     return CA.small_mm_cost(x.shape, w.shape, x.dtype)
 
 
+# ---------------------------------------------------------------------------
+# MLA decode's attention core
+# ---------------------------------------------------------------------------
+
+def _mla_decode_cuda(q_abs, q_pe, c_kv, k_pe, index, pos, scale, lse):
+    return mla_decode_cuda(q_abs, q_pe, c_kv, k_pe, index, pos, scale, lse=lse)
+
+
+def _position(index, pos) -> int | None:
+    """The position a call reads: ``pos``, or ``index``'s value (None on the
+    meta device, which holds none)."""
+    if index is None:
+        return pos
+    return None if index.device.type == "meta" else int(index)
+
+
+def _mla_decode_cpu(q_abs, q_pe, c_kv, k_pe, index, pos, scale, lse):
+    """The plain version; its context widened to float32, as the kernel
+    gives it."""
+    p = _position(index, pos)
+    if lse is not None:
+        s = (torch.einsum("bthr,bsr->bhts", q_abs, c_kv.float())
+             + torch.einsum("bthk,bsk->bhts", q_pe, k_pe.float())) * scale
+        valid = torch.arange(c_kv.shape[1], device=c_kv.device) <= p
+        lse.copy_(torch.where(valid, s, -torch.inf).logsumexp(-1)[:, :, 0])
+    return ref.reference_mla_decode(q_abs, q_pe, c_kv, k_pe, p, scale).float()
+
+
+def _mla_decode_fake(q_abs, q_pe, c_kv, k_pe, index, pos, scale, lse):
+    return q_abs.new_empty(q_abs.shape, dtype=torch.float32)
+
+
+def _mla_decode_cost(q_abs, q_pe, c_kv, k_pe, index, pos, scale, lse):
+    return CA.mla_decode_cost(q_abs.shape, k_pe.shape[-1], c_kv.shape[1],
+                              _position(index, pos), c_kv.dtype, lse=lse is not None)
+
+
 #: name -> (CUDA launch, CPU plain version, meta fake, cost)
 OPS = {
     "flash_attention_fwd": (_flash_fwd_cuda, _flash_fwd_cpu, _flash_fwd_fake, _flash_fwd_cost),
@@ -248,6 +289,7 @@ OPS = {
     "wkv_scan": (wkv_scan_cuda, _wkv_cpu, _wkv_fake, _wkv_cost),
     "wkv_scan_bwd": (_wkv_bwd_cuda, _wkv_bwd_cpu, _wkv_bwd_fake, _wkv_bwd_cost),
     "small_mm": (small_mm_cuda, ref.reference_small_mm, _small_mm_fake, _small_mm_cost),
+    "mla_decode": (_mla_decode_cuda, _mla_decode_cpu, _mla_decode_fake, _mla_decode_cost),
 }
 
 
@@ -316,8 +358,9 @@ def register_shardings() -> None:
     """Give every op its sharding rule for DTensor (``SHARD_DIMS``); a
     second call changes nothing.  ``chunk_combine`` has none: it merges a
     rank's own buffers inside the explicit gradient programs.  Nor has
-    ``small_mm``: the model routes only CUDA tensors to it, and the sharded
-    count's meta DTensors keep ``x @ w``."""
+    ``small_mm`` or ``mla_decode``: the model routes only CUDA tensors (and
+    CPU tensors inside ``ops.use("op")``) to them, and the sharded count's
+    meta DTensors keep the plain versions."""
     from torch.distributed.tensor.experimental import register_sharding
 
     for name, (arg_dims, out_dims) in SHARD_DIMS.items():

@@ -6,7 +6,9 @@ launches the hand-written Hopper kernel or raises: there is no fallback from
 the card to the plain version.  A meta tensor goes to the op too, whose fake
 gives the output's shape and dtype, so a dry run never walks a plain scan's
 time loop.  :func:`mm`, the models' one product, takes the small-row
-kernel on the card where it fits and ``@`` / ``bmm`` (cuBLAS) elsewhere.
+kernel on the card where it fits and ``@`` / ``bmm`` (cuBLAS) elsewhere;
+:func:`mla_decode`, MLA decode's attention core, takes its kernel on the card
+where it fits and the plain version elsewhere (the meta device included).
 
 This module alone chooses, and :func:`use` is its one switch:
 ``use("reference")`` asks for the plain version of every kernel on any
@@ -30,6 +32,8 @@ from . import library, ref  # noqa: F401  (library registers the ops)
 from .chunk_combine import chunk_combine_cuda
 from .flash_attention import FlashAttention, flash_attention_bwd_cuda, flash_attention_cuda
 from .lru_scan import LRUScan, lru_scan_bwd_cuda, lru_scan_cuda
+from .mla_decode import fits as mla_decode_fits
+from .mla_decode import mla_decode_cuda
 from .small_mm import fits as small_mm_fits
 from .small_mm import small_mm_cuda
 from .small_mm import x_aligned as small_mm_x_aligned
@@ -203,6 +207,31 @@ def mm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return torch.bmm(x.to(dt).reshape(w.shape[0], -1, K), w.to(dt)).reshape(*x.shape[:-1], N)
 
 
+def mla_decode(q_abs: torch.Tensor, q_pe: torch.Tensor, c_kv: torch.Tensor,
+               k_pe: torch.Tensor, pos, scale: float) -> torch.Tensor:
+    """MLA decode's absorbed attention core: ``softmax(scale * (q_abs
+    c_kv^T + q_pe k_pe^T)) c_kv`` over the live slots ``s <= pos`` of the
+    latent cache (``pos`` an int, or the cache's int64 position on its
+    device); q_abs (B, 1, H, R), q_pe (B, 1, H, rope), c_kv (B, S, R), k_pe
+    (B, S, rope) -> (B, 1, H, R).  On the card, where
+    ``mla_decode.fits`` holds and not inside ``use("reference")``, the
+    kernel (float32 out), counted under ``attn.mla_decode`` while tracing is
+    on (once a capture inside a graph); a CPU call inside ``use("op")``
+    takes the op too.  Else, the meta device included (the dry run and its
+    sharded count keep the plain products over every slot), the plain
+    version (out in the cache's dtype)."""
+    impl = _impl.get()
+    dev = q_abs.device.type
+    take = (impl != "reference" and (dev == "cuda" or (dev == "cpu" and impl == "op"))
+            and mla_decode_fits(q_abs, q_pe, c_kv, k_pe))
+    if not take:
+        return ref.reference_mla_decode(q_abs, q_pe, c_kv, k_pe, pos, scale)
+    if dev == "cuda":
+        tracing.count("attn.mla_decode")
+    index, host = (pos, 0) if isinstance(pos, torch.Tensor) else (None, int(pos))
+    return torch.ops.repro_torch.mla_decode(q_abs, q_pe, c_kv, k_pe, index, host, scale, None)
+
+
 _WRAPPERS = {"flash_attention": flash_attention_cuda,
              "flash_attention_bwd": flash_attention_bwd_cuda,
              "chunk_combine": chunk_combine_cuda,
@@ -210,7 +239,8 @@ _WRAPPERS = {"flash_attention": flash_attention_cuda,
              "lru_scan_bwd": lru_scan_bwd_cuda,
              "wkv_scan": wkv_scan_cuda,
              "wkv_scan_bwd": wkv_scan_bwd_cuda,
-             "small_mm": small_mm_cuda}
+             "small_mm": small_mm_cuda,
+             "mla_decode": mla_decode_cuda}
 
 
 def launch_counts() -> dict[str, int]:

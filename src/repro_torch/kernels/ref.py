@@ -144,6 +144,23 @@ def reference_small_mm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return torch.bmm(x.to(torch.float32), w)
 
 
+def reference_mla_decode(q_abs: torch.Tensor, q_pe: torch.Tensor, c_kv: torch.Tensor,
+                         k_pe: torch.Tensor, pos, scale: float) -> torch.Tensor:
+    """Plain version of MLA decode's absorbed attention core, as
+    ``models/mla.py`` computes it over the whole cache: q_abs (B, 1, H, R),
+    q_pe (B, 1, H, rope), c_kv (B, S, R), k_pe (B, S, rope); the slots
+    ``s <= pos`` are live (``pos`` an int or a tensor) -> ctx (B, 1, H, R)
+    in c_kv's dtype (the probabilities rounded to it)."""
+    S = c_kv.shape[1]
+    s_nope = torch.einsum("bthr,bsr->bhts", q_abs, c_kv.to(q_abs.dtype))
+    s_pe = torch.einsum("bthk,bsk->bhts", q_pe, k_pe.to(q_pe.dtype))
+    s = (s_nope + s_pe).float() * scale                    # (B,H,1,S)
+    valid = torch.arange(S, device=q_abs.device) <= pos    # ring validity
+    s = torch.where(valid, s, NEG_INF)
+    prob = torch.softmax(s, dim=-1)
+    return torch.einsum("bhts,bsr->bthr", prob.to(c_kv.dtype), c_kv)
+
+
 def reference_lru_scan(a: torch.Tensor, x: torch.Tensor,
                        h0: torch.Tensor) -> torch.Tensor:
     """Plain version of the RG-LRU scan: ``h_t = a_t * h_{t-1} + x_t`` from

@@ -276,6 +276,23 @@ def small_mm_cost(x_shape, w_shape, x_dtype: torch.dtype = torch.float32) -> Ker
     return KernelCost(2 * G * M * K * N, nbytes, "fp32")
 
 
+def mla_decode_cost(q_shape, rope: int, S: int, pos: int | None,
+                    cache_dtype: torch.dtype = torch.float32, *,
+                    lse: bool = False) -> KernelCost:
+    """MLA decode's attention core at q_abs (B, 1, H, R) over a cache of
+    ``S`` slots whose live length is ``min(pos + 1, S)`` (all ``S`` when
+    ``pos`` is None, a position on the meta device): 2 (R + rope) operations
+    a (row, head, live slot) for the scores and 2 R for the context, fp32 as
+    3xTF32; the float32 queries read, the live slots' c_kv and k_pe read
+    once (in the cache's dtype), the float32 context written (and the row
+    log-sum-exp if asked)."""
+    B, _, H, R = q_shape
+    live = S if pos is None else max(0, min(pos + 1, S))
+    nbytes = (4 * B * H * (R + rope) + B * live * (R + rope) * _elt(cache_dtype)
+              + 4 * B * H * R + (4 * B * H if lse else 0))
+    return KernelCost(2 * B * H * live * (2 * R + rope), nbytes, "tf32x3")
+
+
 def lru_scan_cost(B: int, T: int, W: int) -> KernelCost:
     """h_t = a_t h_{t-1} + x_t in fp32: a multiply and an add an element;
     a, x read, h written, h0 read."""

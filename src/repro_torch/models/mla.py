@@ -19,9 +19,10 @@ Train and prefill decompress K and V per head and run
 ``layers.blockwise_attention`` (the flash-attention kernel on the card) at
 the query/key width ``nope + rope``, with V zero-padded to that width and
 the output sliced back, and the scale ``1/sqrt(nope + rope)`` passed
-explicitly.  Decode runs the absorbed form in plain PyTorch, as the JAX
-package runs it in jnp: ``W_uk`` is folded into the query and ``W_uv``
-into the output, so attention reads the cached latents directly.
+explicitly.  Decode runs the absorbed form, as the JAX package runs it in
+jnp: ``W_uk`` is folded into the query and ``W_uv`` into the output, so
+attention reads the cached latents directly, through ``ops.mla_decode``
+(the MLA decode kernel on the card, its plain version elsewhere).
 """
 
 from __future__ import annotations
@@ -33,9 +34,10 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import YaRNConfig
+from repro_torch.kernels import ops
 
-from .layers import (NEG_INF, _einsum, _mm, _project, apply_rope, blockwise_attention,
-                     dense_init, rmsnorm)
+from .layers import (_einsum, _mm, _project, apply_rope, blockwise_attention, dense_init,
+                     rmsnorm)
 
 
 def init_mla(gen: torch.Generator, d_model: int, num_heads: int, *,
@@ -206,13 +208,7 @@ def mla_attention(
         c_all, kpe_all = cache.c_kv, cache.k_pe
         # absorbed: score = (q_nope W_uk^T) c_kv^T + q_pe k_pe^T
         q_abs = _einsum("bthk,rhk->bthr", q_nope, params["w_uk"])    # (B,1,H,R)
-        s_nope = torch.einsum("bthr,bsr->bhts", q_abs, c_all.to(q_abs.dtype))
-        s_pe = torch.einsum("bthk,bsk->bhts", q_pe, kpe_all.to(q_pe.dtype))
-        s = (s_nope + s_pe).float() * scale                    # (B,H,1,S)
-        valid = torch.arange(S, device=x.device) <= pos        # ring validity
-        s = torch.where(valid, s, NEG_INF)
-        prob = torch.softmax(s, dim=-1)
-        ctx = torch.einsum("bhts,bsr->bthr", prob.to(c_all.dtype), c_all)  # (B,1,H,R)
+        ctx = ops.mla_decode(q_abs, q_pe, c_all, kpe_all, pos, scale)  # (B,1,H,R)
         out = _einsum("bthr,rhv->bthv", ctx, params["w_uv"])   # (B,1,H,v)
         y = _out_proj(out, params["w_o"])
         if isinstance(pos, torch.Tensor):

@@ -376,7 +376,8 @@ def test_every_decode_product_of_the_cells_takes_the_kernel(cuda_device):
     decode step that goes through ``_mm`` or ``_expert_mm`` takes the
     kernel, none cuBLAS: 7 a llama layer and the head; 5 an MLA layer, 3 a
     dense FFN, 6 an MoE layer (the held experts' 3, the shared expert's
-    3) and the head."""
+    3) and the head.  Each MLA layer's attention core takes its own
+    kernel (``attn.mla_decode``)."""
     from repro_torch.configs.deepseek_v3_671b import published
     from repro_torch.models import get_config, init_model
 
@@ -387,7 +388,7 @@ def test_every_decode_product_of_the_cells_takes_the_kernel(cuda_device):
     cfg = published(num_layers=4, held_experts=(0, 8))
     params = init_model(cfg, seed=0, device=cuda_device)
     assert _decode_counters(cfg, params, cuda_device) == {
-        "mm.small_rows": 5 * 4 + 3 * 3 + 6 + 1}
+        "mm.small_rows": 5 * 4 + 3 * 3 + 6 + 1, "attn.mla_decode": 4}
 
 
 @pytest.mark.requires_cuda
